@@ -1,0 +1,158 @@
+"""ImageNet PTQ entry point of the port: ``validate-quantized``.
+
+Mirrors ``validate-quantized`` of ``cli/image_net.py`` (lines 247-334):
+calibrate -> freeze -> bake -> evaluate, printing the same JSON metrics
+line.  The flag names are the JAX CLI's, plus ``--device {cuda,cpu}`` and
+``--engine {parity,bf16,fused}``.  Two differences: ``--bake-weights`` is
+on by default (the fused engine's kernels for the stem and the 3x3 convs
+need baked weights), and without ``--model-dir`` the weights are random in
+the torchvision layout, made from ``--seed``.
+
+    python -m fp8_quantization_tpu_torch.cli.image_net validate-quantized \\
+        --device cpu --engine fused --per-channel --fp8-set-maxval \\
+        --num-est-batches 1 --max-eval-batches 1 --batch-size 4
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import logging
+import os
+from itertools import islice
+
+log = logging.getLogger("image_net")
+
+
+def _bool_flag(p: argparse.ArgumentParser, name: str, default: bool, help_=""):
+    p.add_argument(f"--{name}", dest=name.replace("-", "_"),
+                   action=argparse.BooleanOptionalAction, default=default,
+                   help=help_)
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="image_net")
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("validate-quantized",
+                       help="PTQ: calibrate ranges, freeze, bake, evaluate")
+    p.add_argument("--images-dir", default=None,
+                   help="ImageNet root with val/ (synthetic data when omitted)")
+    p.add_argument("--architecture", default="resnet18_quantized",
+                   choices=["resnet18_quantized", "resnet50_quantized"])
+    p.add_argument("--model-dir", default=None,
+                   help="torchvision checkpoint (.pth); random weights from "
+                        "--seed when omitted")
+    p.add_argument("--batch-size", type=int, default=64)
+    p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--interpolation", default="bilinear",
+                   choices=["nearest", "bilinear", "bicubic", "lanczos", "box",
+                            "hamming"])
+    p.add_argument("--seed", type=int, default=10)
+    p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--qmethod", default="fp_quantizer",
+                   choices=["symmetric_uniform", "asymmetric_uniform",
+                            "fp_quantizer"])
+    p.add_argument("--qmethod-act", default=None)
+    p.add_argument("--n-bits", type=int, default=8)
+    p.add_argument("--n-bits-act", type=int, default=None)
+    _bool_flag(p, "per-channel", False)
+    p.add_argument("--percentile", type=float, default=None)
+    p.add_argument("--weight-quant-method", default="current_minmax",
+                   choices=["current_minmax", "allminmax", "running_minmax",
+                            "MSE", "line_search"])
+    p.add_argument("--act-quant-method", default="allminmax",
+                   choices=["current_minmax", "allminmax", "running_minmax",
+                            "MSE", "line_search"])
+    p.add_argument("--act-momentum", type=float, default=None)
+    p.add_argument("--quant-setup", default="all",
+                   choices=["all", "FP_logits", "fc4", "LSQ", "LSQ_paper"])
+    _bool_flag(p, "weight-quant", True)
+    _bool_flag(p, "act-quant", True)
+    p.add_argument("--num-est-batches", type=int, default=1)
+    p.add_argument("--fp8-maxval", type=float, default=None)
+    p.add_argument("--fp8-mantissa-bits", type=int, default=4)
+    _bool_flag(p, "fp8-set-maxval", False)
+    _bool_flag(p, "fp8-allow-unsigned", False)
+    p.add_argument("--engine", default="parity",
+                   choices=["parity", "bf16", "fused"],
+                   help="parity=fp32 reference semantics, bf16=normalized-grid "
+                        "products, fused=hand-written CUDA kernels")
+    _bool_flag(p, "bake-weights", True,
+               "bake the quantized weights before evaluating (default on)")
+    p.add_argument("--max-eval-batches", type=int, default=None)
+    return parser
+
+
+def build_model(args):
+    """The quantized model the flags describe, on ``args.device``, with the
+    checkpoint's (or ``--seed``'s random) weights loaded; in eval mode and
+    not yet calibrated."""
+    from fp8_quantization_tpu_torch.device import resolve_device
+    from fp8_quantization_tpu_torch.models.convert import (
+        load_torch_state_dict, load_torchvision_resnet,
+        random_resnet_state_dict)
+    from fp8_quantization_tpu_torch.models.resnet import QUANT_ARCHITECTURES
+    from fp8_quantization_tpu_torch.nn.config import make_layer_config
+
+    config = make_layer_config(
+        qmethod=args.qmethod, act_qmethod=args.qmethod_act,
+        n_bits=args.n_bits, n_bits_act=args.n_bits_act,
+        per_channel_weights=args.per_channel,
+        weight_range_method=args.weight_quant_method,
+        act_range_method=args.act_quant_method, percentile=args.percentile,
+        act_momentum=args.act_momentum, fp8_maxval=args.fp8_maxval,
+        fp8_mantissa_bits=args.fp8_mantissa_bits,
+        fp8_set_maxval=args.fp8_set_maxval,
+        fp8_allow_unsigned=args.fp8_allow_unsigned, engine=args.engine)
+    arch = args.architecture
+    model = QUANT_ARCHITECTURES[arch](config, quant_setup=args.quant_setup,
+                                      device=resolve_device(args.device))
+    bottleneck = "50" in arch
+    sd = (load_torch_state_dict(args.model_dir) if args.model_dir else
+          random_resnet_state_dict(args.seed, model.stage_sizes, bottleneck))
+    load_torchvision_resnet(model, sd)
+    return model.eval()
+
+
+def validate_quantized(args) -> dict:
+    import numpy as np
+    import torch
+
+    from fp8_quantization_tpu_torch.calibration.calibrate import (
+        calibrate, evaluate)
+    from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
+    from fp8_quantization_tpu_torch.device import resolve_device
+    from fp8_quantization_tpu_torch.nn.bake import bake_weights
+
+    device = resolve_device(args.device)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+    model = build_model(args)
+    train_data, val_data = make_dataloaders(
+        args.images_dir, batch_size=args.batch_size,
+        num_workers=args.num_workers, seed=args.seed,
+        interpolation=args.interpolation)
+    cal_data = (list(islice(iter(val_data), args.num_est_batches))
+                if train_data is None else train_data)
+    calibrate(model, cal_data, device=device,
+              num_batches=args.num_est_batches, quant_w=args.weight_quant,
+              quant_a=args.act_quant)
+    log.info("calibration done (%d batches)", args.num_est_batches)
+    quant_w = args.weight_quant
+    if args.bake_weights and quant_w:
+        bake_weights(model)
+        quant_w = False
+        log.info("weights baked: per-step weight quantization disabled")
+    return evaluate(model, val_data, device=device, quant_w=quant_w,
+                    quant_a=args.act_quant, max_batches=args.max_eval_batches)
+
+
+def main(argv=None) -> None:
+    logging.basicConfig(level=os.environ.get("LOGLEVEL", "INFO"))
+    args = build_parser().parse_args(argv)
+    if args.command == "validate-quantized":
+        print(json.dumps(validate_quantized(args)))
+
+
+if __name__ == "__main__":
+    main()

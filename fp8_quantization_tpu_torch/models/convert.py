@@ -1,0 +1,186 @@
+"""Checkpoint loading and weight carry-over for the port's ResNets.
+
+Counterpart of ``fp8_quantization_tpu/models/convert.py`` (whose torchvision
+key map it follows) and of the random checkpoints of
+``tools/dress_rehearsal.py`` (lines 39-70).  Three things:
+
+* ``load_torchvision_resnet``: a torchvision ResNet state dict (numpy or
+  torch values, e.g. from ``load_torch_state_dict``) into a
+  ``QuantizedResNet``;
+* ``random_resnet_state_dict``: a random state dict in the torchvision
+  layout, made with numpy from a seed;
+* ``load_jax_variables``: the JAX package's variables (nested dicts of
+  numpy arrays: ``params`` with HWIO kernels, ``batch_stats``, the
+  ``quant`` collection and ``baked``) into the port's modules, so that a
+  model calibrated or baked in JAX computes the same thing here.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import numpy as np
+import torch
+from torch import nn
+
+from fp8_quantization_tpu_torch.nn.layers import (
+    QuantConv, QuantizedActivation, QuantizedLayerBase)
+
+Arrays = Dict[str, np.ndarray]
+
+
+def load_torch_state_dict(path: str) -> Arrays:
+    """A .pth/.tar checkpoint as numpy arrays (``module.`` prefixes cut)."""
+    sd = torch.load(path, map_location="cpu", weights_only=True)
+    if isinstance(sd, dict) and "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k.replace("module.", ""): v.numpy() for k, v in sd.items()
+            if hasattr(v, "numpy")}
+
+
+def _bn_keys(rng: np.random.RandomState, sd: Arrays, prefix: str, c: int):
+    sd[f"{prefix}.weight"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    sd[f"{prefix}.bias"] = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    sd[f"{prefix}.running_mean"] = (rng.standard_normal(c) * 0.1).astype(np.float32)
+    sd[f"{prefix}.running_var"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+    sd[f"{prefix}.num_batches_tracked"] = np.asarray(1000, np.int64)
+
+
+def random_resnet_state_dict(seed: int, stage_sizes: Sequence[int] = (2, 2, 2, 2),
+                             bottleneck: bool = False,
+                             num_classes: int = 1000) -> Arrays:
+    """Random weights in torchvision's ResNet key layout, float32 numpy, with
+    the scales of tools/dress_rehearsal.py (conv N(0, 0.05^2), BN gamma and
+    running var U(0.5, 1.5), beta and running mean N(0, 0.1^2), fc
+    N(0, 0.02^2), fc bias 0)."""
+    rng = np.random.RandomState(seed)
+    normal = lambda shape, s: (rng.standard_normal(shape) * s).astype(np.float32)  # noqa: E731
+    sd: Arrays = {"conv1.weight": normal((64, 3, 7, 7), 0.05)}
+    _bn_keys(rng, sd, "bn1", 64)
+    exp = 4 if bottleneck else 1
+    in_feats = 64
+    for stage, n_blocks in enumerate(stage_sizes):
+        width = 64 * 2 ** stage
+        for b in range(n_blocks):
+            t = f"layer{stage + 1}.{b}"
+            stride = 2 if (stage > 0 and b == 0) else 1
+            if bottleneck:
+                shapes = [(width, in_feats, 1, 1), (width, width, 3, 3),
+                          (width * 4, width, 1, 1)]
+            else:
+                shapes = [(width, in_feats, 3, 3), (width, width, 3, 3)]
+            for i, shape in enumerate(shapes, 1):
+                sd[f"{t}.conv{i}.weight"] = normal(shape, 0.05)
+                _bn_keys(rng, sd, f"{t}.bn{i}", shape[0])
+            if stride != 1 or in_feats != width * exp:
+                sd[f"{t}.downsample.0.weight"] = normal(
+                    (width * exp, in_feats, 1, 1), 0.05)
+                _bn_keys(rng, sd, f"{t}.downsample.1", width * exp)
+            in_feats = width * exp
+    sd["fc.weight"] = normal((num_classes, in_feats), 0.02)
+    sd["fc.bias"] = np.zeros(num_classes, np.float32)
+    return sd
+
+
+def _bn_targets(mod_path: str, bn_prefix: str) -> dict:
+    return {f"{bn_prefix}.weight": f"{mod_path}.bn_weight",
+            f"{bn_prefix}.bias": f"{mod_path}.bn_bias",
+            f"{bn_prefix}.running_mean": f"{mod_path}.running_mean",
+            f"{bn_prefix}.running_var": f"{mod_path}.running_var"}
+
+
+def torchvision_key_map(model) -> dict:
+    """torchvision key -> the port's state-dict key for a QuantizedResNet."""
+    keys = {"conv1.weight": "stem.weight", **_bn_targets("stem", "bn1"),
+            "fc.weight": "fc.weight", "fc.bias": "fc.bias"}
+    for name in model.block_names:
+        stage, b = name[len("layer"):].split("_")
+        t = f"layer{stage}.{b}"
+        block = getattr(model, name)
+        for i in range(1, len(list(block.children())) + 1):
+            keys[f"{t}.conv{i}.weight"] = f"{name}.conv{i}.weight"
+            keys.update(_bn_targets(f"{name}.conv{i}", f"{t}.bn{i}"))
+        if hasattr(model, f"{name}_downsample"):
+            keys[f"{t}.downsample.0.weight"] = f"{name}_downsample.weight"
+            keys.update(_bn_targets(f"{name}_downsample", f"{t}.downsample.1"))
+    return keys
+
+
+@torch.no_grad()
+def load_torchvision_resnet(model, sd) -> None:
+    """Copy a torchvision ResNet state dict into ``model`` (in place, shape
+    checked; every parameter of the map must be present)."""
+    own = model.state_dict()
+    for src, dst in torchvision_key_map(model).items():
+        if src not in sd:
+            raise KeyError(f"missing {src!r} in the state dict")
+        value = torch.as_tensor(np.asarray(sd[src]), dtype=torch.float32)
+        if tuple(value.shape) != tuple(own[dst].shape):
+            raise ValueError(f"shape mismatch at {src}: {tuple(value.shape)} vs "
+                             f"{tuple(own[dst].shape)}")
+        own[dst].copy_(value)
+
+
+def _node(tree, path: Sequence[str]):
+    for k in path:
+        if not isinstance(tree, dict) or k not in tree:
+            return None
+        tree = tree[k]
+    return tree
+
+
+def _copy(dst: torch.Tensor, value) -> None:
+    v = torch.as_tensor(np.array(value)).to(dst.dtype)
+    if tuple(v.shape) != tuple(dst.shape):
+        raise ValueError(f"shape mismatch: {tuple(v.shape)} vs {tuple(dst.shape)}")
+    dst.copy_(v)
+
+
+def _load_quantizer(quantizer, tree) -> None:
+    if tree is None:
+        return
+    quantizer.load_state({k: np.array(v) for k, v in tree.get("q", {}).items()},
+                         {k: np.array(v) for k, v in tree.get("est", {}).items()})
+
+
+@torch.no_grad()
+def load_jax_variables(model: nn.Module, variables: dict) -> None:
+    """Load the JAX package's variables into the port's modules in place.
+
+    Module paths are the JAX scope paths (``layer1_0.conv1`` <->
+    ``("layer1_0", "conv1")``).  Conv kernels go HWIO -> OIHW, dense
+    kernels (in, out) -> (out, in); ``gamma``/``beta`` -> ``bn_weight``/
+    ``bn_bias``; ``batch_stats`` mean/var -> running_mean/var; ``quant``
+    ``q``/``est`` -> quantizer and estimator buffers; ``baked/w_factor`` ->
+    ``w_factor``.
+    """
+    params = variables.get("params", {})
+    stats = variables.get("batch_stats", {})
+    quant = variables.get("quant", {})
+    baked = variables.get("baked", {})
+    for name, mod in model.named_modules():
+        path = name.split(".") if name else []
+        if isinstance(mod, QuantizedLayerBase):
+            p = _node(params, path)
+            if p is None:
+                raise KeyError(f"no params for {name!r}")
+            k = np.asarray(p["kernel"])
+            k = k.transpose(3, 2, 0, 1) if isinstance(mod, QuantConv) else k.T
+            _copy(mod.weight, k)
+            if mod.bn:
+                _copy(mod.bn_weight, p["gamma"])
+                _copy(mod.bn_bias, p["beta"])
+                s = _node(stats, path)
+                _copy(mod.running_mean, s["mean"])
+                _copy(mod.running_var, s["var"])
+            if mod.use_bias:
+                _copy(mod.bias, p["bias"])
+            q = _node(quant, path) or {}
+            _load_quantizer(mod.weight_q, q.get("weight_q"))
+            _load_quantizer(mod.act_q, q.get("act_q"))
+            wf = _node(baked, path + ["w_factor"])
+            mod.w_factor = (None if wf is None else torch.tensor(
+                np.asarray(wf), dtype=torch.float32,
+                device=mod.weight.device).reshape(-1))
+        elif isinstance(mod, QuantizedActivation):
+            _load_quantizer(mod.act_q, _node(quant, path + ["act_q"]))

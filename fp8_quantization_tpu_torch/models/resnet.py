@@ -1,0 +1,196 @@
+"""Quantized ResNet-18/50 on NHWC input.
+
+Mirrors ``fp8_quantization_tpu/models/resnet.py``: torchvision's topology
+with every conv+bn(+relu) a BN-fused quantized conv; each residual block
+ends add -> relu -> block activation quantizer; the global average pool is
+quantized by the tied quantizer of the last block without a range update
+(there lines 248-253); the fc is a quantized linear.  Module names follow
+the JAX package (``stem``, ``layer{s}_{b}.conv{i}``,
+``layer{s}_{b}_downsample``, ``layer{s}_{b}_act``, ``fc``) so that its
+variables carry over by path (models/convert.load_jax_variables).
+
+Under ``engine='fused'`` in fixed mode the stem (conv7x7/2 + BN + relu +
+maxpool + quant) runs the qstem kernel once it is baked (there lines
+132-173).  The ``LSQ_paper`` preset needs input quantization and raises.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+from torch import nn
+
+from fp8_quantization_tpu_torch.device import resolve_device
+from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
+from fp8_quantization_tpu_torch.nn.factored import (
+    Factored, fadd, fmax_pool, fmean, materialize)
+from fp8_quantization_tpu_torch.nn.layers import (
+    QuantConv, QuantizedActivation, QuantLinear)
+from fp8_quantization_tpu_torch.ops.kernels import qstem
+
+
+class BasicBlockFeatures(nn.Module):
+    """conv3x3-bn-relu -> conv3x3-bn (quantized), no residual/act."""
+
+    expansion = 1
+
+    def __init__(self, in_features: int, features: int, stride: int,
+                 config: LayerQuantConfig):
+        super().__init__()
+        self.conv1 = QuantConv(in_features, features, 3, stride, 1, bn=True,
+                               activation="relu", config=config)
+        self.conv2 = QuantConv(features, features, 3, 1, 1, bn=True,
+                               config=config)
+
+    def forward(self, x, **kw):
+        return self.conv2(self.conv1(x, **kw), **kw)
+
+
+class BottleneckFeatures(nn.Module):
+    """conv1x1-bn-relu -> conv3x3-bn-relu -> conv1x1-bn (expansion 4)."""
+
+    expansion = 4
+
+    def __init__(self, in_features: int, features: int, stride: int,
+                 config: LayerQuantConfig):
+        super().__init__()
+        self.conv1 = QuantConv(in_features, features, 1, 1, 0, bn=True,
+                               activation="relu", config=config)
+        self.conv2 = QuantConv(features, features, 3, stride, 1, bn=True,
+                               activation="relu", config=config)
+        self.conv3 = QuantConv(features, features * 4, 1, 1, 0, bn=True,
+                               config=config)
+
+    def forward(self, x, **kw):
+        return self.conv3(self.conv2(self.conv1(x, **kw), **kw), **kw)
+
+
+class QuantizedResNet(nn.Module):
+    """ResNet-18/50 with per-layer quantization configs."""
+
+    def __init__(self, stage_sizes: Sequence[int], bottleneck: bool,
+                 num_classes: int = 1000,
+                 config: LayerQuantConfig = LayerQuantConfig(),
+                 stem_config: Optional[LayerQuantConfig] = None,
+                 fc_config: Optional[LayerQuantConfig] = None,
+                 last_block_config: Optional[LayerQuantConfig] = None,
+                 block_act_config: Optional[LayerQuantConfig] = None,
+                 tie_avgpool: bool = True):
+        super().__init__()
+        self.config = config
+        self.stage_sizes = tuple(stage_sizes)
+        self.tie_avgpool = tie_avgpool
+        self.stem = QuantConv(3, 64, 7, 2, 3, bn=True, activation="relu",
+                              config=stem_config or config)
+        block_cls = BottleneckFeatures if bottleneck else BasicBlockFeatures
+        widths = (64, 128, 256, 512)
+        num_blocks = sum(self.stage_sizes)
+        self.block_names = []
+        in_feats, idx = 64, 0
+        for stage, n_blocks in enumerate(self.stage_sizes):
+            for b in range(n_blocks):
+                last = idx == num_blocks - 1
+                bcfg = (last_block_config or config) if last else config
+                ba_cfg = (last_block_config or block_act_config or config
+                          if last else block_act_config or config)
+                stride = 2 if (stage > 0 and b == 0) else 1
+                width = widths[stage]
+                out_feats = width * block_cls.expansion
+                name = f"layer{stage + 1}_{b}"
+                if stride != 1 or in_feats != out_feats:
+                    self.add_module(f"{name}_downsample", QuantConv(
+                        in_feats, out_feats, 1, stride, 0, bn=True,
+                        config=config))
+                self.add_module(name, block_cls(in_feats, width, stride, bcfg))
+                self.add_module(f"{name}_act", QuantizedActivation(ba_cfg))
+                self.block_names.append(name)
+                in_feats, idx = out_feats, idx + 1
+        self.fc = QuantLinear(in_feats, num_classes, use_bias=True,
+                              config=fc_config or config)
+
+    def _fused_stem(self, x, mode, quant_w, quant_a, train_bn, out):
+        """The qstem kernel route, or None for the layer + pool path."""
+        if (mode != "fixed" or train_bn or self.config.engine != "fused"
+                or isinstance(x, Factored) or x.ndim != 4
+                or x.shape[1] != x.shape[2] or x.shape[-1] > 4):
+            return None
+        st = self.stem.fused_state(quant_w, quant_a)
+        if st is None:
+            return None
+        emit = out == "factored" and st["a_method"] != "none" and st["factored_ok"]
+        kcfg = qstem.FusedStemConfig(act_method=st["a_method"], emit_norm=emit)
+        y = qstem.fused_quant_stem(x.contiguous(), self.stem.stem_operand(),
+                                   st["a_consts"], st["scale"].contiguous(),
+                                   st["shift"].contiguous(), cfg=kcfg)
+        return Factored(y, st["a_consts"][5, 0]) if emit else y
+
+    def forward(self, x, mode: str = "fixed", quant_w: bool = True,
+                quant_a: bool = True, train_bn: bool = False):
+        kw = dict(mode=mode, quant_w=quant_w, quant_a=quant_a, train_bn=train_bn)
+        out = "value"
+        if mode == "fixed" and self.config.engine in ("bf16", "fused"):
+            out = kw["out"] = "factored"
+
+        xs = self._fused_stem(x, mode, quant_w, quant_a, train_bn, out)
+        if xs is None:
+            xs = fmax_pool(self.stem(x, **kw), 3, 2, 1)
+        x = xs
+
+        last_q = None
+        for name in self.block_names:
+            downsample = getattr(self, f"{name}_downsample", None)
+            residual = x if downsample is None else downsample(x, **kw)
+            y = getattr(self, name)(x, **kw)
+            y = torch.relu(fadd(y, residual))
+            last_q = getattr(self, f"{name}_act")
+            x = last_q(y, mode=mode, quant_a=quant_a, out=out)
+
+        x = fmean(x, axis=(1, 2))
+        if self.tie_avgpool and last_q is not None:
+            x = last_q(x, mode=mode, quant_a=quant_a, update_range=False, out=out)
+        x = self.fc(x, **{**kw, "out": "value"})
+        return materialize(x)
+
+
+def resnet_configs(base: LayerQuantConfig, quant_setup: Optional[str]) -> dict:
+    """quant_setup presets -> per-layer config overrides."""
+    setup = quant_setup or "all"
+    cfgs = dict(config=base, stem_config=None, fc_config=None,
+                last_block_config=None, block_act_config=None, tie_avgpool=True)
+    if setup == "all":
+        return cfgs
+    if setup == "FP_logits":
+        cfgs["fc_config"] = base.fp32_acts()
+        return cfgs
+    if setup == "fc4":
+        cfgs["stem_config"] = base.with_weight_bits(8)
+        cfgs["fc_config"] = base.with_weight_bits(4)
+        return cfgs
+    if setup == "LSQ":
+        cfgs["stem_config"] = base.with_weight_bits(8)
+        cfgs["last_block_config"] = base.with_act_bits(8)
+        cfgs["fc_config"] = base.with_weight_bits(8).fp32_acts()
+        return cfgs
+    if setup == "LSQ_paper":
+        raise NotImplementedError("LSQ_paper needs input quantization, which "
+                                  "is not ported yet")
+    raise ValueError(f"Quantization setup '{setup}' not supported for Resnet")
+
+
+def resnet18_quantized(base: LayerQuantConfig, quant_setup: Optional[str] = None,
+                       num_classes: int = 1000, device="cuda") -> QuantizedResNet:
+    return QuantizedResNet((2, 2, 2, 2), False, num_classes,
+                           **resnet_configs(base, quant_setup)).to(
+                               resolve_device(device))
+
+
+def resnet50_quantized(base: LayerQuantConfig, quant_setup: Optional[str] = None,
+                       num_classes: int = 1000, device="cuda") -> QuantizedResNet:
+    return QuantizedResNet((3, 4, 6, 3), True, num_classes,
+                           **resnet_configs(base, quant_setup)).to(
+                               resolve_device(device))
+
+
+QUANT_ARCHITECTURES = {"resnet18_quantized": resnet18_quantized,
+                       "resnet50_quantized": resnet50_quantized}

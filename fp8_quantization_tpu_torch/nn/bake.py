@@ -1,0 +1,41 @@
+"""Bake fake-quantized weights into the layers for inference.
+
+Mirrors ``bake_weights`` of ``fp8_quantization_tpu/nn/bake.py``: after
+calibration, every quantized layer's weight is replaced by its fixed-mode
+quantized value and the model is evaluated with ``quant_w=False``.
+
+* ``parity`` engine: the weight becomes the full-scale fake-quant value.
+* ``bf16`` / ``fused`` engines: the weight becomes the normalized-grid value
+  (bf16-exact) and its per-channel factor goes to the layer's ``w_factor``
+  buffer, which the layer folds in after the product.
+
+The JAX package bakes by running one forward and collecting what layers
+sow; under ``engine='pallas'`` its kernel routes never sow, so the fc and
+the 1x1 downsample convs are left unbaked and then run on unquantized
+weights (see ROADMAP.md, section C).  This port bakes each quantized layer
+directly from its weight quantizer, with no forward, so every layer with
+``config.quant_w`` is baked whatever the engine.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import nn
+
+from fp8_quantization_tpu_torch.nn.layers import QuantizedLayerBase
+
+
+@torch.no_grad()
+def bake_weights(model: nn.Module) -> nn.Module:
+    """Bake every quantized layer of ``model`` in place; returns the model.
+    Evaluate afterwards with ``quant_w=False``."""
+    for layer in model.modules():
+        if not isinstance(layer, QuantizedLayerBase) or not layer.config.quant_w:
+            continue
+        if layer.config.engine == "parity":
+            layer.weight.copy_(layer.weight_q(layer.weight, mode="fixed"))
+            continue
+        wn, wf = layer.weight_q(layer.weight, mode="fixed", out="factored")
+        layer.weight.copy_(wn)
+        layer.w_factor = wf.reshape(-1).to(torch.float32).clone()
+    return model

@@ -1,0 +1,115 @@
+"""Layer-level quantization configuration.
+
+Mirrors ``fp8_quantization_tpu/nn/config.py`` (``LayerQuantConfig``,
+``make_layer_config``) for the FP8 PTQ slice.  Flags of the JAX package
+that this port does not carry yet raise instead of being ignored.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+from fp8_quantization_tpu_torch.calibration.estimators import (
+    EstimatorSpec, RangeEstimators)
+from fp8_quantization_tpu_torch.ops.quantizer import QMethod, QuantizerSpec
+
+ENGINES = ("parity", "bf16", "fused")
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerQuantConfig:
+    """Everything a quantized layer needs to know, statically.
+
+    ``engine``:
+      'parity' - fp32 conv/matmul on fake-quantized operands;
+      'bf16'   - operands on the normalized grid, exact in bf16, products
+                 summed in fp32, channel factors applied after the product;
+      'fused'  - the counterpart of the JAX 'pallas' engine: in fixed mode
+                 the stem, the 3x3 convs (both baked) and the 1x1 convs and
+                 linears run the hand-written kernels in ops/kernels/.
+    """
+
+    weight_quant: QuantizerSpec = QuantizerSpec()
+    act_quant: QuantizerSpec = QuantizerSpec()
+    weight_range: EstimatorSpec = EstimatorSpec(kind=RangeEstimators.current_minmax)
+    act_range: EstimatorSpec = EstimatorSpec(kind=RangeEstimators.running_minmax)
+    quant_w: bool = True
+    quant_a: bool = True
+    engine: str = "parity"
+
+    def __post_init__(self):
+        if self.engine not in ENGINES:
+            raise ValueError(f"engine must be one of {ENGINES}, got {self.engine!r}")
+
+    def replace(self, **kw) -> "LayerQuantConfig":
+        return dataclasses.replace(self, **kw)
+
+    def with_weight_bits(self, n_bits: int) -> "LayerQuantConfig":
+        return self.replace(weight_quant=self.weight_quant.replace(n_bits=n_bits))
+
+    def with_act_bits(self, n_bits: int) -> "LayerQuantConfig":
+        return self.replace(act_quant=self.act_quant.replace(n_bits=n_bits))
+
+    def fp32_acts(self) -> "LayerQuantConfig":
+        return self.replace(quant_a=False)
+
+
+_NOT_PORTED = {
+    "quantize_input": "input quantization (LSQ_paper preset)",
+    "int8_mxu": "the int8 datapath (INT8 slice)",
+    "deploy_cast_quant": "the IEEE-f8 cast fast path",
+    "deploy_act_f8": "f8 activation storage",
+    "deploy_cast_ieee": "the IEEE-f8 cast fast path",
+    "conv_out_bf16": "bf16 conv stores",
+    "fp8_learn_maxval": "QAT",
+    "fp8_learn_mantissa_bits": "QAT",
+}
+
+
+def make_layer_config(
+    qmethod: str | QMethod = QMethod.fp_quantizer,
+    act_qmethod: str | QMethod | None = None,
+    n_bits: int = 8,
+    n_bits_act: Optional[int] = None,
+    per_channel_weights: bool = False,
+    weight_range_method: str | RangeEstimators = RangeEstimators.current_minmax,
+    act_range_method: str | RangeEstimators = RangeEstimators.running_minmax,
+    percentile: Optional[float] = None,
+    act_momentum: Optional[float] = None,
+    fp8_maxval: Optional[float] = None,
+    fp8_mantissa_bits: int = 4,
+    fp8_set_maxval: bool = False,
+    fp8_allow_unsigned: bool = False,
+    bn_mode: str = "fp32_after",
+    engine: str = "parity",
+    **not_ported,
+) -> LayerQuantConfig:
+    """Build a LayerQuantConfig from the JAX package's flag values; the same
+    qmethod and FP8 options feed weight and act quantizers."""
+    for name, value in not_ported.items():
+        if name not in _NOT_PORTED:
+            raise TypeError(f"unknown option {name!r}")
+        if value:
+            raise NotImplementedError(f"{name}: {_NOT_PORTED[name]} is not "
+                                      "ported yet")
+    if bn_mode != "fp32_after":
+        raise NotImplementedError("bn_mode='folded' is not ported yet")
+    qmethod = QMethod(qmethod)
+    act_qmethod = QMethod(act_qmethod) if act_qmethod else qmethod
+
+    def _qspec(method: QMethod, bits: int, per_channel: bool) -> QuantizerSpec:
+        return QuantizerSpec(method=method, n_bits=bits, per_channel=per_channel,
+                             mantissa_bits=fp8_mantissa_bits, maxval=fp8_maxval,
+                             set_maxval=fp8_set_maxval,
+                             allow_unsigned=fp8_allow_unsigned)
+
+    act_kwargs = {} if act_momentum is None else {"momentum": act_momentum}
+    return LayerQuantConfig(
+        weight_quant=_qspec(qmethod, n_bits, per_channel_weights),
+        act_quant=_qspec(act_qmethod, n_bits_act or n_bits, False),
+        weight_range=EstimatorSpec(kind=RangeEstimators(weight_range_method),
+                                   percentile=percentile),
+        act_range=EstimatorSpec(kind=RangeEstimators(act_range_method),
+                                percentile=percentile, **act_kwargs),
+        engine=engine)

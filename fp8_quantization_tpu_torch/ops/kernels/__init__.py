@@ -1,0 +1,22 @@
+"""Hand-written Hopper kernels, each beside its plain PyTorch version.
+
+Wrappers take the plain version for CPU tensors and launch the CUDA kernel
+for CUDA tensors (no fallback between the two); each wrapper counts its
+launches in its ``launches`` attribute.
+"""
+
+from fp8_quantization_tpu_torch.ops.kernels.qconv import fused_quant_conv3x3
+from fp8_quantization_tpu_torch.ops.kernels.qmatmul import fused_quant_matmul
+from fp8_quantization_tpu_torch.ops.kernels.qstem import fused_quant_stem
+
+WRAPPERS = {"qstem": fused_quant_stem, "qconv3x3": fused_quant_conv3x3,
+            "qmatmul": fused_quant_matmul}
+
+
+def reset_launch_counts() -> None:
+    for fn in WRAPPERS.values():
+        fn.launches = 0
+
+
+def launch_counts() -> dict:
+    return {name: fn.launches for name, fn in WRAPPERS.items()}

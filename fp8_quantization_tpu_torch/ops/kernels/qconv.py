@@ -1,0 +1,142 @@
+"""Fused 3x3 SAME conv: ``y = out_quant(act(conv3x3(x, w)*scale + shift
+[+ residual]))``.
+
+Mirrors ``fused_quant_conv3x3`` of ``fp8_quantization_tpu/ops/pallas/
+qconv.py`` (Pallas bodies ``_qconv3x3_kernel`` and ``_conv_epilogue``,
+lines 130 and 111; ``pallas_call`` at line 472).  The kernel is
+``csrc/qconv.cu``: an implicit GEMM over NHWC, M = N*Ho*Wo, K = 9*Cin,
+N = Cout, with SAME padding as a bounds mask and stride 2 as index
+arithmetic.
+
+Semantics carried over: ``act_method``, ``activation``, ``residual``,
+``emit_norm`` and ``stride``.  The input is a factored bf16 norm; the
+weights are baked normalized values laid out once, at bake time, as a
+``(9*Cin, Cout)`` bf16 matrix (``weight_matrix``).  The TPU knobs
+(``imgs_per_block``, ``im2col``, the phase split, the VMEM limit) do not
+carry over; the int8 body waits for the INT8 slice.
+
+On the card the early layers are bound by bytes and the late ones by
+operations (see the note in csrc/qconv.cu).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from fp8_quantization_tpu_torch.nn.activations import get_activation
+from fp8_quantization_tpu_torch.ops.fp8 import fp8_quantize_prepared
+from fp8_quantization_tpu_torch.ops.kernels import build
+from fp8_quantization_tpu_torch.ops.kernels.common import (
+    ACTIVATION_CODES, check_methods, consts_or_dummy, on_card, require,
+    stream_ptr)
+
+REPLACES = "fp8_quantization_tpu/ops/pallas/qconv.py:130"
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedConvConfig:
+    act_method: str = "none"            # output quantizer: "fp8" | "none"
+    activation: Optional[str] = None    # None | "relu" | "relu6"
+    residual: bool = False              # add a residual after scale/shift
+    emit_norm: bool = False             # store the normalized bf16 value
+    stride: int = 1                     # 1 or 2
+
+    def __post_init__(self):
+        check_methods(self.act_method, self.activation)
+        if self.stride not in (1, 2):
+            raise ValueError(f"stride must be 1 or 2, got {self.stride}")
+        if self.emit_norm and self.act_method == "none":
+            raise ValueError("emit_norm needs an output quantizer")
+
+
+def weight_matrix(w_oihw: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, 3, 3) weights -> the kernel's (9*Cin, Cout) bf16 matrix,
+    row (dy*3 + dx)*Cin + ci."""
+    cout, cin = w_oihw.shape[:2]
+    return (w_oihw.permute(2, 3, 1, 0).reshape(9 * cin, cout)
+            .to(torch.bfloat16).contiguous())
+
+
+def out_hw(h: int, w: int, stride: int) -> tuple[int, int]:
+    return (h - 1) // stride + 1, (w - 1) // stride + 1
+
+
+def qconv3x3_plain(x: torch.Tensor, w: torch.Tensor, a_consts,
+                   scale: torch.Tensor, shift: torch.Tensor,
+                   residual: Optional[torch.Tensor],
+                   cfg: FusedConvConfig) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (CPU tests, card reference).
+    On the card call it under ``common.no_tf32()``."""
+    cin, cout = x.shape[-1], w.shape[1]
+    wk = w.to(torch.float32).reshape(3, 3, cin, cout).permute(3, 2, 0, 1)
+    xb = x.to(torch.bfloat16).to(torch.float32).permute(0, 3, 1, 2)
+    y = F.conv2d(xb, wk, stride=cfg.stride, padding=1).permute(0, 2, 3, 1)
+    y = y * scale + shift
+    if residual is not None:
+        y = y + residual.to(torch.float32)
+    act = get_activation(cfg.activation)
+    if act is not None:
+        y = act(y)
+    if cfg.act_method == "fp8":
+        y = fp8_quantize_prepared(y, a_consts, normalized=cfg.emit_norm)
+    return y.to(torch.bfloat16 if cfg.emit_norm else torch.float32).contiguous()
+
+
+def fused_quant_conv3x3(x: torch.Tensor, w: torch.Tensor,
+                        a_consts: Optional[torch.Tensor],
+                        scale: torch.Tensor, shift: torch.Tensor,
+                        residual: Optional[torch.Tensor] = None, *,
+                        cfg: FusedConvConfig) -> torch.Tensor:
+    """y (N, Ho, Wo, Cout) for x (N, H, W, Cin) bf16 norms and the
+    ``weight_matrix`` w (9*Cin, Cout) bf16; ``a_consts`` (6, 1) for the
+    output quant, ``scale``/``shift`` (Cout,) float32, ``residual``
+    (N, Ho, Wo, Cout) added after scale/shift (cast to bf16 under emit_norm,
+    float32 otherwise, as the JAX wrapper does).  CPU tensors take
+    ``qconv3x3_plain``; CUDA tensors launch the kernel."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[1]
+    if w.shape != (9 * cin, cout):
+        raise ValueError(f"w must be (9*Cin, Cout) = ({9 * cin}, *), "
+                         f"got {tuple(w.shape)}")
+    if cfg.residual != (residual is not None):
+        raise ValueError("cfg.residual must match the residual argument")
+    ho, wo = out_hw(h, wd, cfg.stride)
+    if residual is not None:
+        if tuple(residual.shape) != (n, ho, wo, cout):
+            raise ValueError(f"residual shape {tuple(residual.shape)} != "
+                             f"{(n, ho, wo, cout)}")
+        residual = residual.to(torch.bfloat16 if cfg.emit_norm
+                               else torch.float32).contiguous()
+    extra = [t for t in (a_consts, residual) if t is not None]
+    if not on_card(x, w, scale, shift, *extra):
+        return qconv3x3_plain(x, w, a_consts, scale, shift, residual, cfg)
+    af8 = cfg.act_method == "fp8"
+    if af8 and a_consts is None:
+        raise ValueError("act_method='fp8' needs a_consts")
+    if cin % 8 or cout % 8:
+        raise ValueError(f"the conv kernel needs Cin and Cout divisible by 8, "
+                         f"got {cin}, {cout}")
+    a_consts = consts_or_dummy(a_consts if af8 else None, x)
+    require(x, "x", (torch.bfloat16,), vector_loads=True)
+    require(w, "w", (torch.bfloat16,), vector_loads=True)
+    require(a_consts, "a_consts", (torch.float32,), (6, 1))
+    require(scale, "scale", (torch.float32,), (cout,))
+    require(shift, "shift", (torch.float32,), (cout,))
+    out = torch.empty((n, ho, wo, cout), device=x.device,
+                      dtype=torch.bfloat16 if cfg.emit_norm else torch.float32)
+    err = build.entry("qconv")(
+        x.data_ptr(), w.data_ptr(), a_consts.data_ptr(), scale.data_ptr(),
+        shift.data_ptr(), residual.data_ptr() if residual is not None else None,
+        int(residual is not None and residual.dtype == torch.bfloat16),
+        out.data_ptr(), n, h, wd, cin, cout, cfg.stride, int(af8),
+        ACTIVATION_CODES[cfg.activation], int(cfg.emit_norm), stream_ptr(x))
+    build.check(err, "qconv3x3")
+    fused_quant_conv3x3.launches += 1
+    return out
+
+
+fused_quant_conv3x3.launches = 0

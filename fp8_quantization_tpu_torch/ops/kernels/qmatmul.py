@@ -1,0 +1,130 @@
+"""Fused quant-matmul: ``y = epilogue(fq(x) @ fq(w)^T)``.
+
+Mirrors ``fused_quant_matmul`` of ``fp8_quantization_tpu/ops/pallas/
+qmatmul.py`` (Pallas body ``_qmatmul_kernel``, line 145; ``pallas_call`` at
+line 389).  The kernel is ``csrc/qmatmul.cu``.
+
+Semantics carried over: ``weight_method`` ("fp8": w is raw float32 and is
+FP8-quantized per output channel in the kernel; "none": w is already on the
+normalized grid), ``act_method``, ``quantize_input``, ``activation`` and
+``emit_norm``.  Operands enter the product as bf16 on the normalized grid
+with fp32 sums; the epilogue multiplies the channel factors back in, then
+``y*scale + shift``, relu/relu6 and the optional output FP8 quant.  The TPU
+tiling knobs (block sizes, VMEM limit) do not carry over; the int_sym /
+int_asym branches and the int8 body wait for the INT8 slice.
+
+Differences from the JAX signature: ``w`` is ``(N, K)`` (torch's Linear
+layout, the kernel reads it as the column-major B operand) and the
+quantizers arrive as ``(6, C)`` constants from ``ops/fp8.fp8_consts``.
+
+On the card the kernel is bound by bytes and launch latency at ResNet-18's
+shapes (see the note in csrc/qmatmul.cu).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+
+from fp8_quantization_tpu_torch.ops.fp8 import fp8_quantize_prepared
+from fp8_quantization_tpu_torch.ops.kernels import build
+from fp8_quantization_tpu_torch.ops.kernels.common import (
+    ACTIVATION_CODES, check_methods, consts_or_dummy, on_card, require,
+    stream_ptr)
+from fp8_quantization_tpu_torch.nn.activations import get_activation
+
+REPLACES = "fp8_quantization_tpu/ops/pallas/qmatmul.py:145"
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedQuantMatmulConfig:
+    weight_method: str = "fp8"          # "fp8" | "none"
+    act_method: str = "none"            # "fp8" | "none": x-in or y-out quant
+    quantize_input: bool = False        # True: quantize x; False: quantize y
+    activation: Optional[str] = None    # None | "relu" | "relu6"
+    emit_norm: bool = False             # store the normalized bf16 value
+
+    def __post_init__(self):
+        check_methods(self.act_method, self.activation, self.weight_method)
+        if self.emit_norm and (self.act_method == "none" or self.quantize_input):
+            raise ValueError("emit_norm needs an output quantizer")
+
+
+def qmatmul_plain(x: torch.Tensor, w: torch.Tensor, w_consts, a_consts,
+                  scale: torch.Tensor, shift: torch.Tensor,
+                  cfg: FusedQuantMatmulConfig) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch (CPU tests, card reference).
+    On the card call it under ``common.no_tf32()``."""
+    xf = x.to(torch.float32)
+    if cfg.quantize_input and cfg.act_method == "fp8":
+        xf = fp8_quantize_prepared(xf, a_consts, normalized=True)
+    wf = w.to(torch.float32)
+    if cfg.weight_method == "fp8":
+        wf = fp8_quantize_prepared(wf, w_consts, channel_axis=0, normalized=True)
+    y = (xf.to(torch.bfloat16).to(torch.float32)
+         @ wf.to(torch.bfloat16).to(torch.float32).t())
+    if cfg.weight_method == "fp8":
+        y = y * w_consts[5]
+    if cfg.quantize_input and cfg.act_method == "fp8":
+        y = y * a_consts[5, 0]
+    y = y * scale + shift
+    act = get_activation(cfg.activation)
+    if act is not None:
+        y = act(y)
+    if cfg.act_method == "fp8" and not cfg.quantize_input:
+        y = fp8_quantize_prepared(y, a_consts, normalized=cfg.emit_norm)
+    return y.to(torch.bfloat16 if cfg.emit_norm else torch.float32)
+
+
+def fused_quant_matmul(x: torch.Tensor, w: torch.Tensor,
+                       w_consts: Optional[torch.Tensor],
+                       a_consts: Optional[torch.Tensor],
+                       scale: torch.Tensor, shift: torch.Tensor, *,
+                       cfg: FusedQuantMatmulConfig) -> torch.Tensor:
+    """y (M, N) = epilogue(fq(x) @ fq(w)^T).
+
+    Args:
+      x: (M, K) float32 or bf16.
+      w: (N, K) float32 (weight_method "fp8") or bf16 normalized grid.
+      w_consts: (6, N) per-channel weight quantizer constants ("fp8").
+      a_consts: (6, 1) activation quantizer constants (act_method "fp8").
+      scale, shift: (N,) float32 epilogue ``y*scale + shift``.
+    Returns float32, or bf16 normalized values with ``cfg.emit_norm``.
+    CPU tensors take ``qmatmul_plain``; CUDA tensors launch the kernel.
+    """
+    M, K = x.shape
+    N = w.shape[0]
+    if w.shape != (N, K):
+        raise ValueError(f"w must be (N, K) = (*, {K}), got {tuple(w.shape)}")
+    extra = [t for t in (w_consts, a_consts) if t is not None]
+    if not on_card(x, w, scale, shift, *extra):
+        return qmatmul_plain(x, w, w_consts, a_consts, scale, shift, cfg)
+    wf8 = cfg.weight_method == "fp8"
+    af8 = cfg.act_method == "fp8"
+    if wf8 and w_consts is None or af8 and a_consts is None:
+        raise ValueError("fp8 methods need their quantizer constants")
+    w_consts = consts_or_dummy(w_consts if wf8 else None, x)
+    a_consts = consts_or_dummy(a_consts if af8 else None, x)
+    fp = (torch.float32, torch.bfloat16)
+    require(x, "x", fp)
+    require(w, "w", (torch.float32,) if wf8 else (torch.bfloat16,))
+    require(w_consts, "w_consts", (torch.float32,), (6, N) if wf8 else (6, 1))
+    require(a_consts, "a_consts", (torch.float32,), (6, 1))
+    require(scale, "scale", (torch.float32,), (N,))
+    require(shift, "shift", (torch.float32,), (N,))
+    out = torch.empty((M, N), device=x.device,
+                      dtype=torch.bfloat16 if cfg.emit_norm else torch.float32)
+    err = build.entry("qmatmul")(
+        x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
+        int(w.dtype == torch.bfloat16), w_consts.data_ptr(),
+        a_consts.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+        out.data_ptr(), M, N, K, int(wf8), int(af8), int(cfg.quantize_input),
+        ACTIVATION_CODES[cfg.activation], int(cfg.emit_norm), stream_ptr(x))
+    build.check(err, "qmatmul")
+    fused_quant_matmul.launches += 1
+    return out
+
+
+fused_quant_matmul.launches = 0

@@ -1,0 +1,128 @@
+"""Functional quantizer: static spec + state dict + pure transforms.
+
+Mirrors ``fp8_quantization_tpu/ops/quantizer.py`` for ``fp_quantizer``:
+``QMethod``, ``QuantizerSpec``, ``init_state``, ``apply``,
+``apply_factored`` and ``set_quant_range``.  The uniform (INT) methods raise
+``NotImplementedError`` until the INT8 slice ports ``ops/uniform.py``.
+
+Per-channel state is 1-D ``(C,)`` and broadcast along ``channel_axis``.
+Torch weights are OIHW / (out, in), so weight quantizers use
+``channel_axis=0`` where the JAX package (HWIO) uses -1.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Dict
+
+import torch
+
+from fp8_quantization_tpu_torch.ops import fp8 as fp8_ops
+from fp8_quantization_tpu_torch.ops.rounding import round_ste
+
+
+class QMethod(str, enum.Enum):
+    symmetric_uniform = "symmetric_uniform"
+    asymmetric_uniform = "asymmetric_uniform"
+    fp_quantizer = "fp_quantizer"
+
+
+def _int8_slice(method) -> NotImplementedError:
+    return NotImplementedError(f"INT8 slice: quantizer method {method!s} is "
+                               "not ported yet")
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantizerSpec:
+    """Static quantizer configuration (the FP8 subset of the JAX spec)."""
+
+    method: QMethod = QMethod.fp_quantizer
+    n_bits: int = 8
+    per_channel: bool = False
+    mantissa_bits: int = 4
+    maxval: float | None = None          # None -> format default maxval
+    set_maxval: bool = False
+    allow_unsigned: bool = False
+
+    def replace(self, **kw) -> "QuantizerSpec":
+        return dataclasses.replace(self, **kw)
+
+    @property
+    def is_fp8(self) -> bool:
+        return self.method == QMethod.fp_quantizer
+
+
+QuantState = Dict[str, torch.Tensor]
+
+
+def init_state(spec: QuantizerSpec, num_channels: int | None = None,
+               device=None) -> QuantState:
+    """Initial state; ``num_channels`` is required iff ``spec.per_channel``."""
+    if not spec.is_fp8:
+        raise _int8_slice(spec.method)
+    if num_channels is None and spec.per_channel:
+        raise ValueError("per_channel quantizer needs num_channels at init")
+    shape = (num_channels,) if spec.per_channel else ()
+    maxval0 = spec.maxval if spec.maxval is not None else (
+        fp8_ops.default_fp8_maxval(spec.mantissa_bits, spec.n_bits))
+    return {
+        "maxval": torch.full(shape, maxval0, dtype=torch.float32, device=device),
+        "mantissa_bits": torch.tensor(float(spec.mantissa_bits), device=device),
+        "sign_bits": torch.tensor(1, dtype=torch.int32, device=device),
+        "initialized": torch.tensor(spec.maxval is not None or not spec.set_maxval,
+                                    device=device),
+    }
+
+
+def broadcast(param: torch.Tensor, x_ndim: int, channel_axis: int) -> torch.Tensor:
+    """Reshape a 1-D per-channel param to broadcast against rank ``x_ndim``."""
+    if param.ndim == 0 or x_ndim <= 1:
+        return param
+    shape = [1] * x_ndim
+    shape[channel_axis % x_ndim] = param.shape[0]
+    return param.reshape(shape)
+
+
+def apply(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
+          channel_axis: int = -1) -> torch.Tensor:
+    """Fake-quantize ``x`` (quantize -> dequantize)."""
+    if not spec.is_fp8:
+        raise _int8_slice(spec.method)
+    return fp8_ops.quantize_to_fp8(
+        x, broadcast(state["maxval"], x.ndim, channel_axis),
+        state["mantissa_bits"], n_bits=spec.n_bits,
+        sign_bits=state["sign_bits"])
+
+
+def apply_factored(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
+                   channel_axis: int = -1):
+    """``(x_norm, factor)`` with ``fake_quant(x) == x_norm * factor`` and
+    ``x_norm`` exact in bfloat16: the engines' decomposition."""
+    if not spec.is_fp8:
+        raise _int8_slice(spec.method)
+    maxval = broadcast(state["maxval"], x.ndim, channel_axis)
+    sign_bits_f = state["sign_bits"].to(torch.float32)
+    M = fp8_ops._clip_mbits(state["mantissa_bits"], spec.n_bits, sign_bits_f,
+                            round_ste)
+    x_norm = fp8_ops.quantize_to_fp8(
+        x, maxval, state["mantissa_bits"], n_bits=spec.n_bits,
+        sign_bits=state["sign_bits"], normalized=True)
+    return x_norm, maxval / (2.0 - 2.0 ** -M)
+
+
+def set_quant_range(spec: QuantizerSpec, state: QuantState, x_min,
+                    x_max) -> QuantState:
+    """New state with the range set from (x_min, x_max)."""
+    if not spec.is_fp8:
+        raise _int8_slice(spec.method)
+    new = dict(state)
+    maxval, sign_bits = fp8_ops.fp8_set_quant_range(
+        x_min, x_max, allow_unsigned=spec.allow_unsigned)
+    if spec.set_maxval:
+        new["maxval"] = torch.broadcast_to(maxval.to(torch.float32),
+                                           state["maxval"].shape).clone()
+    # signedness updates even when set_maxval is False
+    new["sign_bits"] = sign_bits.reshape(())
+    new["initialized"] = torch.ones((), dtype=torch.bool, device=maxval.device)
+    return new
