@@ -3,42 +3,66 @@
 
     python3 chip_smoke.py
 
-Phases, one JSON line each (a failed phase prints "ok": false and the
-script exits 1 without the final result line):
+It drives both slices of the port: ResNet-18 FP8 PTQ and ResNet-18 INT8
+PTQ (--int8-mxu --quantize-input), each on engine 'fused'.  Phases, one
+JSON line each (a failed phase prints "ok": false and the script exits 1
+without the final result line):
 
-1. env      - card name and power limit (nvidia-smi), torch and nvcc
-              versions, the kernels' build from csrc/ (one nvcc per source,
-              all started together) and its seconds.
-2. check    - each kernel against its plain PyTorch version on the card at
-              the main path's shapes, batch 64: qmatmul at the three
-              downsample shapes, the fc and one in-kernel FP8-weight case;
-              qconv3x3 at ResNet-18's seven 3x3 shapes plus one residual
-              case; qstem at (64, 224, 224, 3).  Holds if >= 99% of elements
-              are exact and the rest within one FP8 grid step (the kernel
-              sums in another order than cuDNN/cuBLAS in fp32).
-3. slice    - the main path as a user runs it: validate-quantized through
-              the CLI's entry point (cli/image_net.validate_quantized) on
-              ResNet-18 at full width with random torchvision-layout
-              weights from the seed and synthetic 224x224 data: calibrate 1
-              batch, bake, evaluate 2 batches with engine='fused'.  Launch
-              counts are zeroed just before and read just after: exactly 1
-              stem, 16 conv3x3 and 4 qmatmul per forward.  Then the same
-              calibrated state under 'fused' and 'bf16' on the same batches:
-              logits finite, top-1 agreeing on >= 99% of images and >= 98%
-              of logits within one grid step of the fc's output quantizer.
-4. timing   - per kernel, summed over one ResNet-18 forward at batch 64:
-              CUDA-event ms of the kernel, of its plain version, of one
-              PyTorch call computing the same function (library_ms: bf16
-              channels-last F.conv2d, torch.matmul, F.conv2d + max_pool2d)
-              and the bound max(bytes / 3.35 TB/s, flops / 989 TFLOP/s); and
-              images/s of engine 'fused' against 'bf16' at batch 64 and 256,
-              timed in turns (fused, bf16, bf16, fused, ...), each turn's ms
-              listed and images/s from their median.
-5. profile  - torch.profiler over three fused forwards at batch 64: device
-              time per forward by kernel name (the port's three kernels and
-              the top PyTorch kernels), kernel launches per forward and the
-              device's idle share of the wall time ("not measured" if the
-              profiler records no device time).
+1. env        - card name and power limit (nvidia-smi), torch and nvcc
+                versions, the kernels' build from csrc/ (one nvcc per
+                source, all started together) and its seconds.
+2. check      - each FP8 kernel against its plain PyTorch version on the
+                card at the main path's shapes, batch 64: qmatmul at the
+                three downsample shapes, the fc and one in-kernel FP8-weight
+                case; qconv3x3 at ResNet-18's seven 3x3 shapes plus one
+                residual case; qstem at (64, 224, 224, 3).  Holds if >= 99%
+                of elements are exact and the rest within one FP8 grid step
+                (the kernel sums in another order than cuDNN/cuBLAS in fp32).
+3. int8_check - each int8 kernel against its plain version (exact integer
+                sums in float64): qmatmul_int8 at the three downsample shapes
+                and the fc with baked int8 weights, plus one in-kernel-weight
+                and one unsigned-grid case; qconv3x3_int8 at the seven 3x3
+                shapes, baked, plus one in-kernel-weight and one
+                unsigned-grid case.  Holds if >= 99% of elements are exact
+                and all within rtol = atol = 2e-5.  library_ms times
+                torch._int_mm on the s8 operands (for the conv, on a
+                prebuilt s8 im2col matrix: PyTorch has no int8 convolution
+                on CUDA, so it times the product alone).
+4. slice      - the FP8 main path as a user runs it: validate-quantized
+                through the CLI's entry point (cli/image_net.
+                validate_quantized) on ResNet-18 at full width with random
+                torchvision-layout weights from the seed and synthetic
+                224x224 data: calibrate 1 batch, bake, evaluate 2 batches
+                with engine='fused'.  Launch counts are zeroed just before
+                and read just after: exactly 1 stem, 16 conv3x3 and 4 qmatmul
+                per forward, no int8 kernel.  Then the same calibrated state
+                under 'fused' and 'bf16' on the same batches: logits finite,
+                top-1 agreeing on >= 99% of images and >= 98% of logits
+                within one grid step of the fc's output quantizer.
+5. int8_slice - the INT8 path the same way: calibrate, bake_int8_weights,
+                evaluate 2 batches; exactly 16 qconv3x3_int8 and 4
+                qmatmul_int8 launches per forward and none of the FP8
+                kernels (the stem runs ops/int8.int8_conv).  Then 'fused'
+                against 'bf16' (ops/int8) on one calibrated, int8-baked
+                state: logits finite, top-1 agreeing on >= 99% of images,
+                >= 98% of logits within rtol = atol = 1e-3 (an input-quant
+                bin flip from one float ulp upstream moves a few).
+6. timing     - per kernel, summed over one ResNet-18 forward at batch 64:
+                CUDA-event ms of the kernel, of its plain version, of one
+                PyTorch call computing the same function (library_ms: bf16
+                channels-last F.conv2d, torch.matmul, F.conv2d +
+                max_pool2d, torch._int_mm) and the bound max(bytes / 3.35
+                TB/s, operations / peak: 989 TFLOP/s bf16, 1,979 TOP/s
+                int8); images/s of FP8 'fused' against 'bf16' at batch 64
+                and 256, timed in turns (fused, bf16, bf16, fused, ...),
+                each turn's ms listed and images/s from their median; and
+                images/s of INT8 'fused' at batch 64 and 256.
+7. profile    - torch.profiler over three fused forwards at batch 64, FP8
+                and INT8: device time per forward by kernel name (the
+                port's kernels and the top PyTorch kernels), kernel
+                launches per forward and the device's idle share of the
+                wall time ("not measured" if the profiler records no device
+                time).
 
 Then a {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
 last {"ok": true, "device": {...}}.  The plain versions run with TF32 off.
@@ -59,6 +83,7 @@ SEED = 0
 BATCH = 64
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
+INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
 MBITS = 4                          # E3M4, the main path's format
 THROUGHPUT_TURNS = 2               # pairs of (fused, bf16) / (bf16, fused)
 
@@ -103,8 +128,12 @@ def time_ms(fn, iters=20):
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(bytes_moved, flops):
-    return 1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / BF16_FLOPS_PER_S)
+def bound_ms(bytes_moved, flops, peak=BF16_FLOPS_PER_S):
+    return 1e3 * max(bytes_moved / HBM_BYTES_PER_S, flops / peak)
+
+
+def bound_by(bytes_moved, flops, peak=BF16_FLOPS_PER_S):
+    return "bytes" if bytes_moved / HBM_BYTES_PER_S > flops / peak else "operations"
 
 
 def grid_check(out, ref, consts, normalized):
@@ -239,12 +268,17 @@ def stem_cases(inp):
 
 
 def kernel_table():
-    """name -> (wrapper, plain, module) of the three kernels."""
-    from fp8_quantization_tpu_torch.ops.kernels import qconv, qmatmul, qstem
+    """name -> (wrapper, plain, module) of the five kernels."""
+    from fp8_quantization_tpu_torch.ops.kernels import (
+        qconv, qconv_int8, qmatmul, qmatmul_int8, qstem)
     return {
         "qstem": (qstem.fused_quant_stem, qstem.qstem_plain, qstem),
         "qconv3x3": (qconv.fused_quant_conv3x3, qconv.qconv3x3_plain, qconv),
         "qmatmul": (qmatmul.fused_quant_matmul, qmatmul.qmatmul_plain, qmatmul),
+        "qconv3x3_int8": (qconv_int8.fused_quant_conv3x3_int8,
+                          qconv_int8.qconv3x3_int8_plain, qconv_int8),
+        "qmatmul_int8": (qmatmul_int8.fused_quant_matmul_int8,
+                         qmatmul_int8.qmatmul_int8_plain, qmatmul_int8),
     }
 
 
@@ -273,8 +307,7 @@ def phase_check_and_time(results):
             bms = bound_ms(nbytes, flops)
             emit({"phase": "check", "case": name, "ok": ok, "max_abs_err": err,
                   "exact": exact, "ms": ms, "plain_ms": pms, "library_ms": lms,
-                  "bound_ms": bms, "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-                  > flops / BF16_FLOPS_PER_S else "operations",
+                  "bound_ms": bms, "bound_by": bound_by(nbytes, flops),
                   "uses_per_forward": uses})
             ok_all &= ok
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
@@ -284,6 +317,146 @@ def phase_check_and_time(results):
                     agg[k] += uses * v
                 agg["bytes"] = agg.get("bytes", 0) + uses * nbytes
                 agg["flops"] = agg.get("flops", 0) + uses * flops
+    return ok_all
+
+
+# ---- the int8 kernels --------------------------------------------------------
+
+def int8_operands(inp, x, w, signed=True, prequant=True):
+    """(args, s8 x, s8 w, zp) of an int8 kernel call: the asymmetric input
+    grid from x's range, per-channel symmetric weights (dim 0), a folded BN;
+    x and w on the s8 grid and the zero point, for the library call."""
+    import torch
+    from fp8_quantization_tpu_torch.ops import int8 as i8
+    from fp8_quantization_tpu_torch.ops import uniform
+    if not signed:
+        w = w.abs()
+    w2 = w.reshape(w.shape[0], -1)
+    delta, sgn = uniform.symmetric_set_quant_range(w2.amin(dim=1), w2.amax(dim=1), 8)
+    a_delta, a_zero = uniform.asymmetric_set_quant_range(x.min(), x.max(), 8)
+    sgn = sgn.to(torch.float32)
+    grid = i8.int8_shifted_grid(w, delta.reshape(-1, *[1] * (w.dim() - 1)), sgn, 8)
+    w_s8 = grid.to(torch.int8).contiguous()
+    n = w.shape[0]
+    args = (x.contiguous(), w_s8 if prequant else w.contiguous(), delta.contiguous(),
+            torch.stack([torch.zeros_like(sgn), sgn]),
+            torch.stack([a_delta, a_zero, torch.zeros_like(a_delta)]),
+            inp.uniform(n, 0.5, 1.5), inp.randn(n, scale=0.1))
+    dx, zp = i8.act_int_params(a_delta, a_zero, 8)
+    x_s8 = i8.quantize_act(x, dx, zp, 8).to(torch.int8)
+    return args, x_s8, w_s8, zp
+
+
+def int8_matmul_cases(inp):
+    """(name, args, cfg, ops, bytes, uses, library fn) per qmatmul_int8 case."""
+    import torch
+    from fp8_quantization_tpu_torch.ops.kernels import qmatmul_int8 as qm
+    cases = []
+    shapes = [(M, K, N, "baked", True, True) for M, K, N, _ in MATMUL_SHAPES]
+    shapes += [(BATCH, 512, 1000, "in-kernel w", False, True),
+               (BATCH * 14 * 14, 128, 256, "baked unsigned", True, False)]
+    for M, K, N, label, prequant, signed in shapes:
+        x = torch.relu(inp.randn(M, K))          # a block output: relu'd
+        args, x_s8, w_s8, _ = int8_operands(inp, x, inp.randn(N, K, scale=0.05),
+                                            signed, prequant)
+        cfg = qm.Int8MatmulConfig(activation=None)
+        w_t = w_s8.t()
+
+        def lib(x_s8=x_s8, w_t=w_t):
+            return torch._int_mm(x_s8, w_t)
+        nbytes = M * K * 4 + N * K * args[1].element_size() + M * N * 4 + 8 * N
+        uses = 1 if label == "baked" else 0
+        cases.append((f"qmatmul_int8 {M}x{K}x{N} {label}", args, cfg, 2 * M * N * K,
+                      nbytes, uses, lib))
+    return cases
+
+
+def im2col_s8(x_s8, pad_value, stride):
+    """(N*Ho*Wo, 9*Cin) s8 matrix of 3x3 SAME windows, padding = pad_value,
+    columns (dy*3 + dx)*Cin + ci."""
+    import torch
+    n, h, w, c = x_s8.shape
+    xp = torch.full((n, h + 2, w + 2, c), pad_value, dtype=torch.int8, device=x_s8.device)
+    xp[:, 1:h + 1, 1:w + 1] = x_s8
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    taps = [xp[:, dy:dy + stride * (ho - 1) + 1:stride, dx:dx + stride * (wo - 1) + 1:stride]
+            for dy in range(3) for dx in range(3)]
+    return torch.cat(taps, dim=-1).reshape(n * ho * wo, 9 * c).contiguous()
+
+
+def int8_conv_cases(inp):
+    import torch
+    from fp8_quantization_tpu_torch.ops.kernels import qconv_int8 as qc
+    cases = []
+    shapes = [(H, cin, cout, s, uses, "baked", True, True)
+              for H, cin, cout, s, uses in CONV_SHAPES]
+    shapes += [(28, 128, 128, 1, 0, "in-kernel w", False, True),
+               (28, 128, 256, 2, 0, "baked unsigned", True, False)]
+    for H, cin, cout, s, uses, label, prequant, signed in shapes:
+        x = torch.relu(inp.randn(BATCH, H, H, cin))   # every 3x3 input follows a relu
+        w4 = inp.randn(cout, cin, 3, 3, scale=0.05)
+        args, x_s8, w_s8, zp = int8_operands(inp, x, w4, signed, prequant)
+        args = (args[0], qc.weight_matrix(args[1])) + args[2:]
+        w_t = qc.weight_matrix(w_s8).t()
+        cols = im2col_s8(x_s8, int(zp) - 128, s)
+        cfg = qc.Int8ConvConfig(stride=s, activation="relu")
+        ho = (H - 1) // s + 1
+        ops = 2 * BATCH * ho * ho * 9 * cin * cout
+        nbytes = x.numel() * 4 + cout * 9 * cin * args[1].element_size() \
+            + BATCH * ho * ho * cout * 4 + 8 * cout
+
+        def lib(cols=cols, w_t=w_t):
+            return torch._int_mm(cols, w_t)
+        cases.append((f"qconv3x3_int8 {H}x{H}x{cin}->{cout} s{s} {label}", args, cfg,
+                      ops, nbytes, uses, lib))
+    return cases
+
+
+def int8_check(out, ref):
+    """(ok, max_abs_err, exact share): >= 99% exact, all within 2e-5."""
+    import torch
+    a, b = out.float(), ref.float()
+    diff = (a - b).abs()
+    exact = float((diff == 0).float().mean())
+    ok = (bool(torch.isfinite(a).all()) and bool((diff <= 2e-5 + 2e-5 * b.abs()).all())
+          and exact >= 0.99)
+    return ok, float(diff.max()), exact
+
+
+def phase_int8_check(results):
+    """The int8 kernels against their plain versions, timed like phase 2."""
+    import torch
+    table = kernel_table()
+    inp = Inputs()
+    ok_all = True
+    for kname, make in (("qconv3x3_int8", int8_conv_cases),
+                        ("qmatmul_int8", int8_matmul_cases)):
+        wrapper, plain, _ = table[kname]
+        agg = results.setdefault(kname, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
+                                             bound_ms=0.0, library_ms=0.0,
+                                             peak=INT8_OPS_PER_S))
+        for name, args, cfg, ops, nbytes, uses, lib in make(inp):
+            out = wrapper(*args, cfg=cfg)
+            torch.cuda.synchronize()
+            ref = plain(*args, cfg)
+            ok, err, exact = int8_check(out, ref)
+            ms = time_ms(lambda: wrapper(*args, cfg=cfg))
+            pms = time_ms(lambda: plain(*args, cfg), iters=3)
+            lms = time_ms(lib)
+            bms = bound_ms(nbytes, ops, INT8_OPS_PER_S)
+            emit({"phase": "int8_check", "case": name, "ok": ok, "max_abs_err": err,
+                  "exact": exact, "ms": ms, "plain_ms": pms, "library_ms": lms,
+                  "bound_ms": bms,
+                  "bound_by": bound_by(nbytes, ops, INT8_OPS_PER_S),
+                  "uses_per_forward": uses})
+            ok_all &= ok
+            agg["max_abs_err"] = max(agg["max_abs_err"], err)
+            if uses:
+                for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                             ("bound_ms", bms)):
+                    agg[k] += uses * v
+                agg["bytes"] = agg.get("bytes", 0) + uses * nbytes
+                agg["flops"] = agg.get("flops", 0) + uses * ops
     return ok_all
 
 
@@ -318,7 +491,7 @@ def phase_slice(results):
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
     want = {"qstem": EVAL_BATCHES, "qconv3x3": 16 * EVAL_BATCHES,
-            "qmatmul": 4 * EVAL_BATCHES}
+            "qmatmul": 4 * EVAL_BATCHES, "qconv3x3_int8": 0, "qmatmul_int8": 0}
 
     _, val = make_dataloaders(None, batch_size=BATCH, seed=SEED)
     batches = list(islice(iter(val), EVAL_BATCHES))
@@ -351,9 +524,93 @@ def phase_slice(results):
           "top1_agree_vs_bf16": mean(agree),
           "logits_within_one_step_vs_bf16": mean(within),
           "logits_exact_vs_bf16": mean(exact)})
-    for k, v in counts.items():
-        results.setdefault(k, {})["launches"] = v
+    for k in ("qstem", "qconv3x3", "qmatmul"):
+        results.setdefault(k, {})["launches"] = counts[k]
     return ok, fused, bf16
+
+
+# validate-quantized on the INT8 path: bench.py's ResNet-18 INT8 row without
+# the TPU deploy flags (conv_out_bf16, int8_assume_signed)
+INT8_CLI_ARGS = ["validate-quantized", "--device", "cuda", "--engine", "fused",
+                 "--architecture", "resnet18_quantized",
+                 "--qmethod", "symmetric_uniform", "--qmethod-act", "asymmetric_uniform",
+                 "--per-channel", "--quantize-input", "--int8-mxu",
+                 "--weight-quant-method", "current_minmax",
+                 "--act-quant-method", "allminmax", "--num-est-batches", "1",
+                 "--max-eval-batches", str(EVAL_BATCHES), "--batch-size", str(BATCH),
+                 "--seed", str(SEED)]
+
+
+def phase_int8_slice(results):
+    """The INT8 path through the CLI's entry point, then fused against bf16
+    (ops/int8) on one calibrated, int8-baked state."""
+    from itertools import islice
+
+    import torch
+    from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
+    from fp8_quantization_tpu_torch.cli import image_net
+    from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
+    from fp8_quantization_tpu_torch.nn.bake import bake_int8_weights
+    from fp8_quantization_tpu_torch.ops import kernels
+
+    args = image_net.build_parser().parse_args(INT8_CLI_ARGS)
+    kernels.reset_launch_counts()
+    metrics = image_net.validate_quantized(args)
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    want = {"qstem": 0, "qconv3x3": 0, "qmatmul": 0,
+            "qconv3x3_int8": 16 * EVAL_BATCHES, "qmatmul_int8": 4 * EVAL_BATCHES}
+
+    _, val = make_dataloaders(None, batch_size=BATCH, seed=SEED)
+    batches = list(islice(iter(val), EVAL_BATCHES))
+    fused = image_net.build_model(args)
+    calibrate(fused, batches[:1], device="cuda", num_batches=1)
+    bf16 = image_net.build_model(image_net.build_parser().parse_args(
+        INT8_CLI_ARGS + ["--engine", "bf16"]))
+    bf16.load_state_dict(fused.state_dict())
+    bake_int8_weights(fused)
+    bake_int8_weights(bf16)
+    agree, within, exact, finite = [], [], [], True
+    with torch.no_grad():
+        for x, _ in batches:
+            xt = torch.as_tensor(x, device="cuda")
+            a = fused(xt, mode="fixed", quant_w=True)
+            b = bf16(xt, mode="fixed", quant_w=True)
+            finite &= bool(torch.isfinite(a).all())
+            agree.append(float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+            within.append(float(((a - b).abs() <= 1e-3 + 1e-3 * b.abs()).float().mean()))
+            exact.append(float((a == b).float().mean()))
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    ok = (counts == want and finite and math.isfinite(metrics["loss"])
+          and metrics["num_examples"] == BATCH * EVAL_BATCHES
+          and mean(agree) >= 0.99 and mean(within) >= 0.98)
+    emit({"phase": "int8_slice", "ok": ok, "metrics": metrics, "launches": counts,
+          "expected_launches": want, "logits_finite": finite,
+          "top1_agree_vs_bf16": mean(agree),
+          "logits_within_1e-3_vs_bf16": mean(within),
+          "logits_exact_vs_bf16": mean(exact)})
+    for k in ("qconv3x3_int8", "qmatmul_int8"):
+        results.setdefault(k, {})["launches"] = counts[k]
+    return ok, fused
+
+
+def phase_int8_throughput(fused):
+    """Forward ms of the INT8 'fused' model at batch 64 and 256 (quant_w=True,
+    int8-baked weights); images/s from the median of four runs."""
+    import statistics
+
+    import torch
+    rows = {}
+    with torch.no_grad():
+        for batch in (BATCH, 256):
+            x = torch.randn(batch, 224, 224, 3, device="cuda",
+                            generator=torch.Generator(device="cuda").manual_seed(1))
+            ms = [time_ms(lambda: fused(x, mode="fixed", quant_w=True), iters=10)
+                  for _ in range(2 * THROUGHPUT_TURNS)]
+            med = statistics.median(ms)
+            rows[f"int8_fused_b{batch}"] = {"ms": ms, "median_ms": med,
+                                            "images_per_s": batch / med * 1e3}
+    emit({"phase": "int8_throughput", "ok": True, **rows})
 
 
 def phase_throughput(fused, bf16):
@@ -381,19 +638,20 @@ def phase_throughput(fused, bf16):
     emit({"phase": "throughput", "ok": True, **rows})
 
 
-def phase_profile(fused):
+def phase_profile(fused, label="profile", quant_w=False,
+                  kernel_names=("qstem", "qconv3x3", "qmatmul")):
     import torch
     from torch.profiler import ProfilerActivity, profile
     x = torch.randn(BATCH, 224, 224, 3, device="cuda",
                     generator=torch.Generator(device="cuda").manual_seed(2))
     n = 3
     with torch.no_grad():
-        fused(x, mode="fixed", quant_w=False)
+        fused(x, mode="fixed", quant_w=quant_w)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
-                fused(x, mode="fixed", quant_w=False)
+                fused(x, mode="fixed", quant_w=quant_w)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
     rows = []
@@ -402,14 +660,13 @@ def phase_profile(fused):
         if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((e.key, us / 1e3 / n, e.count / n))
     if not rows:
-        emit({"phase": "profile", "ok": True, "device_time": "not measured",
+        emit({"phase": label, "ok": True, "device_time": "not measured",
               "wall_ms_per_forward": wall_ms})
         return True
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    ours = {k: sum(r[1] for r in rows if k + "_kernel" in r[0])
-            for k in ("qstem", "qconv3x3", "qmatmul")}
-    emit({"phase": "profile", "ok": True, "wall_ms_per_forward": wall_ms,
+    ours = {k: sum(r[1] for r in rows if k + "_kernel" in r[0]) for k in kernel_names}
+    emit({"phase": label, "ok": True, "wall_ms_per_forward": wall_ms,
           "device_busy_ms_per_forward": busy,
           "idle_share": max(0.0, 1.0 - busy / wall_ms),
           "launches_per_forward": sum(r[2] for r in rows),
@@ -435,7 +692,6 @@ def main():
           "device": torch.cuda.get_device_name(0), "build_s": build_s})
 
     results = {}
-    phases = [("check", lambda: phase_check_and_time(results))]
     slice_out = {}
 
     def run_slice():
@@ -443,10 +699,21 @@ def main():
         slice_out.update(fused=fused, bf16=bf16)
         return ok
 
-    phases.append(("slice", run_slice))
-    phases.append(("throughput", lambda: phase_throughput(slice_out["fused"],
-                                                           slice_out["bf16"]) or True))
-    phases.append(("profile", lambda: phase_profile(slice_out["fused"])))
+    def run_int8_slice():
+        ok, slice_out["int8"] = phase_int8_slice(results)
+        return ok
+
+    phases = [("check", lambda: phase_check_and_time(results)),
+              ("int8_check", lambda: phase_int8_check(results)),
+              ("slice", run_slice),
+              ("int8_slice", run_int8_slice),
+              ("throughput", lambda: phase_throughput(slice_out["fused"],
+                                                      slice_out["bf16"]) or True),
+              ("int8_throughput", lambda: phase_int8_throughput(slice_out["int8"]) or True),
+              ("profile", lambda: phase_profile(slice_out["fused"])),
+              ("int8_profile", lambda: phase_profile(
+                  slice_out["int8"], "int8_profile", quant_w=True,
+                  kernel_names=("qconv3x3_int8", "qmatmul_int8")))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -467,8 +734,8 @@ def main():
                      "replaces": mod.REPLACES, "launches": r.get("launches"),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
-                     "bound_by": ("bytes" if r.get("bytes", 0) / HBM_BYTES_PER_S
-                                  > r.get("flops", 0) / BF16_FLOPS_PER_S else "operations"),
+                     "bound_by": bound_by(r.get("bytes", 0), r.get("flops", 0),
+                                          r.get("peak", BF16_FLOPS_PER_S)),
                      "library_ms": r.get("library_ms")})
     emit({"kernels": rows})
     print(smi, flush=True)

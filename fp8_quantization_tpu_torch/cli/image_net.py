@@ -6,11 +6,20 @@ line.  The flag names are the JAX CLI's, plus ``--device {cuda,cpu}`` and
 ``--engine {parity,bf16,fused}``.  Two differences: ``--bake-weights`` is
 on by default (the fused engine's kernels for the stem and the 3x3 convs
 need baked weights), and without ``--model-dir`` the weights are random in
-the torchvision layout, made from ``--seed``.
+the torchvision layout, made from ``--seed``.  Under the int8 datapath
+(``--int8-mxu --quantize-input`` with symmetric weights and asymmetric
+inputs) the bake is ``bake_int8_weights`` and the model is evaluated with
+``quant_w=True``, as ``bench.py`` does (lines 107-111): the JAX CLI's
+``bake_weights`` bakes nothing there and then evaluates unquantized
+weights (ROADMAP.md, section C).
 
     python -m fp8_quantization_tpu_torch.cli.image_net validate-quantized \\
         --device cpu --engine fused --per-channel --fp8-set-maxval \\
         --num-est-batches 1 --max-eval-batches 1 --batch-size 4
+    python -m fp8_quantization_tpu_torch.cli.image_net validate-quantized \\
+        --device cpu --engine fused --qmethod symmetric_uniform \\
+        --qmethod-act asymmetric_uniform --per-channel --quantize-input \\
+        --int8-mxu --num-est-batches 1 --max-eval-batches 1 --batch-size 4
 """
 
 from __future__ import annotations
@@ -69,6 +78,7 @@ def build_parser() -> argparse.ArgumentParser:
     _bool_flag(p, "weight-quant", True)
     _bool_flag(p, "act-quant", True)
     p.add_argument("--num-est-batches", type=int, default=1)
+    _bool_flag(p, "quantize-input", False)
     p.add_argument("--fp8-maxval", type=float, default=None)
     p.add_argument("--fp8-mantissa-bits", type=int, default=4)
     _bool_flag(p, "fp8-set-maxval", False)
@@ -77,6 +87,9 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["parity", "bf16", "fused"],
                    help="parity=fp32 reference semantics, bf16=normalized-grid "
                         "products, fused=hand-written CUDA kernels")
+    _bool_flag(p, "int8-mxu", False,
+               "symmetric weights x asymmetric input quant: the s8 x s8 -> "
+               "s32 datapath (with --quantize-input)")
     _bool_flag(p, "bake-weights", True,
                "bake the quantized weights before evaluating (default on)")
     p.add_argument("--max-eval-batches", type=int, default=None)
@@ -103,7 +116,9 @@ def build_model(args):
         act_momentum=args.act_momentum, fp8_maxval=args.fp8_maxval,
         fp8_mantissa_bits=args.fp8_mantissa_bits,
         fp8_set_maxval=args.fp8_set_maxval,
-        fp8_allow_unsigned=args.fp8_allow_unsigned, engine=args.engine)
+        fp8_allow_unsigned=args.fp8_allow_unsigned,
+        quantize_input=args.quantize_input, int8_mxu=args.int8_mxu,
+        engine=args.engine)
     arch = args.architecture
     model = QUANT_ARCHITECTURES[arch](config, quant_setup=args.quant_setup,
                                       device=resolve_device(args.device))
@@ -114,6 +129,26 @@ def build_model(args):
     return model.eval()
 
 
+def bake_for_eval(model, quant_w: bool, bake: bool) -> bool:
+    """Bake a calibrated model as ``--bake-weights`` asks; returns the
+    ``quant_w`` to evaluate with.  The int8 datapath bakes its int8 grid and
+    keeps ``quant_w=True``; other configs bake the fake-quant weights and
+    evaluate with ``quant_w=False``."""
+    from fp8_quantization_tpu_torch.nn.bake import (
+        bake_int8_weights, bake_weights)
+    from fp8_quantization_tpu_torch.nn.layers import int8_datapath
+
+    if not (bake and quant_w):
+        return quant_w
+    if int8_datapath(model.config):
+        bake_int8_weights(model)
+        log.info("int8 weights baked: the int8 routes take the stored grid")
+        return True
+    bake_weights(model)
+    log.info("weights baked: per-step weight quantization disabled")
+    return False
+
+
 def validate_quantized(args) -> dict:
     import numpy as np
     import torch
@@ -122,7 +157,6 @@ def validate_quantized(args) -> dict:
         calibrate, evaluate)
     from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
     from fp8_quantization_tpu_torch.device import resolve_device
-    from fp8_quantization_tpu_torch.nn.bake import bake_weights
 
     device = resolve_device(args.device)
     np.random.seed(args.seed)
@@ -138,11 +172,7 @@ def validate_quantized(args) -> dict:
               num_batches=args.num_est_batches, quant_w=args.weight_quant,
               quant_a=args.act_quant)
     log.info("calibration done (%d batches)", args.num_est_batches)
-    quant_w = args.weight_quant
-    if args.bake_weights and quant_w:
-        bake_weights(model)
-        quant_w = False
-        log.info("weights baked: per-step weight quantization disabled")
+    quant_w = bake_for_eval(model, args.weight_quant, args.bake_weights)
     return evaluate(model, val_data, device=device, quant_w=quant_w,
                     quant_a=args.act_quant, max_batches=args.max_eval_batches)
 

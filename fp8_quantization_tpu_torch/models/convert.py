@@ -11,8 +11,9 @@ key map it follows) and of the random checkpoints of
   layout, made with numpy from a seed;
 * ``load_jax_variables``: the JAX package's variables (nested dicts of
   numpy arrays: ``params`` with HWIO kernels, ``batch_stats``, the
-  ``quant`` collection and ``baked``) into the port's modules, so that a
-  model calibrated or baked in JAX computes the same thing here.
+  ``quant`` collection, ``baked`` and ``baked_int8``) into the port's
+  modules, so that a model calibrated or baked in JAX computes the same
+  thing here.
 """
 
 from __future__ import annotations
@@ -143,6 +144,23 @@ def _load_quantizer(quantizer, tree) -> None:
                          {k: np.array(v) for k, v in tree.get("est", {}).items()})
 
 
+def _load_int8_bake(mod, tree) -> None:
+    if tree is None or "w_int8" not in tree:
+        mod.w_int8 = mod.w_delta = mod.w_signed = None
+        return
+    w = np.asarray(tree["w_int8"])
+    # HWIO -> (Cout, kh*kw*Cin) with columns (dy, dx, ci); (K, N) -> (N, K)
+    w = (w.transpose(3, 0, 1, 2).reshape(w.shape[3], -1) if w.ndim == 4
+         else w.T)
+    dev = mod.weight.device
+    mod.w_int8 = torch.tensor(np.ascontiguousarray(w), dtype=torch.int8,
+                              device=dev)
+    mod.w_delta = torch.tensor(np.asarray(tree["w_delta"]), dtype=torch.float32,
+                               device=dev).reshape(-1)
+    mod.w_signed = torch.tensor(np.asarray(tree["w_signed"]),
+                                dtype=torch.float32, device=dev).reshape(())
+
+
 @torch.no_grad()
 def load_jax_variables(model: nn.Module, variables: dict) -> None:
     """Load the JAX package's variables into the port's modules in place.
@@ -151,13 +169,16 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
     ``("layer1_0", "conv1")``).  Conv kernels go HWIO -> OIHW, dense
     kernels (in, out) -> (out, in); ``gamma``/``beta`` -> ``bn_weight``/
     ``bn_bias``; ``batch_stats`` mean/var -> running_mean/var; ``quant``
-    ``q``/``est`` -> quantizer and estimator buffers; ``baked/w_factor`` ->
-    ``w_factor``.
+    ``q``/``est`` -> quantizer and estimator buffers (FP8 ``maxval``... or
+    uniform ``delta``, ``zero_float``, ``signed``); ``baked/w_factor`` ->
+    ``w_factor``; ``baked_int8`` -> ``w_int8`` (HWIO or (K, N) -> the int8
+    kernels' (C, K) layout), ``w_delta``, ``w_signed``.
     """
     params = variables.get("params", {})
     stats = variables.get("batch_stats", {})
     quant = variables.get("quant", {})
     baked = variables.get("baked", {})
+    baked_int8 = variables.get("baked_int8", {})
     for name, mod in model.named_modules():
         path = name.split(".") if name else []
         if isinstance(mod, QuantizedLayerBase):
@@ -182,5 +203,6 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
             mod.w_factor = (None if wf is None else torch.tensor(
                 np.asarray(wf), dtype=torch.float32,
                 device=mod.weight.device).reshape(-1))
+            _load_int8_bake(mod, _node(baked_int8, path))
         elif isinstance(mod, QuantizedActivation):
             _load_quantizer(mod.act_q, _node(quant, path + ["act_q"]))

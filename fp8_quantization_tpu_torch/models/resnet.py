@@ -11,7 +11,13 @@ variables carry over by path (models/convert.load_jax_variables).
 
 Under ``engine='fused'`` in fixed mode the stem (conv7x7/2 + BN + relu +
 maxpool + quant) runs the qstem kernel once it is baked (there lines
-132-173).  The ``LSQ_paper`` preset needs input quantization and raises.
+132-173).  Under the int8 datapath (nn/layers.int8_datapath) the stem takes
+the layer route (``ops/int8.int8_conv``) and ``fmax_pool`` instead, as the
+JAX model does when ``_conv_fused_state`` returns None (there lines
+146-157, and nn/layers.py:795-799); the block tails and the tied avgpool
+quantizer then exchange ``Factored`` integers ``xint - zp``.  The
+``LSQ_paper`` preset (fp32 block activations, an untied avgpool) is not
+ported yet and raises.
 """
 
 from __future__ import annotations
@@ -173,8 +179,8 @@ def resnet_configs(base: LayerQuantConfig, quant_setup: Optional[str]) -> dict:
         cfgs["fc_config"] = base.with_weight_bits(8).fp32_acts()
         return cfgs
     if setup == "LSQ_paper":
-        raise NotImplementedError("LSQ_paper needs input quantization, which "
-                                  "is not ported yet")
+        raise NotImplementedError("the LSQ_paper preset is not ported yet "
+                                  "(ROADMAP.md, section A, item 6)")
     raise ValueError(f"Quantization setup '{setup}' not supported for Resnet")
 
 

@@ -15,6 +15,13 @@ the 1x1 downsample convs are left unbaked and then run on unquantized
 weights (see ROADMAP.md, section C).  This port bakes each quantized layer
 directly from its weight quantizer, with no forward, so every layer with
 ``config.quant_w`` is baked whatever the engine.
+
+``bake_int8_weights`` mirrors the JAX function of that name (there lines
+135-175) for the int8 datapath.  Under an ``int8_mxu`` config the JAX
+``bake_weights`` bakes nothing (its int8 route sows only ``baked_int8``),
+so evaluating afterwards with ``quant_w=False`` runs unquantized weights
+(ROADMAP.md, section C); the int8 bake is the one to use there, and the
+model is evaluated with ``quant_w=True`` as before.
 """
 
 from __future__ import annotations
@@ -22,7 +29,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fp8_quantization_tpu_torch.nn.layers import QuantizedLayerBase
+from fp8_quantization_tpu_torch.nn.layers import QuantizedLayerBase, int8_datapath
 
 
 @torch.no_grad()
@@ -38,4 +45,18 @@ def bake_weights(model: nn.Module) -> nn.Module:
         wn, wf = layer.weight_q(layer.weight, mode="fixed", out="factored")
         layer.weight.copy_(wn)
         layer.w_factor = wf.reshape(-1).to(torch.float32).clone()
+    return model
+
+
+@torch.no_grad()
+def bake_int8_weights(model: nn.Module) -> nn.Module:
+    """Store every int8-datapath layer's weights on the recentred int8 grid
+    (``w_int8`` in the int8 kernels' (C, K) layout, ``w_delta``,
+    ``w_signed``), straight from its weight quantizer; returns the model.
+    The layers then take these whatever ``quant_w`` is; evaluate with
+    ``quant_w=True``."""
+    for layer in model.modules():
+        if (isinstance(layer, QuantizedLayerBase) and layer.config.quant_w
+                and int8_datapath(layer.config)):
+            layer.w_int8, layer.w_delta, layer.w_signed = layer.int8_weights()
     return model

@@ -1,8 +1,8 @@
 """Layer-level quantization configuration.
 
 Mirrors ``fp8_quantization_tpu/nn/config.py`` (``LayerQuantConfig``,
-``make_layer_config``) for the FP8 PTQ slice.  Flags of the JAX package
-that this port does not carry yet raise instead of being ignored.
+``make_layer_config``) for the FP8 and INT8 PTQ slices.  Flags of the JAX
+package that this port does not carry yet raise instead of being ignored.
 """
 
 from __future__ import annotations
@@ -28,15 +28,22 @@ class LayerQuantConfig:
       'fused'  - the counterpart of the JAX 'pallas' engine: in fixed mode
                  the stem, the 3x3 convs (both baked) and the 1x1 convs and
                  linears run the hand-written kernels in ops/kernels/.
+
+    ``quantize_input``: each layer quantizes its input (not its output).
+    ``int8_mxu``: with ``quantize_input``, symmetric-uniform weights and
+    asymmetric-uniform activations, fixed-mode layers run the s8 x s8 -> s32
+    datapath (ops/int8.py; under 'fused' the int8 kernels).
     """
 
     weight_quant: QuantizerSpec = QuantizerSpec()
     act_quant: QuantizerSpec = QuantizerSpec()
     weight_range: EstimatorSpec = EstimatorSpec(kind=RangeEstimators.current_minmax)
     act_range: EstimatorSpec = EstimatorSpec(kind=RangeEstimators.running_minmax)
+    quantize_input: bool = False
     quant_w: bool = True
     quant_a: bool = True
     engine: str = "parity"
+    int8_mxu: bool = False
 
     def __post_init__(self):
         if self.engine not in ENGINES:
@@ -56,12 +63,12 @@ class LayerQuantConfig:
 
 
 _NOT_PORTED = {
-    "quantize_input": "input quantization (LSQ_paper preset)",
-    "int8_mxu": "the int8 datapath (INT8 slice)",
     "deploy_cast_quant": "the IEEE-f8 cast fast path",
     "deploy_act_f8": "f8 activation storage",
     "deploy_cast_ieee": "the IEEE-f8 cast fast path",
     "conv_out_bf16": "bf16 conv stores",
+    "int8_assume_signed": "the static signed-grid elision of the int8 route",
+    "grad_scaling": "QAT (LSQ gradient scaling)",
     "fp8_learn_maxval": "QAT",
     "fp8_learn_mantissa_bits": "QAT",
 }
@@ -73,6 +80,7 @@ def make_layer_config(
     n_bits: int = 8,
     n_bits_act: Optional[int] = None,
     per_channel_weights: bool = False,
+    scale_domain: str = "linear",
     weight_range_method: str | RangeEstimators = RangeEstimators.current_minmax,
     act_range_method: str | RangeEstimators = RangeEstimators.running_minmax,
     percentile: Optional[float] = None,
@@ -81,6 +89,8 @@ def make_layer_config(
     fp8_mantissa_bits: int = 4,
     fp8_set_maxval: bool = False,
     fp8_allow_unsigned: bool = False,
+    quantize_input: bool = False,
+    int8_mxu: bool = False,
     bn_mode: str = "fp32_after",
     engine: str = "parity",
     **not_ported,
@@ -100,6 +110,7 @@ def make_layer_config(
 
     def _qspec(method: QMethod, bits: int, per_channel: bool) -> QuantizerSpec:
         return QuantizerSpec(method=method, n_bits=bits, per_channel=per_channel,
+                             scale_domain=scale_domain,
                              mantissa_bits=fp8_mantissa_bits, maxval=fp8_maxval,
                              set_maxval=fp8_set_maxval,
                              allow_unsigned=fp8_allow_unsigned)
@@ -112,4 +123,4 @@ def make_layer_config(
                                    percentile=percentile),
         act_range=EstimatorSpec(kind=RangeEstimators(act_range_method),
                                 percentile=percentile, **act_kwargs),
-        engine=engine)
+        quantize_input=quantize_input, engine=engine, int8_mxu=int8_mxu)

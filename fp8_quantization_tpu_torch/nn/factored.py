@@ -5,8 +5,9 @@ Mirrors ``fp8_quantization_tpu/nn/factored.py`` (``Factored``, ``split``,
 IEEE-f8 storage of ``deploy_act_f8`` is not ported.
 
 A fake-quantized tensor is exactly ``norm * factor``: ``norm`` lies on the
-quantizer's normalized grid (an <= 8-bit significand, exact in bfloat16)
-and ``factor`` is a per-tensor float32 scalar.  In fixed mode under the
+quantizer's normalized grid (an <= 8-bit significand for FP8, the integer
+``xint - zp`` in [-255, 255] for an asymmetric uniform quantizer; both
+exact in bfloat16) and ``factor`` is a per-tensor float32 scalar.  In fixed mode under the
 bf16 and fused engines layers exchange ``Factored`` pairs, so the next
 product runs on ``norm`` with no rounding and folds ``factor`` in after.
 """

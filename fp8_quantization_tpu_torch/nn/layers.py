@@ -24,9 +24,22 @@ per channel along dim 0.  Engines (``config.engine``):
   gate: the kernels always launch on the card.  Elsewhere the bf16 path
   runs.
 
-Not ported, and rejected where they would be selected: int8 datapaths,
-cast fast paths, f8 storage, space-to-depth stems, depthwise / grouped
-convs, folded BN and input quantization (nn/config.py raises for those).
+The int8 datapath (``int8_datapath``: ``int8_mxu`` + ``quantize_input``,
+symmetric-uniform weights, per-tensor asymmetric-uniform inputs, <= 8
+bits) takes every fixed-mode layer on every engine, as the JAX package's
+``_int8_xla_ok`` route does (there lines 629-727, 943-970, 1182-1220): a
+``Factored`` input is materialized and re-quantized by the layer's own
+input quantizer.  On ``parity`` and ``bf16`` it runs ``ops/int8``; on
+``fused`` the 3x3 convs (Cin, Cout divisible by 16) run
+``ops/kernels/qconv_int8``, the 1x1 convs and linears
+``ops/kernels/qmatmul_int8`` and anything else (the stem) ``ops/int8``.
+Weights baked by ``nn/bake.bake_int8_weights`` (``w_int8``, ``w_delta``,
+``w_signed``) are taken whatever ``quant_w`` is.
+
+Not ported, and rejected where they would be selected: cast fast paths, f8
+storage, space-to-depth stems, depthwise / grouped convs and folded BN
+(nn/config.py raises for those); under ``fused``, input quantization
+outside the int8 datapath and uniform quantizers in the FP8 kernels.
 """
 
 from __future__ import annotations
@@ -42,10 +55,26 @@ from fp8_quantization_tpu_torch.nn.activations import get_activation
 from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
 from fp8_quantization_tpu_torch.nn.factored import Factored
 from fp8_quantization_tpu_torch.nn.quantizers import Quantizer
+from fp8_quantization_tpu_torch.ops import int8 as int8_ops
 from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
-from fp8_quantization_tpu_torch.ops.kernels import qconv, qmatmul, qstem
+from fp8_quantization_tpu_torch.ops.kernels import (
+    qconv, qconv_int8, qmatmul, qmatmul_int8, qstem)
+from fp8_quantization_tpu_torch.ops.kernels.common import int_grid_unported
+from fp8_quantization_tpu_torch.ops.quantizer import QMethod
+from fp8_quantization_tpu_torch.ops.uniform import _scale_from_delta
 
 FUSED_ACTIVATIONS = (None, "relu", "relu6")
+
+
+def int8_datapath(cfg: LayerQuantConfig) -> bool:
+    """Whether fixed-mode layers under ``cfg`` run the s8 x s8 -> s32
+    datapath (JAX ``int8_interchange_ok``, the static part of
+    ``_int8_xla_ok``)."""
+    return (cfg.int8_mxu and cfg.quantize_input and cfg.quant_a
+            and cfg.act_quant.method == QMethod.asymmetric_uniform
+            and not cfg.act_quant.per_channel and cfg.act_quant.n_bits <= 8
+            and cfg.weight_quant.method == QMethod.symmetric_uniform
+            and cfg.weight_quant.n_bits <= 8)
 
 
 def factored_act_ok(cfg: LayerQuantConfig) -> bool:
@@ -71,9 +100,6 @@ class QuantizedLayerBase(nn.Module):
                  activation: Optional[str], bn: bool, use_bias: bool,
                  bn_eps: float, bn_momentum: float):
         super().__init__()
-        if not config.weight_quant.is_fp8 or not config.act_quant.is_fp8:
-            raise NotImplementedError("INT8 slice: uniform quantizers are not "
-                                      "ported yet")
         get_activation(activation)
         self.config = config
         self.activation = activation
@@ -97,15 +123,29 @@ class QuantizedLayerBase(nn.Module):
         self.act_q = Quantizer(config.act_quant, config.act_range)
         # per-channel factor of a baked normalized weight (nn/bake.py)
         self.register_buffer("w_factor", None)
+        # the int8 bake (nn/bake.bake_int8_weights): the (C, K) recentred
+        # grid in the int8 kernels' layout, its step and signedness
+        self.register_buffer("w_int8", None)
+        self.register_buffer("w_delta", None)
+        self.register_buffer("w_signed", None)
         self._operand_cache = {}
 
     # ---- shared pieces ----------------------------------------------------
+
+    def _quant_in_engine(self, x, mode, quant_a):
+        """(x', x_factor): input quantization under ``quantize_input``; the
+        bf16 and fused engines take the normalized grid and its factor."""
+        if self.config.quantize_input and quant_a and self.config.quant_a:
+            if self.config.engine in ("bf16", "fused"):
+                return self.act_q(x, mode=mode, out="factored")
+            return self.act_q(x, mode=mode), None
+        return x, None
 
     def _quant_out(self, y, mode, quant_a, out):
         act = get_activation(self.activation)
         if act is not None:
             y = act(y)
-        if quant_a and self.config.quant_a:
+        if quant_a and self.config.quant_a and not self.config.quantize_input:
             if out == "factored" and factored_act_ok(self.config):
                 norm, factor = self.act_q(y, mode=mode, out="factored")
                 return Factored(norm.to(torch.bfloat16), factor)
@@ -184,15 +224,118 @@ class QuantizedLayerBase(nn.Module):
 
     def _act_method(self, quant_a):
         if quant_a and self.config.quant_a:
+            if not self.config.act_quant.is_fp8:
+                raise int_grid_unported("an asymmetric output quantizer")
             return "fp8", act_consts(self.act_q)
         return "none", None
 
     def _baked(self, quant_w) -> bool:
         return not (quant_w and self.config.quant_w) and self.w_factor is not None
 
-    def _fused_ok(self, mode, train_bn) -> bool:
-        return (self.config.engine == "fused" and mode == "fixed"
-                and not train_bn and self.activation in FUSED_ACTIVATIONS)
+    def _fused_ok(self, mode, train_bn, quant_w, quant_a) -> bool:
+        """Whether the FP8 kernels take this layer; raises for what they do
+        not carry yet, rather than falling through to another route."""
+        cfg = self.config
+        if not (cfg.engine == "fused" and mode == "fixed" and not train_bn
+                and self.activation in FUSED_ACTIVATIONS):
+            return False
+        if cfg.quantize_input and quant_a and cfg.quant_a:
+            raise NotImplementedError(
+                "engine='fused' with quantize_input outside the int8 "
+                "datapath: input quantization in the FP8 kernels is not "
+                "ported yet (ROADMAP.md, section B, item 10); the parity and "
+                "bf16 engines run it")
+        if ((quant_w and cfg.quant_w and not cfg.weight_quant.is_fp8)
+                or (quant_a and cfg.quant_a and not cfg.act_quant.is_fp8)):
+            raise int_grid_unported("engine='fused' with uniform quantizers "
+                                    "outside the int8 datapath")
+        return True
+
+    # ---- the int8 datapath (JAX nn/layers.py:629-727) ------------------------
+
+    def _int8_ok(self, mode, train_bn, quant_w, quant_a) -> bool:
+        """JAX ``_int8_xla_ok``: baked int8 weights are taken whatever
+        ``quant_w`` is."""
+        return (int8_datapath(self.config) and quant_a and mode == "fixed"
+                and not train_bn
+                and (self.w_int8 is not None
+                     or (quant_w and self.config.quant_w)))
+
+    def _int8_matrix(self, w: torch.Tensor) -> torch.Tensor:
+        """The weight as the int8 kernels' (C, K) matrix."""
+        raise NotImplementedError
+
+    def _int8_quant_state(self):
+        """(w_delta (C,), signed 0/1 float scalar) of the weight quantizer."""
+        spec, st = self.config.weight_quant, self.weight_q.state()
+        w_delta = _scale_from_delta(st["delta"], spec.scale_domain, spec.eps)
+        w_delta = torch.broadcast_to(w_delta.reshape(-1),
+                                     (self.features,)).contiguous()
+        return w_delta, st["signed"].to(torch.float32).reshape(())
+
+    def _int8_weight_state(self):
+        """(w, w_delta, signed): the baked int8 grid, or else the float32
+        (C, K) weight that the route quantizes (JAX ``_int8_weight_state``)."""
+        if self.w_int8 is not None:
+            return self.w_int8, self.w_delta, self.w_signed
+        w = self._operand("int8", lambda w: self._int8_matrix(w)
+                          .to(torch.float32).contiguous())
+        return (w, *self._int8_quant_state())
+
+    @torch.no_grad()
+    def int8_weights(self):
+        """(w_int8, w_delta, w_signed) from the weight quantizer: what the
+        int8 bake stores (JAX ``_sow_int8_weights``, without the sow)."""
+        w_delta, signed = self._int8_quant_state()
+        w = self._int8_matrix(self.weight.detach()).to(torch.float32)
+        return self._int8_grid(w, w_delta, signed), w_delta, signed
+
+    def _int8_grid(self, w, w_delta, signed) -> torch.Tensor:
+        """The (C, K) int8 recentred grid of ``w`` (itself when baked)."""
+        if w.dtype == torch.int8:
+            return w
+        return int8_ops.int8_shifted_grid(w, w_delta[:, None], signed,
+                                          self.config.weight_quant.n_bits
+                                          ).to(torch.int8).contiguous()
+
+    def _int8_args(self):
+        """Everything an int8 route needs: the weight, its (w_delta,
+        w_scalars) and the input quantizer's (a_delta, a_zero, a_scalars),
+        the folded (scale, shift) and the kernels' config fields."""
+        w, w_delta, signed = self._int8_weight_state()
+        spec, st = self.config.act_quant, self.act_q.state()
+        a_delta = _scale_from_delta(st["delta"].reshape(()), spec.scale_domain,
+                                    spec.eps)
+        a_zero = st["zero_float"].reshape(())
+        scale, shift = self._fold(None, None)
+        return dict(
+            w=w, w_delta=w_delta, signed=signed,
+            w_scalars=torch.stack([torch.zeros_like(signed), signed]),
+            a_delta=a_delta, a_zero=a_zero,
+            a_scalars=torch.stack([a_delta, a_zero, torch.zeros_like(a_delta)]),
+            scale=scale.contiguous(), shift=shift.contiguous(),
+            kernel_cfg=dict(activation=self.activation,
+                            n_bits=self.config.weight_quant.n_bits,
+                            act_n_bits=spec.n_bits))
+
+    def _int8_fused(self) -> bool:
+        return (self.config.engine == "fused"
+                and self.activation in FUSED_ACTIVATIONS)
+
+    def _int8_matmul(self, x2d):
+        """An (M, K) float32 input through the int8 matmul: the kernel under
+        ``fused``, ``ops/int8.int8_matmul`` elsewhere."""
+        a = self._int8_args()
+        if self._int8_fused():
+            return qmatmul_int8.fused_quant_matmul_int8(
+                x2d.contiguous(), a["w"], a["w_delta"], a["w_scalars"],
+                a["a_scalars"], a["scale"], a["shift"],
+                cfg=qmatmul_int8.Int8MatmulConfig(**a["kernel_cfg"]))
+        return int8_ops.int8_matmul(
+            x2d, self._int8_grid(a["w"], a["w_delta"], a["signed"]),
+            a["w_delta"], a["signed"], a["a_delta"], a["a_zero"],
+            self.config.act_quant.n_bits, scale=a["scale"], shift=a["shift"],
+            act_fn=get_activation(self.activation))
 
     def _operand(self, kind: str, make):
         """A kernel weight operand derived from ``self.weight``, rebuilt when
@@ -260,8 +403,10 @@ class QuantConv(QuantizedLayerBase):
     def fused_state(self, quant_w: bool, quant_a: bool):
         """Baked normalized weight operand, folded (scale, shift) and output
         quant constants for a kernel that runs this layer as part of a
-        larger fusion (JAX ``_conv_fused_state``); None unless baked."""
-        if not self._baked(quant_w):
+        larger fusion (JAX ``_conv_fused_state``); None unless baked, and
+        None under input quantization or the int8 datapath."""
+        cfg = self.config
+        if cfg.quantize_input or cfg.int8_mxu or not self._baked(quant_w):
             return None
         a_method, a_c = self._act_method(quant_a)
         scale, shift = self._fold(self.w_factor, None)
@@ -273,10 +418,12 @@ class QuantConv(QuantizedLayerBase):
                 out: str = "value"):
         if mode == "fp32":
             mode, quant_w, quant_a = "fixed", False, False
+        if self._int8_ok(mode, train_bn, quant_w, quant_a):
+            return self._int8_conv(factored.materialize(x))
         x, x_factor = factored.split(x)
         k, s, p = self.kernel_size, self.stride, self.padding
         cin = x.shape[-1]
-        if self._fused_ok(mode, train_bn):
+        if self._fused_ok(mode, train_bn, quant_w, quant_a):
             if k == 1 and p == 0:
                 xs = x if s == 1 else x[:, ::s, ::s, :]
                 n, h, w_, c = xs.shape
@@ -289,6 +436,8 @@ class QuantConv(QuantizedLayerBase):
                     and cin % 8 == 0 and self.features % 8 == 0):
                 return self._fused_conv3x3(x, quant_a, x_factor, out)
 
+        if x_factor is None:
+            x, x_factor = self._quant_in_engine(x, mode, quant_a)
         xm, wm, w_factor = self._engine_operands(x, mode, quant_w)
         # bf16-exact operands are exact in TF32 too (see module docstring)
         with torch.backends.cudnn.flags(
@@ -298,6 +447,33 @@ class QuantConv(QuantizedLayerBase):
         y = self._affine_epilogue(y.permute(0, 2, 3, 1), w_factor, x_factor,
                                   mode, train_bn)
         return self._quant_out(y, mode, quant_a, out)
+
+    def _int8_matrix(self, w):
+        return qconv_int8.weight_matrix(w)
+
+    def _int8_conv(self, x):
+        """The int8 routes of a conv (x float32 NHWC): qconv_int8, the int8
+        matmul for a 1x1, ``ops/int8.int8_conv`` for anything else."""
+        k, s, p = self.kernel_size, self.stride, self.padding
+        cin = x.shape[-1]
+        if self._int8_fused() and k == 1 and p == 0:
+            xs = x if s == 1 else x[:, ::s, ::s, :]
+            n, h, w_, c = xs.shape
+            return self._int8_matmul(xs.reshape(-1, c)).reshape(n, h, w_, -1)
+        a = self._int8_args()
+        if (self._int8_fused() and k == 3 and p == 1 and s in (1, 2)
+                and cin % 16 == 0 and self.features % 16 == 0):
+            return qconv_int8.fused_quant_conv3x3_int8(
+                x.contiguous(), a["w"], a["w_delta"], a["w_scalars"],
+                a["a_scalars"], a["scale"], a["shift"],
+                cfg=qconv_int8.Int8ConvConfig(stride=s, **a["kernel_cfg"]))
+        wsg = self._int8_grid(a["w"], a["w_delta"], a["signed"])
+        return int8_ops.int8_conv(
+            x, wsg.reshape(self.features, k, k, cin).permute(0, 3, 1, 2),
+            a["w_delta"], a["signed"], a["a_delta"], a["a_zero"],
+            self.config.act_quant.n_bits, stride=s, padding=p,
+            scale=a["scale"], shift=a["shift"],
+            act_fn=get_activation(self.activation))
 
     def _fused_conv3x3(self, x, quant_a, x_factor, out):
         """The qconv kernel route (JAX ``_pallas_conv3x3``)."""
@@ -330,19 +506,28 @@ class QuantLinear(QuantizedLayerBase):
         super().__init__((features, in_features), features, config, activation,
                          bn, use_bias, bn_eps, bn_momentum)
 
+    def _int8_matrix(self, w):
+        return w
+
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False,
                 out: str = "value"):
         if mode == "fp32":
             mode, quant_w, quant_a = "fixed", False, False
+        if self._int8_ok(mode, train_bn, quant_w, quant_a):
+            x = factored.materialize(x)
+            y = self._int8_matmul(x.reshape(-1, x.shape[-1]))
+            return y.reshape(*x.shape[:-1], -1)
         x, x_factor = factored.split(x)
-        if self._fused_ok(mode, train_bn):
+        if self._fused_ok(mode, train_bn, quant_w, quant_a):
             lead = x.shape[:-1]
             y = self._fused_matmul(x.reshape(-1, x.shape[-1]), self.features,
                                    mode, quant_w, quant_a, x_factor, out)
             if isinstance(y, Factored):
                 return Factored(y.norm.reshape(*lead, -1), y.factor)
             return y.reshape(*lead, -1)
+        if x_factor is None:
+            x, x_factor = self._quant_in_engine(x, mode, quant_a)
         xm, wm, w_factor = self._engine_operands(x, mode, quant_w)
         y = xm.to(torch.float32) @ wm.t()
         y = self._affine_epilogue(y, w_factor, x_factor, mode, train_bn)

@@ -3,7 +3,8 @@
 Mirrors ``fp8_quantization_tpu/nn/quantizers.py``.  Where the JAX package
 keeps the state in the ``quant`` variable collection (``q`` and ``est``),
 this module keeps it in buffers: ``maxval``, ``mantissa_bits``,
-``sign_bits``, ``initialized`` and, for the accumulating estimators,
+``sign_bits`` (FP8) or ``delta`` with ``signed`` / ``zero_float``
+(uniform), ``initialized`` and, for the accumulating estimators,
 ``est_xmin``, ``est_xmax``, ``est_seen``.
 
 Modes: ``calibrate`` (estimator update, set range, quantize), ``fixed``
@@ -43,14 +44,15 @@ class Quantizer(nn.Module):
         self.spec = spec
         self.range_spec = range_spec
         self.channel_axis = channel_axis
-        for k, v in q.init_state(spec, num_channels).items():
+        state = q.init_state(spec, num_channels)
+        self.state_keys = tuple(state)
+        for k, v in state.items():
             self.register_buffer(k, v)
         for k, v in est.init_state(range_spec, spec, num_channels).items():
             self.register_buffer("est_" + k, v)
 
     def state(self) -> q.QuantState:
-        return {k: getattr(self, k) for k in
-                ("maxval", "mantissa_bits", "sign_bits", "initialized")}
+        return {k: getattr(self, k) for k in self.state_keys}
 
     def est_state(self) -> est.EstState:
         return {k[4:]: v for k, v in self.named_buffers(recurse=False)

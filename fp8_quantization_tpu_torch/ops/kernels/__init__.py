@@ -6,11 +6,17 @@ launches in its ``launches`` attribute.
 """
 
 from fp8_quantization_tpu_torch.ops.kernels.qconv import fused_quant_conv3x3
+from fp8_quantization_tpu_torch.ops.kernels.qconv_int8 import (
+    fused_quant_conv3x3_int8)
 from fp8_quantization_tpu_torch.ops.kernels.qmatmul import fused_quant_matmul
+from fp8_quantization_tpu_torch.ops.kernels.qmatmul_int8 import (
+    fused_quant_matmul_int8)
 from fp8_quantization_tpu_torch.ops.kernels.qstem import fused_quant_stem
 
 WRAPPERS = {"qstem": fused_quant_stem, "qconv3x3": fused_quant_conv3x3,
-            "qmatmul": fused_quant_matmul}
+            "qmatmul": fused_quant_matmul,
+            "qconv3x3_int8": fused_quant_conv3x3_int8,
+            "qmatmul_int8": fused_quant_matmul_int8}
 
 
 def reset_launch_counts() -> None:

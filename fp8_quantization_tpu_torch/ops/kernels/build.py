@@ -23,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("qmatmul", "qconv", "qstem")
+KERNELS = ("qmatmul", "qconv", "qstem", "qmatmul_int8", "qconv_int8")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -38,6 +38,12 @@ SIGNATURES = {
                _I, _P]),
     "qstem": ("qstem_launch",
               [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+    "qmatmul_int8": ("qmatmul_int8_launch",
+                     [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                      _I, _P]),
+    "qconv_int8": ("qconv3x3_int8_launch",
+                   [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _I, _I, _I, _P]),
 }
 
 _lock = threading.Lock()

@@ -9,15 +9,18 @@ import torch
 ACTIVATION_CODES = {None: 0, "relu": 1, "relu6": 2}   # csrc/fq_epilogue.cuh
 
 
-def int8_slice(what: str) -> NotImplementedError:
-    return NotImplementedError(f"INT8 slice: {what} is not ported yet")
+def int_grid_unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what}: the integer grids of the FP8/bf16 kernel bodies are not "
+        "ported yet (ROADMAP.md, section B, item 9); the int8 datapath has "
+        "its own kernels (qmatmul_int8, qconv_int8)")
 
 
 def check_methods(act_method: str, activation, weight_method: str = "none"):
     if weight_method not in ("fp8", "none"):
-        raise int8_slice(f"weight_method={weight_method!r}")
+        raise int_grid_unported(f"weight_method={weight_method!r}")
     if act_method not in ("fp8", "none"):
-        raise int8_slice(f"act_method={act_method!r}")
+        raise int_grid_unported(f"act_method={act_method!r}")
     if activation not in ACTIVATION_CODES:
         raise ValueError(f"fused kernels take activation None, 'relu' or "
                          f"'relu6', not {activation!r}")

@@ -1,0 +1,122 @@
+"""Int8 3x3 SAME conv: ``y = epilogue(conv3x3(xs, wsg) + corrections)``.
+
+Mirrors the int8 path of ``fused_quant_conv3x3`` in ``fp8_quantization_tpu/
+ops/pallas/qconv.py`` (``mxu_dtype="int8"``: Pallas body
+``_qconv3x3_int8_kernel``, line 278; ``pallas_call`` at line 442).  The
+kernel is ``csrc/qconv_int8.cu`` with ``csrc/int8_epilogue.cuh``: an
+implicit s8 GEMM over NHWC, M = N*Ho*Wo, K = 9*Cin, N = Cout.
+
+The identity is the quant-matmul's (ops/kernels/qmatmul_int8.py) over the
+3x3 window.  SAME padding holds xs = zp - 128, the real zero, so the
+rowsum is the window sum of the per-pixel channel sums, padding included,
+and K = 9*Cin.  Semantics carried over: stride 1 and 2, in-kernel weight
+quant or ``w_prequant``, signed and unsigned weight grids, relu/relu6.
+``w`` is the (Cout, 9*Cin) matrix of ``weight_matrix``, column
+(dy*3 + dx)*Cin + ci.  The TPU knobs (``imgs_per_block``, the phase split,
+the VMEM limit) do not carry over.
+
+On the card the kernel is bound by bytes at every ResNet-18 shape but the
+last (see the note in csrc/qconv_int8.cu).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+
+from fp8_quantization_tpu_torch.ops.int8 import act_int_params, quantize_act
+from fp8_quantization_tpu_torch.ops.kernels import build
+from fp8_quantization_tpu_torch.ops.kernels.common import (
+    ACTIVATION_CODES, on_card, require, stream_ptr)
+from fp8_quantization_tpu_torch.ops.kernels.qconv import out_hw
+from fp8_quantization_tpu_torch.ops.kernels.qmatmul_int8 import (
+    check_int8_config, check_scalars, epilogue, exact_total, weight_grid)
+
+REPLACES = "fp8_quantization_tpu/ops/pallas/qconv.py:278"
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8ConvConfig:
+    stride: int = 1                     # 1 or 2
+    activation: Optional[str] = None    # None | "relu" | "relu6"
+    n_bits: int = 8                     # weight grid bits
+    act_n_bits: int = 8                 # input grid bits
+
+    def __post_init__(self):
+        check_int8_config(self.activation, self.n_bits, self.act_n_bits)
+        if self.stride not in (1, 2):
+            raise ValueError(f"stride must be 1 or 2, got {self.stride}")
+
+
+def weight_matrix(w: torch.Tensor) -> torch.Tensor:
+    """(Cout, Cin, kh, kw) weights -> the int8 kernels' (Cout, kh*kw*Cin)
+    matrix, column (dy*kw + dx)*Cin + ci, same dtype."""
+    return w.permute(0, 2, 3, 1).reshape(w.shape[0], -1).contiguous()
+
+
+def qconv3x3_int8_plain(x: torch.Tensor, w: torch.Tensor,
+                        w_delta: torch.Tensor, w_scalars: torch.Tensor,
+                        a_scalars: torch.Tensor, scale: torch.Tensor,
+                        shift: torch.Tensor,
+                        cfg: Int8ConvConfig) -> torch.Tensor:
+    """The kernel's arithmetic in plain PyTorch, integer sums exact in
+    float64 (rounded after the convolution, whatever algorithm cuDNN
+    picks), for the CPU tests and the card reference."""
+    cin, cout = x.shape[-1], w.shape[0]
+    dx, zp = act_int_params(a_scalars[0], a_scalars[1], cfg.act_n_bits)
+    xs = quantize_act(x, dx, zp, cfg.act_n_bits).permute(0, 3, 1, 2)
+    pad0 = zp - 128.0
+    xs = (F.pad(xs - pad0, (1, 1, 1, 1)) + pad0).to(torch.float64)
+    wsg = weight_grid(w, w_delta, w_scalars, cfg.n_bits)
+    w4 = wsg.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2)
+    ones = torch.ones((1, 1, 3, 3), dtype=torch.float64, device=x.device)
+    acc = torch.round(F.conv2d(xs, w4, stride=cfg.stride))
+    rows = torch.round(F.conv2d(xs.sum(dim=1, keepdim=True), ones,
+                                stride=cfg.stride))
+    s_w = 128.0 * (1.0 - w_scalars[1])
+    total = exact_total(acc.permute(0, 2, 3, 1), rows.permute(0, 2, 3, 1),
+                        wsg.sum(dim=1), 9 * cin, zp, s_w)
+    return epilogue(total, dx, w_delta, scale, shift,
+                    cfg.activation).contiguous()
+
+
+def fused_quant_conv3x3_int8(x: torch.Tensor, w: torch.Tensor,
+                             w_delta: torch.Tensor, w_scalars: torch.Tensor,
+                             a_scalars: torch.Tensor, scale: torch.Tensor,
+                             shift: torch.Tensor, *,
+                             cfg: Int8ConvConfig) -> torch.Tensor:
+    """y (N, Ho, Wo, Cout) float32 for x (N, H, W, Cin) float32 and the
+    ``weight_matrix`` w (Cout, 9*Cin), int8 grid or float32; the scalars as
+    ``fused_quant_matmul_int8``'s.  CPU tensors take
+    ``qconv3x3_int8_plain``; CUDA tensors launch the kernel."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[0]
+    if tuple(w.shape) != (cout, 9 * cin):
+        raise ValueError(f"w must be (Cout, 9*Cin) = (*, {9 * cin}), "
+                         f"got {tuple(w.shape)}")
+    args = (w_delta, w_scalars, a_scalars, scale, shift)
+    if not on_card(x, w, *args):
+        return qconv3x3_int8_plain(x, w, *args, cfg)
+    if cin % 16:
+        raise ValueError(f"the int8 conv kernel needs Cin divisible by 16, "
+                         f"got {cin}")
+    require(x, "x", (torch.float32,), vector_loads=True)
+    require(w, "w", (torch.int8, torch.float32), vector_loads=True)
+    check_scalars(cout, *args)
+    ho, wo = out_hw(h, wd, cfg.stride)
+    out = torch.empty((n, ho, wo, cout), device=x.device, dtype=torch.float32)
+    err = build.entry("qconv_int8")(
+        x.data_ptr(), w.data_ptr(), int(w.dtype == torch.int8),
+        w_delta.data_ptr(), w_scalars.data_ptr(), a_scalars.data_ptr(),
+        scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h, wd, cin,
+        cout, cfg.stride, cfg.act_n_bits, cfg.n_bits,
+        ACTIVATION_CODES[cfg.activation], stream_ptr(x))
+    build.check(err, "qconv3x3_int8")
+    fused_quant_conv3x3_int8.launches += 1
+    return out
+
+
+fused_quant_conv3x3_int8.launches = 0

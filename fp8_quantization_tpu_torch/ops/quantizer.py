@@ -1,9 +1,12 @@
 """Functional quantizer: static spec + state dict + pure transforms.
 
-Mirrors ``fp8_quantization_tpu/ops/quantizer.py`` for ``fp_quantizer``:
-``QMethod``, ``QuantizerSpec``, ``init_state``, ``apply``,
-``apply_factored`` and ``set_quant_range``.  The uniform (INT) methods raise
-``NotImplementedError`` until the INT8 slice ports ``ops/uniform.py``.
+Mirrors ``fp8_quantization_tpu/ops/quantizer.py`` (lines 103-208 and
+256-285): ``QMethod``, ``QuantizerSpec``, ``init_state``, ``apply``,
+``apply_factored`` and ``set_quant_range`` for ``fp_quantizer`` and the
+uniform methods (``ops/uniform.py``).  Uniform state is ``delta`` with
+``signed`` (symmetric) or ``zero_float`` (asymmetric); ``apply_factored``
+gives the bare integers ``x_int`` (symmetric) or ``x_int - zp``
+(asymmetric), exact in bfloat16, and the step as the factor.
 
 Per-channel state is 1-D ``(C,)`` and broadcast along ``channel_axis``.
 Torch weights are OIHW / (out, in), so weight quantizers use
@@ -19,6 +22,7 @@ from typing import Dict
 import torch
 
 from fp8_quantization_tpu_torch.ops import fp8 as fp8_ops
+from fp8_quantization_tpu_torch.ops import uniform as uniform_ops
 from fp8_quantization_tpu_torch.ops.rounding import round_ste
 
 
@@ -28,18 +32,15 @@ class QMethod(str, enum.Enum):
     fp_quantizer = "fp_quantizer"
 
 
-def _int8_slice(method) -> NotImplementedError:
-    return NotImplementedError(f"INT8 slice: quantizer method {method!s} is "
-                               "not ported yet")
-
-
 @dataclasses.dataclass(frozen=True)
 class QuantizerSpec:
-    """Static quantizer configuration (the FP8 subset of the JAX spec)."""
+    """Static quantizer configuration (the PTQ subset of the JAX spec)."""
 
     method: QMethod = QMethod.fp_quantizer
     n_bits: int = 8
     per_channel: bool = False
+    scale_domain: str = "linear"         # uniform methods: "linear" | "log"
+    eps: float = 1e-8
     mantissa_bits: int = 4
     maxval: float | None = None          # None -> format default maxval
     set_maxval: bool = False
@@ -59,11 +60,18 @@ QuantState = Dict[str, torch.Tensor]
 def init_state(spec: QuantizerSpec, num_channels: int | None = None,
                device=None) -> QuantState:
     """Initial state; ``num_channels`` is required iff ``spec.per_channel``."""
-    if not spec.is_fp8:
-        raise _int8_slice(spec.method)
     if num_channels is None and spec.per_channel:
         raise ValueError("per_channel quantizer needs num_channels at init")
     shape = (num_channels,) if spec.per_channel else ()
+    if not spec.is_fp8:
+        state = {"delta": torch.ones(shape, dtype=torch.float32, device=device)}
+        if spec.method == QMethod.symmetric_uniform:
+            state["signed"] = torch.tensor(1, dtype=torch.int32, device=device)
+        else:
+            state["zero_float"] = torch.zeros(shape, dtype=torch.float32,
+                                              device=device)
+        state["initialized"] = torch.tensor(False, device=device)
+        return state
     maxval0 = spec.maxval if spec.maxval is not None else (
         fp8_ops.default_fp8_maxval(spec.mantissa_bits, spec.n_bits))
     return {
@@ -88,7 +96,14 @@ def apply(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
           channel_axis: int = -1) -> torch.Tensor:
     """Fake-quantize ``x`` (quantize -> dequantize)."""
     if not spec.is_fp8:
-        raise _int8_slice(spec.method)
+        delta = broadcast(state["delta"], x.ndim, channel_axis)
+        kw = dict(scale_domain=spec.scale_domain, eps=spec.eps)
+        if spec.method == QMethod.symmetric_uniform:
+            return uniform_ops.quantize_uniform_symmetric(
+                x, delta, state["signed"], spec.n_bits, **kw)
+        return uniform_ops.quantize_uniform_asymmetric(
+            x, delta, broadcast(state["zero_float"], x.ndim, channel_axis),
+            spec.n_bits, **kw)
     return fp8_ops.quantize_to_fp8(
         x, broadcast(state["maxval"], x.ndim, channel_axis),
         state["mantissa_bits"], n_bits=spec.n_bits,
@@ -100,7 +115,17 @@ def apply_factored(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
     """``(x_norm, factor)`` with ``fake_quant(x) == x_norm * factor`` and
     ``x_norm`` exact in bfloat16: the engines' decomposition."""
     if not spec.is_fp8:
-        raise _int8_slice(spec.method)
+        delta = broadcast(state["delta"], x.ndim, channel_axis)
+        scale = uniform_ops._scale_from_delta(delta, spec.scale_domain, spec.eps)
+        if spec.method == QMethod.symmetric_uniform:
+            int_min, int_max = uniform_ops.symmetric_int_bounds(
+                spec.n_bits, state["signed"])
+            return uniform_ops._clip(round_ste(x / scale), int_min, int_max), scale
+        int_min, int_max = uniform_ops.asymmetric_int_bounds(spec.n_bits)
+        zero_float = broadcast(state["zero_float"], x.ndim, channel_axis)
+        zp = uniform_ops._clip(torch.round(zero_float), int_min, int_max)
+        x_int = uniform_ops._clip(round_ste(x / scale) + zp, int_min, int_max)
+        return x_int - zp, scale
     maxval = broadcast(state["maxval"], x.ndim, channel_axis)
     sign_bits_f = state["sign_bits"].to(torch.float32)
     M = fp8_ops._clip_mbits(state["mantissa_bits"], spec.n_bits, sign_bits_f,
@@ -114,9 +139,20 @@ def apply_factored(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
 def set_quant_range(spec: QuantizerSpec, state: QuantState, x_min,
                     x_max) -> QuantState:
     """New state with the range set from (x_min, x_max)."""
-    if not spec.is_fp8:
-        raise _int8_slice(spec.method)
     new = dict(state)
+    if not spec.is_fp8:
+        kw = dict(scale_domain=spec.scale_domain, eps=spec.eps)
+        if spec.method == QMethod.symmetric_uniform:
+            delta, new["signed"] = uniform_ops.symmetric_set_quant_range(
+                x_min, x_max, spec.n_bits, **kw)
+        else:
+            delta, zero_float = uniform_ops.asymmetric_set_quant_range(
+                x_min, x_max, spec.n_bits, **kw)
+            new["zero_float"] = torch.broadcast_to(
+                zero_float, state["zero_float"].shape).clone()
+        new["delta"] = torch.broadcast_to(delta, state["delta"].shape).clone()
+        new["initialized"] = torch.ones((), dtype=torch.bool, device=delta.device)
+        return new
     maxval, sign_bits = fp8_ops.fp8_set_quant_range(
         x_min, x_max, allow_unsigned=spec.allow_unsigned)
     if spec.set_maxval:

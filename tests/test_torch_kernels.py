@@ -151,7 +151,8 @@ def test_qstem_plain_matches_pallas(s, emit):
 
 def test_wrappers_take_plain_version_on_cpu_and_reject_int8():
     """CPU tensors never reach a kernel (the launch counts stay put); the
-    INT8 semantic fields raise until that slice is ported."""
+    integer grids of the FP8/bf16 bodies raise until they are ported (the
+    int8 datapath has kernels of its own, tests/test_torch_int8.py)."""
     before = (qmatmul.fused_quant_matmul.launches,
               qconv.fused_quant_conv3x3.launches,
               qstem.fused_quant_stem.launches)
@@ -159,7 +160,7 @@ def test_wrappers_take_plain_version_on_cpu_and_reject_int8():
     assert (qmatmul.fused_quant_matmul.launches,
             qconv.fused_quant_conv3x3.launches,
             qstem.fused_quant_stem.launches) == before
-    with pytest.raises(NotImplementedError, match="INT8 slice"):
+    with pytest.raises(NotImplementedError, match="integer grids"):
         qmatmul.FusedQuantMatmulConfig(weight_method="int_sym")
-    with pytest.raises(NotImplementedError, match="INT8 slice"):
+    with pytest.raises(NotImplementedError, match="integer grids"):
         qconv.FusedConvConfig(act_method="int_asym")

@@ -160,7 +160,11 @@ def test_grid_oracles_match():
 
 
 def test_not_ported_methods_raise():
-    with pytest.raises(NotImplementedError, match="INT8 slice"):
-        tq.init_state(tq.QuantizerSpec(method=tq.QMethod.symmetric_uniform))
+    """What still raises: the MSE search, and LSQ gradient scaling (QAT) in
+    the uniform quantizers, which are ported for PTQ."""
+    from fp8_quantization_tpu_torch.ops import uniform as tuni
+    with pytest.raises(NotImplementedError, match="QAT"):
+        tuni.quantize_uniform_symmetric(torch.ones(3), torch.tensor(0.1),
+                                        torch.tensor(1), 8, grad_scaling=True)
     with pytest.raises(NotImplementedError):
         test_.EstimatorSpec(kind=test_.RangeEstimators.MSE)
