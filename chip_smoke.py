@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-It drives both slices of the port: ResNet-18 FP8 PTQ and ResNet-18 INT8
-PTQ (--int8-mxu --quantize-input), each on engine 'fused'.  Phases, one
+It drives the three slices of the port, each on engine 'fused':
+ResNet-18 FP8 PTQ, ResNet-18 INT8 PTQ (--int8-mxu --quantize-input) and
+MobileNetV2 FP8 PTQ under --bn-mode fp32_after and folded.  Phases, one
 JSON line each (a failed phase prints "ok": false and the script exits 1
 without the final result line):
 
@@ -63,9 +64,33 @@ without the final result line):
                 launches per forward and the device's idle share of the
                 wall time ("not measured" if the profiler records no device
                 time).
+8. mnv2_*     - MobileNetV2 FP8 (tonylins topology at full width, 1000
+                classes, random fan-in-scaled weights from the seed), per bn
+                mode: the slice as in phase 4 (fp32_after: 17 qblock and 2
+                qmatmul launches per forward; folded: 17 qdwconv3x3 and 35
+                qmatmul), with the input-dependent share of the logits'
+                spread (> 0.01, so that fused against bf16 does not compare
+                constants); throughput of fused against bf16 at batch 64;
+                a profile.  The first fused forward records the depthwise
+                and block kernels' operands, and mnv2_check holds each
+                distinct call against its plain version (qdwconv3x3 100%
+                exact: the same products summed in the same order; qblock
+                as phase 2, its project sum runs over chunks, and in a
+                residual block one step of the project's grid is added to
+                the bound: that stage is quantized before the add) and times it
+                as phase 6, the bound counting the stencil's float32
+                operations at 67 TFLOP/s (for a block the larger of the
+                stencil's and the tensor cores' time, separate pipes), plus
+                two blocks as a --quant-setup dw_bf16_acts model calls them
+                (expand and dw without output quant; not counted as
+                launches of the main path).  library_ms: bf16 channels-last
+                F.conv2d(groups=C), and for a block the three stages as
+                three calls (torch.matmul, F.conv2d(groups=C),
+                torch.matmul).
 
-Then a {"kernels": [...]} line, the nvidia-smi name/power-limit line, and
-last {"ok": true, "device": {...}}.  The plain versions run with TF32 off.
+Then a {"kernels": [...]} line (launches: the sum over the main-path runs
+of phases 4, 5 and 8), the nvidia-smi name/power-limit line, and last
+{"ok": true, "device": {...}}.  The plain versions run with TF32 off.
 """
 
 import json
@@ -84,8 +109,10 @@ BATCH = 64
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 BF16_FLOPS_PER_S = 989e12          # dense bf16 tensor-core peak
 INT8_OPS_PER_S = 1979e12           # dense int8 tensor-core peak
+FP32_FLOPS_PER_S = 67e12           # float32 outside the tensor cores
 MBITS = 4                          # E3M4, the main path's format
 THROUGHPUT_TURNS = 2               # pairs of (fused, bf16) / (bf16, fused)
+THROUGHPUT_ITERS = 5               # forwards per timed turn
 
 # (H, Cin, Cout, stride, uses per ResNet-18 forward) of the 3x3 convs
 CONV_SHAPES = [(56, 64, 64, 1, 4), (56, 64, 128, 2, 1), (28, 128, 128, 1, 3),
@@ -114,9 +141,9 @@ def nvcc_version():
     return out.strip().splitlines()[-1]
 
 
-def time_ms(fn, iters=20):
+def time_ms(fn, iters=20, warmup=3):
     import torch
-    for _ in range(3):
+    for _ in range(warmup):
         fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -136,16 +163,17 @@ def bound_by(bytes_moved, flops, peak=BF16_FLOPS_PER_S):
     return "bytes" if bytes_moved / HBM_BYTES_PER_S > flops / peak else "operations"
 
 
-def grid_check(out, ref, consts, normalized):
+def grid_check(out, ref, consts, normalized, extra=0.0):
     """(ok, max_abs_err, exact share): >= 99% exact, the rest within one
-    FP8 grid step (2^-M of the larger magnitude, plus the smallest step)."""
+    FP8 grid step (2^-M of the larger magnitude, plus the smallest step),
+    plus ``extra`` (per element) where a step upstream carries through."""
     import torch
     a, b = out.float(), ref.float()
     diff = (a - b).abs()
     min_step = 2.0 ** (1.0 + float(consts[4, 0]))
     if not normalized:
         min_step *= float(consts[5, 0])
-    step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS + min_step
+    step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS + min_step + extra
     exact = float((diff == 0).float().mean())
     ok = bool(torch.isfinite(a).all()) and bool((diff <= step).all()) and exact >= 0.99
     return ok, float(diff.max()), exact
@@ -268,9 +296,9 @@ def stem_cases(inp):
 
 
 def kernel_table():
-    """name -> (wrapper, plain, module) of the five kernels."""
+    """name -> (wrapper, plain, module) of the seven kernels."""
     from fp8_quantization_tpu_torch.ops.kernels import (
-        qconv, qconv_int8, qmatmul, qmatmul_int8, qstem)
+        qblock, qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8, qstem)
     return {
         "qstem": (qstem.fused_quant_stem, qstem.qstem_plain, qstem),
         "qconv3x3": (qconv.fused_quant_conv3x3, qconv.qconv3x3_plain, qconv),
@@ -279,6 +307,9 @@ def kernel_table():
                           qconv_int8.qconv3x3_int8_plain, qconv_int8),
         "qmatmul_int8": (qmatmul_int8.fused_quant_matmul_int8,
                          qmatmul_int8.qmatmul_int8_plain, qmatmul_int8),
+        "qdwconv3x3": (qdwconv.fused_quant_dwconv3x3, qdwconv.qdwconv3x3_plain,
+                       qdwconv),
+        "qblock": (qblock.fused_inverted_residual, qblock.qblock_plain, qblock),
     }
 
 
@@ -473,9 +504,27 @@ CLI_ARGS = ["validate-quantized", "--device", "cuda", "--engine", "fused",
             "--seed", str(SEED)]
 
 
-def phase_slice(results):
-    """The main path through the CLI's entry point, then fused against bf16
-    on the same calibrated state."""
+# launches per ResNet-18 FP8 forward: the stem, the 16 3x3 convs, the three
+# 1x1/2 downsamples and the fc
+RESNET_FP8_LAUNCHES = {"qstem": 1, "qconv3x3": 16, "qmatmul": 4}
+
+
+def expected_launches(per_forward):
+    """Launch counts of a main-path run (EVAL_BATCHES forwards) for every
+    kernel: ``per_forward`` for the kernels it names, 0 for the others."""
+    from fp8_quantization_tpu_torch.ops import kernels
+    return {k: per_forward.get(k, 0) * EVAL_BATCHES for k in kernels.WRAPPERS}
+
+
+def phase_slice(results, label="slice", cli=CLI_ARGS,
+                per_forward=RESNET_FP8_LAUNCHES, head="fc", min_share=0.0,
+                captures=None):
+    """An FP8 main path through the CLI's entry point (launch counts
+    against ``per_forward``), then fused against bf16 on one calibrated,
+    baked state, judged on the grid of the ``head`` layer's output
+    quantizer.  With ``captures`` the first fused forward records the
+    depthwise and block kernels' operands (Capture); ``min_share`` bounds
+    the input-dependent share of the logits from below."""
     from itertools import islice
 
     import torch
@@ -485,48 +534,62 @@ def phase_slice(results):
     from fp8_quantization_tpu_torch.nn.bake import bake_weights
     from fp8_quantization_tpu_torch.ops import kernels
 
-    args = image_net.build_parser().parse_args(CLI_ARGS)
+    args = image_net.build_parser().parse_args(cli)
     kernels.reset_launch_counts()
     metrics = image_net.validate_quantized(args)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = {"qstem": EVAL_BATCHES, "qconv3x3": 16 * EVAL_BATCHES,
-            "qmatmul": 4 * EVAL_BATCHES, "qconv3x3_int8": 0, "qmatmul_int8": 0}
+    want = expected_launches(per_forward)
 
     _, val = make_dataloaders(None, batch_size=BATCH, seed=SEED)
     batches = list(islice(iter(val), EVAL_BATCHES))
     fused = image_net.build_model(args)
     calibrate(fused, batches[:1], device="cuda", num_batches=1)
     bf16 = image_net.build_model(image_net.build_parser().parse_args(
-        CLI_ARGS + ["--engine", "bf16"]))
+        cli + ["--engine", "bf16"]))
     bf16.load_state_dict(fused.state_dict())
     bake_weights(fused)
     bake_weights(bf16)
-    agree, exact, within, finite = [], [], [], True
+    agree, exact, within, share, classes, finite = [], [], [], [], [], True
+    maxval = float(getattr(fused, head).act_q.maxval)
     with torch.no_grad():
-        for x, _ in batches:
+        for i, (x, _) in enumerate(batches):
             xt = torch.as_tensor(x, device="cuda")
-            a = fused(xt, mode="fixed", quant_w=False)
+            if i == 0 and captures is not None:
+                with Capture() as cap:
+                    a = fused(xt, mode="fixed", quant_w=False)
+                for k, calls in cap.calls.items():
+                    captures.setdefault(k, {}).update(calls)
+            else:
+                a = fused(xt, mode="fixed", quant_w=False)
             b = bf16(xt, mode="fixed", quant_w=False)
             finite &= bool(torch.isfinite(a).all())
             agree.append(float((a.argmax(-1) == b.argmax(-1)).float().mean()))
-            # one grid step of the fc's E3M4 output quantizer
-            step = (torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS
-                    + float(fused.fc.act_q.maxval) * 2.0 ** -10)
+            # one grid step of the head's E3M4 output quantizer
+            step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS + maxval * 2.0 ** -10
             within.append(float(((a - b).abs() <= step).float().mean()))
             exact.append(float((a == b).float().mean()))
+            share.append(input_share(a))
+            classes.append(len(set(a.argmax(-1).tolist())))
     mean = lambda v: sum(v) / len(v)  # noqa: E731
     ok = (counts == want and finite and math.isfinite(metrics["loss"])
           and metrics["num_examples"] == BATCH * EVAL_BATCHES
-          and mean(agree) >= 0.99 and mean(within) >= 0.98)
-    emit({"phase": "slice", "ok": ok, "metrics": metrics, "launches": counts,
+          and mean(agree) >= 0.99 and mean(within) >= 0.98 and min(share) > min_share)
+    emit({"phase": label, "ok": ok, "metrics": metrics, "launches": counts,
           "expected_launches": want, "logits_finite": finite,
           "top1_agree_vs_bf16": mean(agree),
           "logits_within_one_step_vs_bf16": mean(within),
-          "logits_exact_vs_bf16": mean(exact)})
-    for k in ("qstem", "qconv3x3", "qmatmul"):
-        results.setdefault(k, {})["launches"] = counts[k]
+          "logits_exact_vs_bf16": mean(exact), "input_dependent_share": share,
+          "distinct_top1_classes": classes})
+    add_launches(results, counts)
     return ok, fused, bf16
+
+
+def add_launches(results, counts):
+    """Add one main-path run's launch counts to each kernel's total."""
+    for k, n in counts.items():
+        r = results.setdefault(k, {})
+        r["launches"] = r.get("launches", 0) + n
 
 
 # validate-quantized on the INT8 path: bench.py's ResNet-18 INT8 row without
@@ -558,8 +621,7 @@ def phase_int8_slice(results):
     metrics = image_net.validate_quantized(args)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = {"qstem": 0, "qconv3x3": 0, "qmatmul": 0,
-            "qconv3x3_int8": 16 * EVAL_BATCHES, "qmatmul_int8": 4 * EVAL_BATCHES}
+    want = expected_launches({"qconv3x3_int8": 16, "qmatmul_int8": 4})
 
     _, val = make_dataloaders(None, batch_size=BATCH, seed=SEED)
     batches = list(islice(iter(val), EVAL_BATCHES))
@@ -589,9 +651,225 @@ def phase_int8_slice(results):
           "top1_agree_vs_bf16": mean(agree),
           "logits_within_1e-3_vs_bf16": mean(within),
           "logits_exact_vs_bf16": mean(exact)})
-    for k in ("qconv3x3_int8", "qmatmul_int8"):
-        results.setdefault(k, {})["launches"] = counts[k]
+    add_launches(results, counts)
     return ok, fused
+
+
+# ---- MobileNetV2 -----------------------------------------------------------
+
+def mnv2_cli_args(bn_mode):
+    """validate-quantized on MobileNetV2 FP8 (BASELINE.json config 4 without
+    the pretrained checkpoint): the main path's quantizer config, random
+    fan-in-scaled tonylins-layout weights from the seed."""
+    return ["validate-quantized", "--device", "cuda", "--engine", "fused",
+            "--architecture", "mobilenet_v2_quantized", "--bn-mode", bn_mode,
+            "--per-channel", "--fp8-set-maxval", "--fp8-mantissa-bits", str(MBITS),
+            "--weight-quant-method", "current_minmax",
+            "--act-quant-method", "allminmax", "--num-est-batches", "1",
+            "--max-eval-batches", str(EVAL_BATCHES), "--batch-size", str(BATCH),
+            "--seed", str(SEED)]
+
+
+# launches per MobileNetV2 forward: fp32_after runs the 17 blocks as qblock
+# and the head and classifier as qmatmul; folded runs them layer by layer
+# (16 expand + 17 project + head + classifier on qmatmul, 17 depthwise)
+MNV2_LAUNCHES = {"fp32_after": {"qblock": 17, "qmatmul": 2},
+                 "folded": {"qdwconv3x3": 17, "qmatmul": 35}}
+
+
+class Capture:
+    """Records, while active, the first call of each distinct shape and
+    config of the depthwise and block wrappers as the model calls them,
+    with the number of calls (uses): the check phase replays them."""
+
+    def __init__(self):
+        from fp8_quantization_tpu_torch.ops.kernels import qblock, qdwconv
+        self.targets = [(qdwconv, "fused_quant_dwconv3x3", "qdwconv3x3"),
+                        (qblock, "fused_inverted_residual", "qblock")]
+        self.calls = {}            # kernel -> {key: [args, kwargs, uses]}
+
+    def __enter__(self):
+        import torch
+        self.saved = []
+        for mod, attr, kname in self.targets:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+
+            def record(*args, _fn=fn, _k=kname, **kw):
+                key = (tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
+                             for a in args), kw["cfg"])
+                hit = self.calls.setdefault(_k, {}).setdefault(key, [args, kw, 0])
+                hit[2] += 1
+                return _fn(*args, **kw)
+            # the wrapper counts its launches on the name it is bound to
+            record.launches = fn.launches
+            setattr(mod, attr, record)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in self.saved:
+            fn.launches = getattr(mod, attr).launches
+            setattr(mod, attr, fn)
+
+
+def input_share(logits):
+    """The share of the logits' spread that depends on the input: their
+    standard deviation across the batch (per class) over their standard
+    deviation around the global mean.  Near 0 when every image gets the
+    same logits."""
+    centred = logits - logits.mean(dim=0, keepdim=True)
+    return float((centred.pow(2).mean() / (logits - logits.mean()).pow(2).mean()).sqrt())
+
+
+def mnv2_dw_case(args, kw, uses):
+    """(name, call, plain call, check(out, ref), bytes, op seconds, uses,
+    library fn) of one recorded qdwconv3x3 call."""
+    import torch
+    import torch.nn.functional as F
+    from fp8_quantization_tpu_torch.ops.kernels import qdwconv as qd
+    x, w, a_c, scale, shift = args
+    cfg = kw["cfg"]
+    n, h, wd, c = x.shape
+    ho, wo = qd.out_hw(h, wd, cfg.stride)
+    out_bytes = n * ho * wo * c * (2 if cfg.emit_norm else 4)
+    nbytes = x.numel() * 2 + w.numel() * 4 + out_bytes + 2 * c * 4
+    op_s = 18 * n * ho * wo * c / FP32_FLOPS_PER_S
+    xl = x.permute(0, 3, 1, 2)                       # NCHW view, channels-last
+    wl = w.permute(2, 0, 1)[:, None].to(x.dtype).contiguous(
+        memory_format=torch.channels_last)
+    return (f"qdwconv3x3 {h}x{wd}x{c} s{cfg.stride}",
+            lambda: qd.fused_quant_dwconv3x3(*args, **kw),
+            lambda: qd.qdwconv3x3_plain(*args, cfg),
+            lambda out, ref: grid_check(out, ref, a_c, cfg.emit_norm),
+            nbytes, op_s, uses,
+            lambda: F.conv2d(xl, wl, stride=cfg.stride, padding=1, groups=c))
+
+
+def mnv2_block_case(args, kw, uses, label=""):
+    """The same for one recorded qblock call."""
+    import torch
+    import torch.nn.functional as F
+    from fp8_quantization_tpu_torch.ops.kernels import qblock as qb
+    from fp8_quantization_tpu_torch.ops.kernels.qdwconv import out_hw
+    cfg = kw["cfg"]
+    x, w1, wd, w2, a_c = args[:5]
+    xf = kw.get("x_factor")
+    xf = torch.ones((), device=x.device) if xf is None else xf
+    n, h, w, cin = x.shape
+    hid, cout = w2.shape
+    ho, wo = out_hw(h, w, cfg.stride)
+    out_bytes = n * ho * wo * cout * (2 if cfg.out_bf16 else 4)
+    nbytes = (x.numel() * 2 + (w1.numel() * 2 if w1 is not None else 0)
+              + wd.numel() * 4 + w2.numel() * 2 + out_bytes
+              + (4 * hid + 2 * cout) * 4)
+    mm = 2 * n * ho * wo * hid * cout + (2 * n * h * w * cin * hid if cfg.expand else 0)
+    # the tensor cores and the float32 stencil are separate pipes: the
+    # slower of the two bounds the operations
+    op_s = max(mm / BF16_FLOPS_PER_S, 18 * n * ho * wo * hid / FP32_FLOPS_PER_S)
+    # the yardstick: the three stages as three PyTorch calls on bf16
+    x2d = x.reshape(-1, cin)
+    hl = torch.empty((n, h, w, hid), dtype=torch.bfloat16,
+                     device=x.device).normal_().permute(0, 3, 1, 2)
+    wdl = wd.permute(2, 0, 1)[:, None].to(torch.bfloat16).contiguous(
+        memory_format=torch.channels_last)
+    n2 = torch.empty((n * ho * wo, hid), dtype=torch.bfloat16, device=x.device).normal_()
+
+    def lib():
+        if cfg.expand:
+            torch.matmul(x2d, w1)
+        F.conv2d(hl, wdl, stride=cfg.stride, padding=1, groups=hid)
+        return torch.matmul(n2, w2)
+    col = cfg.final_row
+
+    def check(out, ref):
+        # in a residual block the project output is quantized before the
+        # add: a bin flip there moves the sum by one step of the project's
+        # grid (at |sum - residual| <= |sum| + |residual|), which can be
+        # several steps of the block quantizer's grid after cancellation
+        extra = 0.0
+        if cfg.use_res and cfg.methods[qb.ROW_PROJECT] != "none":
+            f_out = float(a_c[5, col]) if cfg.emit_norm else 1.0
+            y = torch.maximum(out.float().abs(), ref.float().abs()) * f_out
+            p = y + (x.float() * xf).abs()
+            p_min = 2.0 ** (1.0 + float(a_c[4, qb.ROW_PROJECT])) * float(
+                a_c[5, qb.ROW_PROJECT])
+            extra = (p * 2.0 ** -MBITS + p_min) / f_out
+        return grid_check(out, ref, a_c[:, col:col + 1], cfg.emit_norm, extra)
+    tag = "t1" if not cfg.expand else ("res" if cfg.use_res else f"s{cfg.stride}")
+    name = f"qblock {h}x{w} {cin}->{hid}->{cout} {tag}{label}"
+    return (name, lambda: qb.fused_inverted_residual(*args, **kw),
+            lambda: qb.qblock_plain(*args, xf, cfg), check, nbytes, op_s, uses, lib)
+
+
+def capture_dw_bf16_blocks():
+    """The qblock calls of one fused forward of MobileNetV2 under
+    --quant-setup dw_bf16_acts (bn mode fp32_after), calibrated on one batch
+    and baked: its expand and dw stages do not quantize their outputs."""
+    import torch
+    from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
+    from fp8_quantization_tpu_torch.cli import image_net
+    from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
+    from fp8_quantization_tpu_torch.nn.bake import bake_weights
+
+    model = image_net.build_model(image_net.build_parser().parse_args(
+        mnv2_cli_args("fp32_after") + ["--quant-setup", "dw_bf16_acts"]))
+    _, val = make_dataloaders(None, batch_size=BATCH, seed=SEED)
+    batch = next(iter(val))
+    calibrate(model, [batch], device="cuda", num_batches=1)
+    bake_weights(model)
+    with torch.no_grad(), Capture() as cap:
+        model(torch.as_tensor(batch[0], device="cuda"), mode="fixed", quant_w=False)
+    return cap.calls.get("qblock", {})
+
+
+def phase_mnv2_check(results, captures):
+    """Each MobileNetV2 kernel against its plain version on the operands the
+    main path gave it (recorded by the slice phases), timed as in phase 2:
+    17 depthwise calls in 10 shapes and 17 blocks in 12 configurations,
+    plus two blocks (56x56 residual, 14x14 without residual) as a
+    dw_bf16_acts model calls them (expand and dw rows "none")."""
+    from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
+    cases = [("qdwconv3x3", mnv2_dw_case(a, kw, u))
+             for a, kw, u in captures.get("qdwconv3x3", {}).values()]
+    cases += [("qblock", mnv2_block_case(a, kw, u))
+              for a, kw, u in captures.get("qblock", {}).values()]
+    n_main = len(cases)
+    for a, kw, _ in capture_dw_bf16_blocks().values():
+        cfg = kw["cfg"]
+        if (cfg.expand and cfg.stride == 1
+                and (a[0].shape[1], cfg.use_res) in ((56, True), (14, False))):
+            cases.append(("qblock", mnv2_block_case(
+                a, kw, 0, " dw_bf16_acts " + "/".join(cfg.methods))))
+    want_cases = {"qdwconv3x3": 10, "qblock": 12}
+    ok_all = (all(len(captures.get(k, {})) == n for k, n in want_cases.items())
+              and len(cases) == n_main + 2)
+    for kname, (name, call, plain, check, nbytes, op_s, uses, lib) in cases:
+        agg = results.setdefault(kname, {})
+        for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
+                  "bytes_s", "ops_s"):
+            agg.setdefault(k, 0.0)
+        out = call()
+        with no_tf32():
+            ref = plain()
+        ok, err, exact = check(out, ref)
+        if kname == "qdwconv3x3":
+            ok = ok and exact == 1.0                 # the same sums, in order
+        ms = time_ms(call)
+        with no_tf32():
+            pms = time_ms(plain, iters=2, warmup=1)
+        lms = time_ms(lib)
+        bytes_s = nbytes / HBM_BYTES_PER_S
+        bms = 1e3 * max(bytes_s, op_s)
+        emit({"phase": "mnv2_check", "case": name, "ok": ok, "max_abs_err": err,
+              "exact": exact, "ms": ms, "plain_ms": pms, "library_ms": lms,
+              "bound_ms": bms, "bound_by": "bytes" if bytes_s > op_s else "operations",
+              "uses_per_forward": uses})
+        ok_all &= ok
+        agg["max_abs_err"] = max(agg["max_abs_err"], err)
+        for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                     ("bound_ms", bms), ("bytes_s", bytes_s), ("ops_s", op_s)):
+            agg[k] += uses * v
+    return ok_all
 
 
 def phase_int8_throughput(fused):
@@ -605,15 +883,15 @@ def phase_int8_throughput(fused):
         for batch in (BATCH, 256):
             x = torch.randn(batch, 224, 224, 3, device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(1))
-            ms = [time_ms(lambda: fused(x, mode="fixed", quant_w=True), iters=10)
-                  for _ in range(2 * THROUGHPUT_TURNS)]
+            ms = [time_ms(lambda: fused(x, mode="fixed", quant_w=True),
+                          iters=THROUGHPUT_ITERS) for _ in range(2 * THROUGHPUT_TURNS)]
             med = statistics.median(ms)
             rows[f"int8_fused_b{batch}"] = {"ms": ms, "median_ms": med,
                                             "images_per_s": batch / med * 1e3}
     emit({"phase": "int8_throughput", "ok": True, **rows})
 
 
-def phase_throughput(fused, bf16):
+def phase_throughput(fused, bf16, label="throughput", batches=(BATCH, 256)):
     """Forward ms of both engines, in turns (fused, bf16, bf16, fused, ...)
     so that a drift of the host or the card falls on both; images/s from
     the median of the turns."""
@@ -622,7 +900,7 @@ def phase_throughput(fused, bf16):
     import torch
     rows = {}
     with torch.no_grad():
-        for batch in (BATCH, 256):
+        for batch in batches:
             x = torch.randn(batch, 224, 224, 3, device="cuda",
                             generator=torch.Generator(device="cuda").manual_seed(1))
             turns = {"fused": [], "bf16": []}
@@ -630,12 +908,12 @@ def phase_throughput(fused, bf16):
                 models = (("fused", fused), ("bf16", bf16))
                 for name, model in (models if order == "fused" else models[::-1]):
                     turns[name].append(time_ms(
-                        lambda: model(x, mode="fixed", quant_w=False), iters=10))
+                        lambda: model(x, mode="fixed", quant_w=False), iters=THROUGHPUT_ITERS))
             for name, ms in turns.items():
                 med = statistics.median(ms)
                 rows[f"{name}_b{batch}"] = {"ms": ms, "median_ms": med,
                                             "images_per_s": batch / med * 1e3}
-    emit({"phase": "throughput", "ok": True, **rows})
+    emit({"phase": label, "ok": True, **rows})
 
 
 def phase_profile(fused, label="profile", quant_w=False,
@@ -693,6 +971,7 @@ def main():
 
     results = {}
     slice_out = {}
+    captures = {}
 
     def run_slice():
         ok, fused, bf16 = phase_slice(results)
@@ -702,6 +981,23 @@ def main():
     def run_int8_slice():
         ok, slice_out["int8"] = phase_int8_slice(results)
         return ok
+
+    def run_mnv2_slice(bn_mode):
+        ok, slice_out[bn_mode], slice_out[bn_mode + "_bf16"] = phase_slice(
+            results, f"mnv2_{bn_mode}_slice", mnv2_cli_args(bn_mode),
+            MNV2_LAUNCHES[bn_mode], "classifier", 0.01, captures)
+        return ok
+
+    mnv2_phases = []
+    for bn_mode, kernel_names in (("fp32_after", ("qblock", "qmatmul")),
+                                  ("folded", ("qdwconv3x3", "qmatmul"))):
+        mnv2_phases += [
+            (f"mnv2_{bn_mode}_slice", lambda m=bn_mode: run_mnv2_slice(m)),
+            (f"mnv2_{bn_mode}_throughput", lambda m=bn_mode: phase_throughput(
+                slice_out[m], slice_out[m + "_bf16"], f"mnv2_{m}_throughput",
+                (BATCH,)) or True),
+            (f"mnv2_{bn_mode}_profile", lambda m=bn_mode, k=kernel_names: phase_profile(
+                slice_out[m], f"mnv2_{m}_profile", kernel_names=k))]
 
     phases = [("check", lambda: phase_check_and_time(results)),
               ("int8_check", lambda: phase_int8_check(results)),
@@ -714,6 +1010,7 @@ def main():
               ("int8_profile", lambda: phase_profile(
                   slice_out["int8"], "int8_profile", quant_w=True,
                   kernel_names=("qconv3x3_int8", "qmatmul_int8")))]
+    phases += mnv2_phases + [("mnv2_check", lambda: phase_mnv2_check(results, captures))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -729,14 +1026,17 @@ def main():
     rows = []
     for name, (_, _, mod) in table.items():
         r = results.get(name, {})
+        if "bytes_s" in r:      # the MobileNetV2 kernels: mixed operation types
+            by = "bytes" if r["bytes_s"] > r["ops_s"] else "operations"
+        else:
+            by = bound_by(r.get("bytes", 0), r.get("flops", 0),
+                          r.get("peak", BF16_FLOPS_PER_S))
         rows.append({"name": name, "route": "cuda",
                      "source": f"fp8_quantization_tpu_torch/csrc/{mod.__name__.split('.')[-1]}.cu",
                      "replaces": mod.REPLACES, "launches": r.get("launches"),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
-                     "bound_by": bound_by(r.get("bytes", 0), r.get("flops", 0),
-                                          r.get("peak", BF16_FLOPS_PER_S)),
-                     "library_ms": r.get("library_ms")})
+                     "bound_by": by, "library_ms": r.get("library_ms")})
     emit({"kernels": rows})
     print(smi, flush=True)
     if not ok_all:

@@ -4,9 +4,10 @@ Mirrors ``validate-quantized`` of ``cli/image_net.py`` (lines 247-334):
 calibrate -> freeze -> bake -> evaluate, printing the same JSON metrics
 line.  The flag names are the JAX CLI's, plus ``--device {cuda,cpu}`` and
 ``--engine {parity,bf16,fused}``.  Two differences: ``--bake-weights`` is
-on by default (the fused engine's kernels for the stem and the 3x3 convs
-need baked weights), and without ``--model-dir`` the weights are random in
-the torchvision layout, made from ``--seed``.  Under the int8 datapath
+on by default (the fused engine's kernels for the stem, the 3x3 convs, the
+depthwise convs and the MobileNetV2 blocks need baked weights), and
+without ``--model-dir`` the weights are random in the torchvision (ResNet)
+or tonylins (MobileNetV2) layout, made from ``--seed``.  Under the int8 datapath
 (``--int8-mxu --quantize-input`` with symmetric weights and asymmetric
 inputs) the bake is ``bake_int8_weights`` and the model is evaluated with
 ``quant_w=True``, as ``bench.py`` does (lines 107-111): the JAX CLI's
@@ -20,6 +21,10 @@ weights (ROADMAP.md, section C).
         --device cpu --engine fused --qmethod symmetric_uniform \\
         --qmethod-act asymmetric_uniform --per-channel --quantize-input \\
         --int8-mxu --num-est-batches 1 --max-eval-batches 1 --batch-size 4
+    python -m fp8_quantization_tpu_torch.cli.image_net validate-quantized \\
+        --device cpu --architecture mobilenet_v2_quantized --engine fused \\
+        --bn-mode folded --per-channel --fp8-set-maxval \\
+        --num-est-batches 1 --max-eval-batches 1 --batch-size 2
 """
 
 from __future__ import annotations
@@ -47,10 +52,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--images-dir", default=None,
                    help="ImageNet root with val/ (synthetic data when omitted)")
     p.add_argument("--architecture", default="resnet18_quantized",
-                   choices=["resnet18_quantized", "resnet50_quantized"])
+                   choices=["mobilenet_v2_quantized", "resnet18_quantized",
+                            "resnet50_quantized"])
     p.add_argument("--model-dir", default=None,
-                   help="torchvision checkpoint (.pth); random weights from "
-                        "--seed when omitted")
+                   help="torchvision ResNet or tonylins MobileNetV2 "
+                        "checkpoint (.pth/.tar); random weights from --seed "
+                        "when omitted")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--num-workers", type=int, default=8)
     p.add_argument("--interpolation", default="bilinear",
@@ -74,7 +81,8 @@ def build_parser() -> argparse.ArgumentParser:
                             "MSE", "line_search"])
     p.add_argument("--act-momentum", type=float, default=None)
     p.add_argument("--quant-setup", default="all",
-                   choices=["all", "FP_logits", "fc4", "LSQ", "LSQ_paper"])
+                   choices=["all", "FP_logits", "fc4", "fc4_dw8",
+                            "dw_bf16_acts", "LSQ", "LSQ_paper"])
     _bool_flag(p, "weight-quant", True)
     _bool_flag(p, "act-quant", True)
     p.add_argument("--num-est-batches", type=int, default=1)
@@ -87,6 +95,10 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["parity", "bf16", "fused"],
                    help="parity=fp32 reference semantics, bf16=normalized-grid "
                         "products, fused=hand-written CUDA kernels")
+    p.add_argument("--bn-mode", default="fp32_after",
+                   choices=["fp32_after", "folded"],
+                   help="BN after the quantized conv, or folded into the "
+                        "weights before they are quantized")
     _bool_flag(p, "int8-mxu", False,
                "symmetric weights x asymmetric input quant: the s8 x s8 -> "
                "s32 datapath (with --quantize-input)")
@@ -101,9 +113,9 @@ def build_model(args):
     checkpoint's (or ``--seed``'s random) weights loaded; in eval mode and
     not yet calibrated."""
     from fp8_quantization_tpu_torch.device import resolve_device
-    from fp8_quantization_tpu_torch.models.convert import (
-        load_torch_state_dict, load_torchvision_resnet,
-        random_resnet_state_dict)
+    from fp8_quantization_tpu_torch.models import convert
+    from fp8_quantization_tpu_torch.models.mobilenet_v2 import (
+        mobilenetv2_quantized)
     from fp8_quantization_tpu_torch.models.resnet import QUANT_ARCHITECTURES
     from fp8_quantization_tpu_torch.nn.config import make_layer_config
 
@@ -118,14 +130,22 @@ def build_model(args):
         fp8_set_maxval=args.fp8_set_maxval,
         fp8_allow_unsigned=args.fp8_allow_unsigned,
         quantize_input=args.quantize_input, int8_mxu=args.int8_mxu,
-        engine=args.engine)
-    arch = args.architecture
+        bn_mode=args.bn_mode, engine=args.engine)
+    arch, device = args.architecture, resolve_device(args.device)
+    checkpoint = (convert.load_torch_state_dict(args.model_dir)
+                  if args.model_dir else None)
+    if arch == "mobilenet_v2_quantized":
+        model = mobilenetv2_quantized(config, quant_setup=args.quant_setup,
+                                      device=device)
+        convert.load_tonylins_mobilenet_v2(
+            model, checkpoint or convert.random_mobilenet_v2_state_dict(
+                args.seed))
+        return model.eval()
     model = QUANT_ARCHITECTURES[arch](config, quant_setup=args.quant_setup,
-                                      device=resolve_device(args.device))
-    bottleneck = "50" in arch
-    sd = (load_torch_state_dict(args.model_dir) if args.model_dir else
-          random_resnet_state_dict(args.seed, model.stage_sizes, bottleneck))
-    load_torchvision_resnet(model, sd)
+                                      device=device)
+    convert.load_torchvision_resnet(
+        model, checkpoint or convert.random_resnet_state_dict(
+            args.seed, model.stage_sizes, "50" in arch))
     return model.eval()
 
 

@@ -1,14 +1,16 @@
-"""Checkpoint loading and weight carry-over for the port's ResNets.
+"""Checkpoint loading and weight carry-over for the port's models.
 
-Counterpart of ``fp8_quantization_tpu/models/convert.py`` (whose torchvision
-key map it follows) and of the random checkpoints of
-``tools/dress_rehearsal.py`` (lines 39-70).  Three things:
+Counterpart of ``fp8_quantization_tpu/models/convert.py`` (whose
+torchvision and tonylins key maps it follows, there lines 20-111) and of
+the random checkpoints of ``tools/dress_rehearsal.py`` (lines 39-105):
 
 * ``load_torchvision_resnet``: a torchvision ResNet state dict (numpy or
   torch values, e.g. from ``load_torch_state_dict``) into a
   ``QuantizedResNet``;
-* ``random_resnet_state_dict``: a random state dict in the torchvision
-  layout, made with numpy from a seed;
+* ``load_tonylins_mobilenet_v2``: a tonylins MobileNetV2 state dict into a
+  ``QuantizedMobileNetV2``;
+* ``random_resnet_state_dict`` / ``random_mobilenet_v2_state_dict``: random
+  state dicts in those layouts, made with numpy from a seed;
 * ``load_jax_variables``: the JAX package's variables (nested dicts of
   numpy arrays: ``params`` with HWIO kernels, ``batch_stats``, the
   ``quant`` collection, ``baked`` and ``baked_int8``) into the port's
@@ -83,6 +85,54 @@ def random_resnet_state_dict(seed: int, stage_sizes: Sequence[int] = (2, 2, 2, 2
     return sd
 
 
+def random_mobilenet_v2_state_dict(seed: int, settings=None,
+                                   num_classes: int = 1000) -> Arrays:
+    """Random weights in the tonylins MobileNetV2 key layout (width 1.0, a
+    32-channel stem, a 1280-channel head), float32 numpy, drawn in the
+    order of tools/dress_rehearsal.py:73-105 with its BN (as
+    ``random_resnet_state_dict``) and classifier (N(0, 0.02^2), bias 0)
+    scales.
+
+    Conv weights are N(0, 2 / fan_in) with fan_in = Cin/groups * k * k
+    ("He" scaling), not the dress rehearsal's N(0, 0.05^2): through 17
+    blocks at that scale the signal falls below the BN shifts, the part of
+    the logits that depends on the input becomes negligible against their
+    spread (every image gets the same top-1), and a check of one engine
+    against another compares constants.  Fan-in scaling keeps the signal's
+    scale from block to block (chip_smoke.py prints the input-dependent
+    share it gives)."""
+    from fp8_quantization_tpu_torch.models.mobilenet_v2 import (
+        INVERTED_RESIDUAL_SETTING)
+    rng = np.random.RandomState(seed)
+
+    def conv(sd, key, shape):
+        fan_in = shape[1] * shape[2] * shape[3]
+        sd[key] = (rng.standard_normal(shape) * np.sqrt(2.0 / fan_in)
+                   ).astype(np.float32)
+
+    sd: Arrays = {}
+    conv(sd, "features.0.0.weight", (32, 3, 3, 3))
+    _bn_keys(rng, sd, "features.0.1", 32)
+    cin, feat = 32, 1
+    for t, c, n, _ in settings or INVERTED_RESIDUAL_SETTING:
+        for _ in range(n):
+            pre, hidden = f"features.{feat}.conv", cin * t
+            layers = ([((hidden, 1, 3, 3), 0), ((c, hidden, 1, 1), 3)]
+                      if t == 1 else
+                      [((hidden, cin, 1, 1), 0), ((hidden, 1, 3, 3), 3),
+                       ((c, hidden, 1, 1), 6)])
+            for shape, j in layers:
+                conv(sd, f"{pre}.{j}.weight", shape)
+                _bn_keys(rng, sd, f"{pre}.{j + 1}", shape[0])
+            cin, feat = c, feat + 1
+    conv(sd, f"features.{feat}.0.weight", (1280, cin, 1, 1))
+    _bn_keys(rng, sd, f"features.{feat}.1", 1280)
+    sd["classifier.1.weight"] = (rng.standard_normal((num_classes, 1280))
+                                 * 0.02).astype(np.float32)
+    sd["classifier.1.bias"] = np.zeros(num_classes, np.float32)
+    return sd
+
+
 def _bn_targets(mod_path: str, bn_prefix: str) -> dict:
     return {f"{bn_prefix}.weight": f"{mod_path}.bn_weight",
             f"{bn_prefix}.bias": f"{mod_path}.bn_bias",
@@ -107,12 +157,35 @@ def torchvision_key_map(model) -> dict:
     return keys
 
 
+def tonylins_key_map(model) -> dict:
+    """tonylins key -> the port's state-dict key for a QuantizedMobileNetV2
+    (JAX ``convert_mobilenet_v2``): features.0 is the stem,
+    features.1..17 the blocks (``conv.{0,3}`` for t=1, ``conv.{0,3,6}``
+    otherwise, each followed by its BN), then the head and classifier.1."""
+    keys = {"features.0.0.weight": "stem.weight",
+            **_bn_targets("stem", "features.0.1"),
+            "classifier.1.weight": "classifier.weight",
+            "classifier.1.bias": "classifier.bias"}
+    feat = 1
+    for name in model.block_names:
+        block = getattr(model, name)
+        layout = (("dw", 0), ("project", 3)) if block.expand is None else (
+            ("expand", 0), ("dw", 3), ("project", 6))
+        for mod, j in layout:
+            pre = f"features.{feat}.conv.{j}"
+            keys[f"{pre}.weight"] = f"{name}.{mod}.weight"
+            keys.update(_bn_targets(f"{name}.{mod}",
+                                    f"features.{feat}.conv.{j + 1}"))
+        feat += 1
+    keys[f"features.{feat}.0.weight"] = "head.weight"
+    keys.update(_bn_targets("head", f"features.{feat}.1"))
+    return keys
+
+
 @torch.no_grad()
-def load_torchvision_resnet(model, sd) -> None:
-    """Copy a torchvision ResNet state dict into ``model`` (in place, shape
-    checked; every parameter of the map must be present)."""
+def _load_by_map(model, sd, key_map: dict) -> None:
     own = model.state_dict()
-    for src, dst in torchvision_key_map(model).items():
+    for src, dst in key_map.items():
         if src not in sd:
             raise KeyError(f"missing {src!r} in the state dict")
         value = torch.as_tensor(np.asarray(sd[src]), dtype=torch.float32)
@@ -120,6 +193,18 @@ def load_torchvision_resnet(model, sd) -> None:
             raise ValueError(f"shape mismatch at {src}: {tuple(value.shape)} vs "
                              f"{tuple(own[dst].shape)}")
         own[dst].copy_(value)
+
+
+def load_torchvision_resnet(model, sd) -> None:
+    """Copy a torchvision ResNet state dict into ``model`` (in place, shape
+    checked; every parameter of the map must be present)."""
+    _load_by_map(model, sd, torchvision_key_map(model))
+
+
+def load_tonylins_mobilenet_v2(model, sd) -> None:
+    """Copy a tonylins MobileNetV2 state dict into ``model`` (in place,
+    shape checked; every parameter of the map must be present)."""
+    _load_by_map(model, sd, tonylins_key_map(model))
 
 
 def _node(tree, path: Sequence[str]):
@@ -166,7 +251,9 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
     """Load the JAX package's variables into the port's modules in place.
 
     Module paths are the JAX scope paths (``layer1_0.conv1`` <->
-    ``("layer1_0", "conv1")``).  Conv kernels go HWIO -> OIHW, dense
+    ``("layer1_0", "conv1")``, ``block1_0.dw`` <-> ``("block1_0", "dw")``,
+    ``head_act`` <-> ``("head_act",)``).  Conv kernels go HWIO -> OIHW (a
+    depthwise (3, 3, 1, C) kernel to (C, 1, 3, 3) by the same transpose), dense
     kernels (in, out) -> (out, in); ``gamma``/``beta`` -> ``bn_weight``/
     ``bn_bias``; ``batch_stats`` mean/var -> running_mean/var; ``quant``
     ``q``/``est`` -> quantizer and estimator buffers (FP8 ``maxval``... or

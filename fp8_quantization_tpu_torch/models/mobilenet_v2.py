@@ -1,0 +1,244 @@
+"""Quantized MobileNetV2 (the tonylins variant) on NHWC input.
+
+Mirrors ``fp8_quantization_tpu/models/mobilenet_v2.py``: every conv+bn
+(+relu6) is a BN-fused quantized conv; a residual block ends add -> block
+activation quantizer; the head's output quantizer is hoisted to the model
+(``head_act``) and tied to the average pool without a range update (there
+lines 262-278); the classifier is a quantized linear.  Module names are the
+JAX scope names (``stem``, ``block{i}_{b}.{expand,dw,project,block_act}``,
+``head``, ``head_act``, ``classifier``), so that its variables carry over
+by path (models/convert.load_jax_variables).  The classifier's dropout is
+training-only and not ported (its default of 0 leaves inference as is);
+nor are width multipliers other than 1 and the untied avgpool of the
+``LSQ_paper`` preset.
+
+Under ``engine='fused'`` in fixed mode a block whose stages are all baked
+runs ``ops/kernels/qblock`` as one kernel (there lines 86-190, without the
+measured gate): each stage's scale comes from the layer's own ``_fold``
+with the upstream factor folded in (the block input's factor to expand, or
+to dw in a t=1 block; the expand output's factor to dw; dw's to project).
+Otherwise, and under folded BN (``fused_state`` returns None there, JAX
+nn/layers.py:795-799), the block runs layer by layer: the 1x1 convs on
+``qmatmul``, the depthwise convs on ``qdwconv``.  The stem (Cin = 3) stays
+on the composed path, as in JAX.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from fp8_quantization_tpu_torch.device import resolve_device
+from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
+from fp8_quantization_tpu_torch.nn.factored import (
+    Factored, fadd, fmean, materialize, split)
+from fp8_quantization_tpu_torch.nn.layers import (
+    QuantConv, QuantizedActivation, QuantLinear)
+from fp8_quantization_tpu_torch.ops.kernels import qblock
+
+# (expand ratio t, channels c, repeats n, stride s), the reference's table
+INVERTED_RESIDUAL_SETTING = (
+    (1, 16, 1, 1),
+    (6, 24, 2, 2),
+    (6, 32, 3, 2),
+    (6, 64, 4, 2),
+    (6, 96, 3, 1),
+    (6, 160, 3, 2),
+    (6, 320, 1, 1),
+)
+
+
+class QuantInvertedResidual(nn.Module):
+    """[expand 1x1 + relu6] -> dw 3x3 + relu6 -> project 1x1, with a
+    residual and the block quantizer when stride is 1 and the width stays."""
+
+    def __init__(self, in_features: int, features: int, stride: int,
+                 expand_ratio: int, config: LayerQuantConfig,
+                 dw_config: Optional[LayerQuantConfig] = None,
+                 expand_config: Optional[LayerQuantConfig] = None,
+                 block_act_config: Optional[LayerQuantConfig] = None):
+        super().__init__()
+        hidden = round(in_features * expand_ratio)
+        self.config, self.stride = config, stride
+        self.use_res = stride == 1 and in_features == features
+        self.expand = None
+        if expand_ratio != 1:
+            self.expand = QuantConv(in_features, hidden, 1, 1, 0, bn=True,
+                                    activation="relu6",
+                                    config=expand_config or config)
+        self.dw = QuantConv(hidden, hidden, 3, stride, 1, bn=True,
+                            activation="relu6", config=dw_config or config,
+                            groups=hidden)
+        self.project = QuantConv(hidden, features, 1, 1, 0, bn=True,
+                                 config=config)
+        if self.use_res:
+            self.block_act = QuantizedActivation(block_act_config or config)
+
+    def forward(self, x, mode: str = "fixed", quant_w: bool = True,
+                quant_a: bool = True, train_bn: bool = False,
+                out: str = "value"):
+        if mode == "fixed" and not train_bn and self.config.engine == "fused":
+            y = self._fused_forward(x, quant_w, quant_a, out)
+            if y is not None:
+                return y
+        kw = dict(mode=mode, quant_w=quant_w, quant_a=quant_a,
+                  train_bn=train_bn, out=out)
+        y = x
+        if self.expand is not None:
+            y = self.expand(y, **kw)
+        y = self.project(self.dw(y, **kw), **kw)
+        if self.use_res:
+            y = self.block_act(fadd(x, y), mode=mode, quant_a=quant_a, out=out)
+        return y
+
+    def _fused_forward(self, x, quant_w, quant_a, out):
+        """The qblock kernel route, or None for the per-layer path."""
+        xv, xf = split(x)
+        if xv.ndim != 4 or xv.shape[-1] < 8:
+            return None
+        _, h, w, _ = xv.shape
+        if self.stride == 2 and (h % 2 or w % 2):
+            return None
+        st1 = None
+        if self.expand is not None:
+            st1 = self.expand.fused_state(quant_w, quant_a, xf)
+            if st1 is None:
+                return None
+        std = self.dw.fused_state(quant_w, quant_a,
+                                  xf if st1 is None else st1["factor"])
+        if std is None:
+            return None
+        stp = self.project.fused_state(quant_w, quant_a, std["factor"])
+        if stp is None:
+            return None
+        stb = self.block_act.fused_state(quant_a) if self.use_res else None
+        stages = (st1, std, stp, stb)
+        final = stb if self.use_res else stp
+        emit = (out == "factored" and final["a_method"] != "none"
+                and final["factored_ok"])
+        dummy = torch.zeros((6, 1), device=xv.device)
+        consts = torch.cat([dummy if st is None or st["a_consts"] is None
+                            else st["a_consts"] for st in stages], dim=1)
+        cfg = qblock.FusedBlockConfig(
+            expand=st1 is not None, stride=self.stride, use_res=self.use_res,
+            emit_norm=emit,
+            methods=tuple("none" if st is None else st["a_method"]
+                          for st in stages))
+        y = qblock.fused_inverted_residual(
+            xv.to(torch.bfloat16).contiguous(),
+            None if st1 is None else st1["w"], std["w"], stp["w"],
+            consts.contiguous(),
+            None if st1 is None else st1["scale"].contiguous(),
+            None if st1 is None else st1["shift"].contiguous(),
+            std["scale"].contiguous(), std["shift"].contiguous(),
+            stp["scale"].contiguous(), stp["shift"].contiguous(),
+            x_factor=xf if self.use_res else None, cfg=cfg)
+        return Factored(y, final["factor"]) if emit else y
+
+
+class QuantizedMobileNetV2(nn.Module):
+    """MobileNetV2 with per-layer quantization configs."""
+
+    def __init__(self, num_classes: int = 1000,
+                 settings=INVERTED_RESIDUAL_SETTING,
+                 config: LayerQuantConfig = LayerQuantConfig(),
+                 stem_config: Optional[LayerQuantConfig] = None,
+                 head_config: Optional[LayerQuantConfig] = None,
+                 fc_config: Optional[LayerQuantConfig] = None,
+                 dw_config: Optional[LayerQuantConfig] = None,
+                 expand_config: Optional[LayerQuantConfig] = None,
+                 block_act_config: Optional[LayerQuantConfig] = None):
+        super().__init__()
+        self.config = config
+        self.settings = tuple(tuple(s) for s in settings)
+        input_channel, last_channel = 32, 1280
+        self.stem = QuantConv(3, input_channel, 3, 2, 1, bn=True,
+                              activation="relu6", config=stem_config or config)
+        self.block_names = []
+        cin = input_channel
+        for i, (t, c, n, s) in enumerate(self.settings):
+            for b in range(n):
+                name = f"block{i}_{b}"
+                self.add_module(name, QuantInvertedResidual(
+                    cin, c, s if b == 0 else 1, t, config, dw_config,
+                    expand_config, block_act_config))
+                self.block_names.append(name)
+                cin = c
+        self.head_config = head_config or config
+        self.head = QuantConv(cin, last_channel, 1, 1, 0, bn=True,
+                              activation="relu6",
+                              config=(self.head_config.fp32_acts()
+                                      if not self.head_config.quantize_input
+                                      else self.head_config))
+        self.head_act = QuantizedActivation(self.head_config)
+        self.classifier = QuantLinear(last_channel, num_classes, use_bias=True,
+                                      config=fc_config or config)
+
+    def forward(self, x, mode: str = "fixed", quant_w: bool = True,
+                quant_a: bool = True, train_bn: bool = False):
+        kw = dict(mode=mode, quant_w=quant_w, quant_a=quant_a, train_bn=train_bn)
+        out = "value"
+        if mode == "fixed" and self.config.engine in ("bf16", "fused"):
+            out = kw["out"] = "factored"
+        x = self.stem(x, **kw)
+        for name in self.block_names:
+            x = getattr(self, name)(x, **kw)
+        x = self.head(x, **kw)
+        quant_head = not self.head_config.quantize_input
+        if quant_head:
+            x = self.head_act(x, mode=mode, quant_a=quant_a, out=out)
+        x = fmean(x, axis=(1, 2))
+        if quant_head:
+            x = self.head_act(x, mode=mode, quant_a=quant_a,
+                              update_range=False, out=out)
+        x = self.classifier(x, **{**kw, "out": "value"})
+        return materialize(x)
+
+
+def mobilenet_v2_configs(base: LayerQuantConfig,
+                         quant_setup: Optional[str]) -> dict:
+    """quant_setup presets -> per-layer config overrides (JAX
+    ``mobilenet_v2_configs``)."""
+    setup = quant_setup or "all"
+    cfgs = dict(config=base, stem_config=None, head_config=None,
+                fc_config=None, dw_config=None, expand_config=None,
+                block_act_config=None)
+    if setup == "all":
+        return cfgs
+    if setup == "FP_logits":
+        cfgs["fc_config"] = base.fp32_acts()
+        return cfgs
+    if setup in ("fc4", "fc4_dw8"):
+        cfgs["stem_config"] = base.with_weight_bits(8)
+        cfgs["fc_config"] = base.with_weight_bits(4)
+        if setup == "fc4_dw8":
+            cfgs["dw_config"] = base.with_weight_bits(8)
+        return cfgs
+    if setup == "dw_bf16_acts":
+        # weights quantized everywhere, activations everywhere but the
+        # expand -> dw chain
+        cfgs["expand_config"] = base.fp32_acts()
+        cfgs["dw_config"] = base.fp32_acts()
+        return cfgs
+    if setup == "LSQ":
+        cfgs["stem_config"] = base.with_weight_bits(8)
+        cfgs["head_config"] = base.with_act_bits(8)
+        cfgs["fc_config"] = base.with_weight_bits(8).fp32_acts()
+        return cfgs
+    if setup == "LSQ_paper":
+        raise NotImplementedError("the LSQ_paper preset is not ported yet "
+                                  "(ROADMAP.md, section A, item 12)")
+    raise ValueError(f"Quantization setup '{setup}' not supported for "
+                     "MobilenetV2")
+
+
+def mobilenetv2_quantized(base: LayerQuantConfig,
+                          quant_setup: Optional[str] = None,
+                          num_classes: int = 1000,
+                          settings=INVERTED_RESIDUAL_SETTING,
+                          device="cuda") -> QuantizedMobileNetV2:
+    return QuantizedMobileNetV2(num_classes, settings,
+                                **mobilenet_v2_configs(base, quant_setup)).to(
+                                    resolve_device(device))

@@ -16,6 +16,12 @@ weights (see ROADMAP.md, section C).  This port bakes each quantized layer
 directly from its weight quantizer, with no forward, so every layer with
 ``config.quant_w`` is baked whatever the engine.
 
+Under folded BN (``bn_mode='folded'``) the bake stores the quantized
+*folded* weight and then neutralizes BN as the JAX ``bake_weights`` does
+(there lines 104-114): gamma = 1, beta = the folded shift, mean = 0,
+var = 1 - eps.  In float32 ``(1 - 1e-5) + 1e-5 == 1``, so the fold after
+the bake multiplies by exactly 1 and the shift is beta: the identity.
+
 ``bake_int8_weights`` mirrors the JAX function of that name (there lines
 135-175) for the int8 datapath.  Under an ``int8_mxu`` config the JAX
 ``bake_weights`` bakes nothing (its int8 route sows only ``baked_int8``),
@@ -39,13 +45,26 @@ def bake_weights(model: nn.Module) -> nn.Module:
     for layer in model.modules():
         if not isinstance(layer, QuantizedLayerBase) or not layer.config.quant_w:
             continue
+        kernel = layer._kernel()
         if layer.config.engine == "parity":
-            layer.weight.copy_(layer.weight_q(layer.weight, mode="fixed"))
-            continue
-        wn, wf = layer.weight_q(layer.weight, mode="fixed", out="factored")
-        layer.weight.copy_(wn)
-        layer.w_factor = wf.reshape(-1).to(torch.float32).clone()
+            layer.weight.copy_(layer.weight_q(kernel, mode="fixed"))
+        else:
+            wn, wf = layer.weight_q(kernel, mode="fixed", out="factored")
+            layer.weight.copy_(wn)
+            layer.w_factor = wf.reshape(-1).to(torch.float32).clone()
+        if layer._folded():
+            _neutralize_bn(layer)
     return model
+
+
+def _neutralize_bn(layer: QuantizedLayerBase) -> None:
+    """gamma = 1, beta = the folded shift, mean = 0, var = 1 - eps: the
+    fold of the baked (already folded) weight becomes the identity."""
+    shift = layer._bn_inv_shift()[1]
+    layer.bn_weight.fill_(1.0)
+    layer.bn_bias.copy_(shift)
+    layer.running_mean.zero_()
+    layer.running_var.fill_(1.0 - layer.bn_eps)
 
 
 @torch.no_grad()

@@ -15,6 +15,7 @@ from fp8_quantization_tpu_torch.calibration.estimators import (
 from fp8_quantization_tpu_torch.ops.quantizer import QMethod, QuantizerSpec
 
 ENGINES = ("parity", "bf16", "fused")
+BN_MODES = ("fp32_after", "folded")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -33,6 +34,9 @@ class LayerQuantConfig:
     ``int8_mxu``: with ``quantize_input``, symmetric-uniform weights and
     asymmetric-uniform activations, fixed-mode layers run the s8 x s8 -> s32
     datapath (ops/int8.py; under 'fused' the int8 kernels).
+    ``bn_mode``: 'fp32_after' keeps BN after the quantized product;
+    'folded' multiplies the BN scale into the weights before they are
+    quantized and keeps only the folded shift (an inference-time mode).
     """
 
     weight_quant: QuantizerSpec = QuantizerSpec()
@@ -44,10 +48,13 @@ class LayerQuantConfig:
     quant_a: bool = True
     engine: str = "parity"
     int8_mxu: bool = False
+    bn_mode: str = "fp32_after"
 
     def __post_init__(self):
         if self.engine not in ENGINES:
             raise ValueError(f"engine must be one of {ENGINES}, got {self.engine!r}")
+        if self.bn_mode not in BN_MODES:
+            raise ValueError(f"bn_mode must be one of {BN_MODES}, got {self.bn_mode!r}")
 
     def replace(self, **kw) -> "LayerQuantConfig":
         return dataclasses.replace(self, **kw)
@@ -103,8 +110,6 @@ def make_layer_config(
         if value:
             raise NotImplementedError(f"{name}: {_NOT_PORTED[name]} is not "
                                       "ported yet")
-    if bn_mode != "fp32_after":
-        raise NotImplementedError("bn_mode='folded' is not ported yet")
     qmethod = QMethod(qmethod)
     act_qmethod = QMethod(act_qmethod) if act_qmethod else qmethod
 
@@ -123,4 +128,5 @@ def make_layer_config(
                                    percentile=percentile),
         act_range=EstimatorSpec(kind=RangeEstimators(act_range_method),
                                 percentile=percentile, **act_kwargs),
-        quantize_input=quantize_input, engine=engine, int8_mxu=int8_mxu)
+        quantize_input=quantize_input, engine=engine, int8_mxu=int8_mxu,
+        bn_mode=bn_mode)

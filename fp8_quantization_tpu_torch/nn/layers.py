@@ -36,10 +36,23 @@ input quantizer.  On ``parity`` and ``bf16`` it runs ``ops/int8``; on
 Weights baked by ``nn/bake.bake_int8_weights`` (``w_int8``, ``w_delta``,
 ``w_signed``) are taken whatever ``quant_w`` is.
 
+Folded BN (``config.bn_mode == 'folded'``, JAX ``_bn_folded_kernel``,
+there lines 315-334): the BN scale multiplies the weights per output
+channel before they are quantized, in every mode, and only the folded
+shift ``beta - mean*inv`` follows the product (``_kernel``, ``_fold``).
+
+Depthwise convs (``groups == in_features == features``) run
+``F.conv2d(groups=C)``; under ``fused`` in fixed mode a baked depthwise 3x3
+(stride 1 or 2, SAME padding, C >= 32) runs ``ops/kernels/qdwconv`` (the
+static conditions of JAX lines 976-987, without the measured gate).
+``QuantConv.fused_state`` hands a MobileNetV2 block its stages' baked
+operands for ``ops/kernels/qblock`` (models/mobilenet_v2.py).
+
 Not ported, and rejected where they would be selected: cast fast paths, f8
-storage, space-to-depth stems, depthwise / grouped convs and folded BN
-(nn/config.py raises for those); under ``fused``, input quantization
-outside the int8 datapath and uniform quantizers in the FP8 kernels.
+storage, space-to-depth stems, grouped convs other than depthwise, the int8
+datapath with depthwise convs (nn/config.py or the layers raise); under
+``fused``, input quantization outside the int8 datapath and uniform
+quantizers in the FP8 kernels.
 """
 
 from __future__ import annotations
@@ -58,7 +71,7 @@ from fp8_quantization_tpu_torch.nn.quantizers import Quantizer
 from fp8_quantization_tpu_torch.ops import int8 as int8_ops
 from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
 from fp8_quantization_tpu_torch.ops.kernels import (
-    qconv, qconv_int8, qmatmul, qmatmul_int8, qstem)
+    qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8, qstem)
 from fp8_quantization_tpu_torch.ops.kernels.common import int_grid_unported
 from fp8_quantization_tpu_torch.ops.quantizer import QMethod
 from fp8_quantization_tpu_torch.ops.uniform import _scale_from_delta
@@ -91,6 +104,28 @@ def act_consts(quantizer: Quantizer) -> torch.Tensor:
     return fp8_consts(torch.clamp(st["maxval"], min=1e-30),
                       st["mantissa_bits"], quantizer.spec.n_bits,
                       st["sign_bits"])
+
+
+def out_quant(config: LayerQuantConfig, quantizer: Quantizer, quant_a: bool):
+    """(method, (6, 1) constants or None) of an output quantizer for the
+    kernels' epilogues: "fp8", or "none" when it does not quantize."""
+    if quant_a and config.quant_a:
+        if not config.act_quant.is_fp8:
+            raise int_grid_unported("an asymmetric output quantizer")
+        return "fp8", act_consts(quantizer)
+    return "none", None
+
+
+def stage_state(config: LayerQuantConfig, quantizer: Quantizer,
+                quant_a: bool) -> dict:
+    """The output-quant part of a fused stage's state (JAX
+    ``out='fused_state'``): method, constants, the Factored output's
+    factor (None when the stage does not quantize) and whether the stage
+    may emit a Factored tensor."""
+    method, consts = out_quant(config, quantizer, quant_a)
+    return dict(a_method=method, a_consts=consts,
+                factor=None if consts is None else consts[5, 0],
+                factored_ok=factored_act_ok(config))
 
 
 class QuantizedLayerBase(nn.Module):
@@ -168,8 +203,9 @@ class QuantizedLayerBase(nn.Module):
         return y * inv + (self.bn_bias - mean * inv)
 
     def _affine_epilogue(self, y, w_factor, x_factor, mode, train_bn):
-        """Factors, then BN / bias.  In fixed inference the chain folds into
-        one ``y*scale + shift`` (``_fold``), as in the JAX package."""
+        """Factors, then BN / folded shift / bias.  In fixed inference the
+        chain folds into one ``y*scale + shift`` (``_fold``), as in the JAX
+        package."""
         if mode == "fixed" and not train_bn:
             scale, shift = self._fold(w_factor, x_factor)
             return y * scale + shift
@@ -177,11 +213,35 @@ class QuantizedLayerBase(nn.Module):
             y = y * w_factor
         if x_factor is not None:
             y = y * x_factor
+        if self._folded():
+            return y + self._bn_inv_shift()[1]
         if self.bn:
             return self._batch_norm(y, train_bn)
         if self.use_bias:
             return y + self.bias
         return y
+
+    def _folded(self) -> bool:
+        return self.bn and self.config.bn_mode == "folded"
+
+    def _bn_inv_shift(self):
+        """(inv, shift) of BN on its running statistics."""
+        inv = torch.rsqrt(self.running_var + self.bn_eps) * self.bn_weight
+        return inv, self.bn_bias - self.running_mean * inv
+
+    def _kernel(self) -> torch.Tensor:
+        """The weight the quantizer sees: under folded BN the BN scale
+        multiplies each output channel (dim 0) first (JAX
+        ``_bn_folded_kernel``)."""
+        if not self._folded():
+            return self.weight
+        inv = self._bn_inv_shift()[0]
+        return self.weight * inv.reshape(-1, *[1] * (self.weight.ndim - 1))
+
+    def _check_train_bn(self, train_bn: bool) -> None:
+        if train_bn and self._folded():
+            raise ValueError("bn_mode='folded' is an inference-time mode; "
+                             "train with bn_mode='fp32_after'")
 
     def _engine_operands(self, x, mode, quant_w):
         """(xm, wm, w_factor): under bf16/fused the weight goes onto the
@@ -189,14 +249,15 @@ class QuantizedLayerBase(nn.Module):
         float32 values); ``w_factor`` multiplies the product after."""
         factored_engine = self.config.engine in ("bf16", "fused")
         w_factor = None
+        kernel = self._kernel()
         if quant_w and self.config.quant_w:
             if factored_engine:
-                wn, wf = self.weight_q(self.weight, mode=mode, out="factored")
+                wn, wf = self.weight_q(kernel, mode=mode, out="factored")
                 w, w_factor = wn, wf.reshape(-1)
             else:
-                w = self.weight_q(self.weight, mode=mode)
+                w = self.weight_q(kernel, mode=mode)
         else:
-            w = self.weight
+            w = kernel
             if factored_engine and self.w_factor is not None:
                 w_factor = self.w_factor
         if factored_engine:
@@ -209,10 +270,14 @@ class QuantizedLayerBase(nn.Module):
         ``+ bias``), with ``scale = (w_factor*x_factor)*bn_inv``.  The bf16
         engine and the kernels' epilogues both take it, so the two differ
         only in summation order.  (The JAX pallas path multiplies
-        ``(bn_inv*x_factor)*w_factor``: one rounding apart.)"""
+        ``(bn_inv*x_factor)*w_factor``: one rounding apart.)  Under folded
+        BN the BN scale is in the weights: ``scale = w_factor*x_factor`` and
+        ``shift`` is the folded shift, as in JAX's ``_fixed_scale_shift``
+        with ``shift_override``."""
         if self.bn:
-            scale = torch.rsqrt(self.running_var + self.bn_eps) * self.bn_weight
-            shift = self.bn_bias - self.running_mean * scale
+            scale, shift = self._bn_inv_shift()
+            if self._folded():
+                scale = torch.ones_like(scale)
         else:
             scale = torch.ones(self.features, device=self.weight.device)
             shift = self.bias if self.use_bias else torch.zeros_like(scale)
@@ -223,11 +288,7 @@ class QuantizedLayerBase(nn.Module):
         return (scale if fac is None else fac * scale), shift
 
     def _act_method(self, quant_a):
-        if quant_a and self.config.quant_a:
-            if not self.config.act_quant.is_fp8:
-                raise int_grid_unported("an asymmetric output quantizer")
-            return "fp8", act_consts(self.act_q)
-        return "none", None
+        return out_quant(self.config, self.act_q, quant_a)
 
     def _baked(self, quant_w) -> bool:
         return not (quant_w and self.config.quant_w) and self.w_factor is not None
@@ -287,7 +348,7 @@ class QuantizedLayerBase(nn.Module):
         """(w_int8, w_delta, w_signed) from the weight quantizer: what the
         int8 bake stores (JAX ``_sow_int8_weights``, without the sow)."""
         w_delta, signed = self._int8_quant_state()
-        w = self._int8_matrix(self.weight.detach()).to(torch.float32)
+        w = self._int8_matrix(self._kernel().detach()).to(torch.float32)
         return self._int8_grid(w, w_delta, signed), w_delta, signed
 
     def _int8_grid(self, w, w_delta, signed) -> torch.Tensor:
@@ -338,21 +399,24 @@ class QuantizedLayerBase(nn.Module):
             act_fn=get_activation(self.activation))
 
     def _operand(self, kind: str, make):
-        """A kernel weight operand derived from ``self.weight``, rebuilt when
-        the weight changes (bake, load, device move)."""
-        key = (kind, self.weight.device, self.weight._version,
-               self.weight.data_ptr())
+        """A kernel weight operand derived from ``_kernel()``, rebuilt when
+        the weight (or, under folded BN, the BN scale) changes: bake, load,
+        device move."""
+        deps = [self.weight] + ([self.bn_weight, self.running_var]
+                                if self._folded() else [])
+        key = (kind, self.weight.device,
+               tuple((t._version, t.data_ptr()) for t in deps))
         hit = self._operand_cache.get(kind)
         if hit is None or hit[0] != key:
             with torch.no_grad():
-                hit = (key, make(self.weight.detach()))
+                hit = (key, make(self._kernel().detach()))
             self._operand_cache[kind] = hit
         return hit[1]
 
     def _fused_matmul(self, x2d, features, mode, quant_w, quant_a, x_factor,
                       out):
         """The qmatmul kernel route (JAX ``_pallas_forward``)."""
-        w2d = self.weight.reshape(features, -1)
+        w2d = self._kernel().reshape(features, -1)
         if quant_w and self.config.quant_w:
             _, wst = self.weight_q(w2d, mode=mode, out="state")
             w_method, wop = "fp8", w2d.detach().contiguous()
@@ -384,7 +448,9 @@ def _bf16_exact(t: torch.Tensor) -> torch.Tensor:
 
 
 class QuantConv(QuantizedLayerBase):
-    """Quantized 2-D convolution on NHWC input, optionally BN-fused."""
+    """Quantized 2-D convolution on NHWC input, optionally BN-fused; dense
+    (``groups == 1``) or depthwise (``groups == in_features == features``,
+    weight (C, 1, k, k))."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, bn: bool = False,
@@ -392,39 +458,70 @@ class QuantConv(QuantizedLayerBase):
                  config: LayerQuantConfig = LayerQuantConfig(),
                  groups: int = 1, bn_eps: float = 1e-5,
                  bn_momentum: float = 0.1):
-        if groups != 1:
-            raise NotImplementedError("grouped / depthwise convs come with "
-                                      "the MobileNetV2 slice")
-        super().__init__((features, in_features, kernel_size, kernel_size),
+        if groups != 1 and not groups == in_features == features:
+            raise NotImplementedError("grouped convs other than depthwise "
+                                      "(groups == in_features == features) "
+                                      "are not ported yet")
+        if groups != 1 and int8_datapath(config):
+            raise NotImplementedError(
+                "the int8 datapath with depthwise convs (MobileNetV2 INT8) "
+                "is not ported yet (ROADMAP.md, section A, item 12)")
+        super().__init__((features, in_features // groups, kernel_size,
+                          kernel_size),
                          features, config, activation, bn, use_bias, bn_eps,
                          bn_momentum)
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
+        self.groups = groups
 
-    def fused_state(self, quant_w: bool, quant_a: bool):
-        """Baked normalized weight operand, folded (scale, shift) and output
-        quant constants for a kernel that runs this layer as part of a
-        larger fusion (JAX ``_conv_fused_state``); None unless baked, and
-        None under input quantization or the int8 datapath."""
+    @property
+    def depthwise(self) -> bool:
+        return self.groups != 1
+
+    def fused_state(self, quant_w: bool, quant_a: bool, x_factor=None):
+        """This layer's part of a larger fused kernel (JAX
+        ``_conv_fused_state``): the folded (scale, shift) with ``x_factor``
+        (the input's factor) folded in, the output quant (``stage_state``)
+        and, for a 1x1 or depthwise 3x3 conv, the qblock weight operand
+        ``w`` (``block_operand``).  None unless baked, and None under input
+        quantization, the int8 datapath or folded BN."""
         cfg = self.config
-        if cfg.quantize_input or cfg.int8_mxu or not self._baked(quant_w):
+        if (cfg.quantize_input or cfg.int8_mxu or self._folded()
+                or not self._baked(quant_w)):
             return None
-        a_method, a_c = self._act_method(quant_a)
-        scale, shift = self._fold(self.w_factor, None)
-        return dict(scale=scale, shift=shift, a_method=a_method, a_consts=a_c,
-                    factored_ok=factored_act_ok(self.config))
+        scale, shift = self._fold(self.w_factor, x_factor)
+        return dict(scale=scale, shift=shift, w=self.block_operand(),
+                    **stage_state(cfg, self.act_q, quant_a))
+
+    def block_operand(self) -> Optional[torch.Tensor]:
+        """The qblock kernel's operand of this baked stage, built once: a
+        1x1 conv's (in, out) bf16 matrix, a depthwise 3x3's (3, 3, C)
+        float32 taps; None for other convs."""
+        if self.depthwise and self.kernel_size == 3:
+            return self._operand("dw3x3", qdwconv.weight_taps)
+        if not self.depthwise and self.kernel_size == 1:
+            return self._operand("block1x1", lambda w: w.reshape(
+                self.features, -1).t().to(torch.bfloat16).contiguous())
+        return None
 
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False,
                 out: str = "value"):
         if mode == "fp32":
             mode, quant_w, quant_a = "fixed", False, False
+        self._check_train_bn(train_bn)
         if self._int8_ok(mode, train_bn, quant_w, quant_a):
             return self._int8_conv(factored.materialize(x))
         x, x_factor = factored.split(x)
         k, s, p = self.kernel_size, self.stride, self.padding
         cin = x.shape[-1]
         if self._fused_ok(mode, train_bn, quant_w, quant_a):
-            if k == 1 and p == 0:
+            if self.depthwise:
+                if (k == 3 and p == 1 and s in (1, 2) and self._baked(quant_w)
+                        and cin >= 32
+                        and (s == 1 or (x.shape[1] % 2 == 0
+                                        and x.shape[2] % 2 == 0))):
+                    return self._fused_dwconv3x3(x, quant_a, x_factor, out)
+            elif k == 1 and p == 0:
                 xs = x if s == 1 else x[:, ::s, ::s, :]
                 n, h, w_, c = xs.shape
                 y = self._fused_matmul(xs.reshape(-1, c), self.features, mode,
@@ -443,7 +540,7 @@ class QuantConv(QuantizedLayerBase):
         with torch.backends.cudnn.flags(
                 enabled=True, allow_tf32=self.config.engine != "parity"):
             y = F.conv2d(xm.to(torch.float32).permute(0, 3, 1, 2), wm,
-                         stride=s, padding=p)
+                         stride=s, padding=p, groups=self.groups)
         y = self._affine_epilogue(y.permute(0, 2, 3, 1), w_factor, x_factor,
                                   mode, train_bn)
         return self._quant_out(y, mode, quant_a, out)
@@ -490,6 +587,20 @@ class QuantConv(QuantizedLayerBase):
             shift.contiguous(), cfg=kcfg)
         return Factored(y, a_c[5, 0]) if emit else y
 
+    def _fused_dwconv3x3(self, x, quant_a, x_factor, out):
+        """The qdwconv3x3 kernel route (JAX ``_pallas_dwconv3x3``)."""
+        a_method, a_c = self._act_method(quant_a)
+        scale, shift = self._fold(self.w_factor, x_factor)
+        emit = (out == "factored" and a_method != "none"
+                and factored_act_ok(self.config))
+        kcfg = qdwconv.DwConvConfig(act_method=a_method,
+                                    activation=self.activation,
+                                    emit_norm=emit, stride=self.stride)
+        y = qdwconv.fused_quant_dwconv3x3(
+            x.to(torch.bfloat16).contiguous(), self.block_operand(), a_c,
+            scale.contiguous(), shift.contiguous(), cfg=kcfg)
+        return Factored(y, a_c[5, 0]) if emit else y
+
     def stem_operand(self) -> torch.Tensor:
         """The qstem kernel's (Kp, Cout) bf16 weight matrix."""
         return self._operand("stem", qstem.weight_matrix)
@@ -514,6 +625,7 @@ class QuantLinear(QuantizedLayerBase):
                 out: str = "value"):
         if mode == "fp32":
             mode, quant_w, quant_a = "fixed", False, False
+        self._check_train_bn(train_bn)
         if self._int8_ok(mode, train_bn, quant_w, quant_a):
             x = factored.materialize(x)
             y = self._int8_matmul(x.reshape(-1, x.shape[-1]))
@@ -541,6 +653,11 @@ class QuantizedActivation(nn.Module):
         super().__init__()
         self.config = config
         self.act_q = Quantizer(config.act_quant, config.act_range)
+
+    def fused_state(self, quant_a: bool) -> dict:
+        """The fixed-mode output quant of a fused kernel's last stage (JAX
+        ``out='fused_state'``): ``stage_state``."""
+        return stage_state(self.config, self.act_q, quant_a)
 
     def forward(self, x, mode: str = "fixed", quant_a: bool = True,
                 update_range: bool = True, out: str = "value"):

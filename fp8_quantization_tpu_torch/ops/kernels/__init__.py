@@ -5,9 +5,13 @@ for CUDA tensors (no fallback between the two); each wrapper counts its
 launches in its ``launches`` attribute.
 """
 
+from fp8_quantization_tpu_torch.ops.kernels.qblock import (
+    fused_inverted_residual)
 from fp8_quantization_tpu_torch.ops.kernels.qconv import fused_quant_conv3x3
 from fp8_quantization_tpu_torch.ops.kernels.qconv_int8 import (
     fused_quant_conv3x3_int8)
+from fp8_quantization_tpu_torch.ops.kernels.qdwconv import (
+    fused_quant_dwconv3x3)
 from fp8_quantization_tpu_torch.ops.kernels.qmatmul import fused_quant_matmul
 from fp8_quantization_tpu_torch.ops.kernels.qmatmul_int8 import (
     fused_quant_matmul_int8)
@@ -16,7 +20,9 @@ from fp8_quantization_tpu_torch.ops.kernels.qstem import fused_quant_stem
 WRAPPERS = {"qstem": fused_quant_stem, "qconv3x3": fused_quant_conv3x3,
             "qmatmul": fused_quant_matmul,
             "qconv3x3_int8": fused_quant_conv3x3_int8,
-            "qmatmul_int8": fused_quant_matmul_int8}
+            "qmatmul_int8": fused_quant_matmul_int8,
+            "qdwconv3x3": fused_quant_dwconv3x3,
+            "qblock": fused_inverted_residual}
 
 
 def reset_launch_counts() -> None:

@@ -23,7 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("qmatmul", "qconv", "qstem", "qmatmul_int8", "qconv_int8")
+KERNELS = ("qmatmul", "qconv", "qstem", "qmatmul_int8", "qconv_int8",
+           "qdwconv", "qblock")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -44,6 +45,8 @@ SIGNATURES = {
     "qconv_int8": ("qconv3x3_int8_launch",
                    [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _P]),
+    "qdwconv": ("qdwconv3x3_launch", [_P] * 6 + [_I] * 8 + [_P]),
+    "qblock": ("qblock_launch", [_P] * 13 + [_I] * 12 + [_P]),
 }
 
 _lock = threading.Lock()

@@ -1,0 +1,201 @@
+"""Fused MobileNetV2 inverted-residual block:
+
+    [expand 1x1 + fold + relu6 + quant] -> [depthwise 3x3 + fold + relu6 +
+    quant] -> [project 1x1 + fold + quant] [+ residual + block quant]
+
+Mirrors ``fused_inverted_residual`` of ``fp8_quantization_tpu/ops/pallas/
+qblock.py`` (Pallas body ``_ir_block_kernel``, line 82; ``pallas_call`` at
+line 267).  The Pallas kernel holds a group of whole images, expanded, in
+VMEM; an SM's shared memory cannot.  The kernel, ``csrc/qblock.cu``, gives
+each block one image's tile of output pixels and walks the hidden channels
+in chunks: it expands the tile's input pixels plus their one-pixel halo for
+the chunk (bf16 tensor cores, fp32 sums), runs the depthwise stencil on the
+chunk and adds the chunk's project product into an fp32 accumulator in
+shared memory.  The expanded tensor never leaves the SM.
+
+Numerics are the Pallas body's, stage by stage (``qblock_plain``):
+
+* the depthwise stage pads the *expanded* tensor with zeros (qblock.py:132):
+  an input pixel outside the image is 0 after the expansion, not
+  ``quant(relu6(shift1))``;
+* a stage whose method is "none" (the ``dw_bf16_acts`` preset) is a plain
+  bf16 cast, with no quant (qblock.py:123-125, 141-143);
+* with a residual the project output is quantized at full scale, then
+  ``x * x_factor`` is added, then the block quantizer runs
+  (qblock.py:152-162);
+* the output is bf16 only when ``emit_norm`` holds and the final stage
+  quantizes (qblock.py:232-235), float32 otherwise.
+
+The quantizers arrive as one ``(6, 4)`` constant tensor from
+``ops/fp8.fp8_consts`` (columns: expand, dw, project, block; maxval floored
+at 1e-30 and mbits rounded and clipped there, the Pallas wrapper's
+``_precondition_scalars``).  The kernel's project sum runs over chunks, so
+it is not bit-exact against the plain version's single fp32 matmul: it is
+held as the FP8 kernels are, >= 99% exactly equal and the rest within one
+grid step.  The TPU knobs (``imgs_per_block``, the VMEM limit) do not carry
+over.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from fp8_quantization_tpu_torch.ops.fp8 import fp8_quantize_prepared
+from fp8_quantization_tpu_torch.ops.kernels import build
+from fp8_quantization_tpu_torch.ops.kernels.common import (
+    check_methods, on_card, require, stream_ptr)
+from fp8_quantization_tpu_torch.ops.kernels.qdwconv import dw_taps_sum, out_hw
+
+REPLACES = "fp8_quantization_tpu/ops/pallas/qblock.py:82"
+ROW_EXPAND, ROW_DW, ROW_PROJECT, ROW_BLOCK = 0, 1, 2, 3
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedBlockConfig:
+    expand: bool = True                 # False for a t=1 block
+    stride: int = 1                     # the depthwise stride, 1 or 2
+    use_res: bool = False               # residual add + block quant
+    emit_norm: bool = False             # final output as normalized bf16
+    # output quant per stage (expand, dw, project, block): "fp8" | "none"
+    methods: Tuple[str, str, str, str] = ("fp8", "fp8", "fp8", "fp8")
+
+    def __post_init__(self):
+        for m in self.methods:
+            check_methods(m, None)
+        if self.stride not in (1, 2):
+            raise ValueError(f"stride must be 1 or 2, got {self.stride}")
+        if self.use_res and self.stride != 1:
+            raise ValueError("a residual block has stride 1")
+
+    @property
+    def final_row(self) -> int:
+        return ROW_BLOCK if self.use_res else ROW_PROJECT
+
+    @property
+    def out_bf16(self) -> bool:
+        return self.emit_norm and self.methods[self.final_row] != "none"
+
+
+def _stage_quant(y, a_consts, cfg: FusedBlockConfig, row: int,
+                 normalized: bool):
+    if cfg.methods[row] == "none":
+        return y
+    return fp8_quantize_prepared(y, a_consts[:, row:row + 1],
+                                 normalized=normalized)
+
+
+def _relu6(y):
+    return torch.clamp(y, 0.0, 6.0)
+
+
+def qblock_plain(x, w1, wd, w2, a_consts, scale1, shift1, scale_d, shift_d,
+                 scale2, shift2, x_factor, cfg: FusedBlockConfig):
+    """The kernel's arithmetic in plain PyTorch (CPU tests, card reference),
+    with the project product as one fp32 matmul.  On the card call it under
+    ``common.no_tf32()``."""
+    n, h, w, cin = x.shape
+    hid, cout = w2.shape
+    xb = x.to(torch.bfloat16).to(torch.float32)
+    hcur = xb
+    if cfg.expand:
+        y1 = xb.reshape(-1, cin) @ w1.to(torch.float32)
+        y1 = _relu6(y1 * scale1 + shift1)
+        hcur = (_stage_quant(y1, a_consts, cfg, ROW_EXPAND, True)
+                .to(torch.bfloat16).to(torch.float32).reshape(n, h, w, hid))
+    yd = dw_taps_sum(hcur, wd.to(torch.float32), cfg.stride)
+    yd = _relu6(yd * scale_d + shift_d)
+    n2 = _stage_quant(yd, a_consts, cfg, ROW_DW, True).to(torch.bfloat16)
+    ho, wo = out_hw(h, w, cfg.stride)
+    y2 = (n2.to(torch.float32).reshape(-1, hid) @ w2.to(torch.float32))
+    y2 = y2.reshape(n, ho, wo, cout) * scale2 + shift2
+    if cfg.use_res:
+        y2 = _stage_quant(y2, a_consts, cfg, ROW_PROJECT, False)
+        y2 = y2 + xb * x_factor
+    y = _stage_quant(y2, a_consts, cfg, cfg.final_row, cfg.emit_norm)
+    return y.to(torch.bfloat16 if cfg.out_bf16 else torch.float32).contiguous()
+
+
+def _vec(t: torch.Tensor, n: int, name: str) -> None:
+    require(t, name, (torch.float32,), (n,))
+
+
+def fused_inverted_residual(x: torch.Tensor, w1: Optional[torch.Tensor],
+                            wd: torch.Tensor, w2: torch.Tensor,
+                            a_consts: torch.Tensor,
+                            scale1: Optional[torch.Tensor],
+                            shift1: Optional[torch.Tensor],
+                            scale_d: torch.Tensor, shift_d: torch.Tensor,
+                            scale2: torch.Tensor, shift2: torch.Tensor,
+                            x_factor: Optional[torch.Tensor] = None, *,
+                            cfg: FusedBlockConfig) -> torch.Tensor:
+    """One inverted-residual block, fused.
+
+    Args:
+      x: (N, H, W, Cin) bf16 input norms (or bf16 values).
+      w1: (Cin, hid) bf16 baked expand weights, or None (t=1 blocks).
+      wd: (3, 3, hid) float32 baked depthwise taps (bf16-exact).
+      w2: (hid, Cout) bf16 baked project weights.
+      a_consts: (6, 4) float32 quantizer constants, one column per stage
+        (expand, dw, project, block); a "none" stage's column is unused.
+      scale*/shift*: (hid,) or (Cout,) float32 folded epilogues, each stage's
+        scale carrying its upstream stage's factor.
+      x_factor: () float32, the input's factor (residual blocks).
+    CPU tensors take ``qblock_plain``; CUDA tensors launch the kernel.
+    """
+    n, h, w, cin = x.shape
+    hid = wd.shape[-1]
+    cout = w2.shape[-1]
+    if cfg.expand != (w1 is not None) or cfg.expand != (scale1 is not None):
+        raise ValueError("w1, scale1 and shift1 are given iff cfg.expand")
+    if cfg.expand and w1.shape != (cin, hid):
+        raise ValueError(f"w1 must be ({cin}, {hid}), got {tuple(w1.shape)}")
+    if not cfg.expand and hid != cin:
+        raise ValueError("a block without expansion has hid == Cin")
+    if w2.shape != (hid, cout) or wd.shape != (3, 3, hid):
+        raise ValueError(f"wd must be (3, 3, hid) and w2 (hid, Cout), got "
+                         f"{tuple(wd.shape)} and {tuple(w2.shape)}")
+    if cfg.use_res and (cout != cin or x_factor is None):
+        raise ValueError("a residual block needs Cout == Cin and x_factor")
+    if cfg.stride == 2 and (h % 2 or w % 2):
+        raise ValueError(f"stride 2 needs even H and W, got {h}x{w}")
+    if x_factor is None:
+        x_factor = torch.ones((), device=x.device)
+    x_factor = x_factor.reshape(()).to(torch.float32)
+    opt = [t for t in (w1, scale1, shift1) if t is not None]
+    if not on_card(x, wd, w2, a_consts, scale_d, shift_d, scale2, shift2,
+                   x_factor, *opt):
+        return qblock_plain(x, w1, wd, w2, a_consts, scale1, shift1, scale_d,
+                            shift_d, scale2, shift2, x_factor, cfg)
+    require(x, "x", (torch.bfloat16,))
+    require(wd, "wd", (torch.float32,))
+    require(w2, "w2", (torch.bfloat16,))
+    require(a_consts, "a_consts", (torch.float32,), (6, 4))
+    for t, nm, c in ((scale_d, "scale_d", hid), (shift_d, "shift_d", hid),
+                     (scale2, "scale2", cout), (shift2, "shift2", cout)):
+        _vec(t, c, nm)
+    if cfg.expand:
+        require(w1, "w1", (torch.bfloat16,))
+        _vec(scale1, hid, "scale1")
+        _vec(shift1, hid, "shift1")
+    x_factor = x_factor.contiguous()
+    ho, wo = out_hw(h, w, cfg.stride)
+    out = torch.empty((n, ho, wo, cout), device=x.device,
+                      dtype=torch.bfloat16 if cfg.out_bf16 else torch.float32)
+    methods = sum(1 << r for r, m in enumerate(cfg.methods) if m == "fp8")
+    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+    err = build.entry("qblock")(
+        x.data_ptr(), ptr(w1), wd.data_ptr(), w2.data_ptr(),
+        a_consts.data_ptr(), ptr(scale1), ptr(shift1), scale_d.data_ptr(),
+        shift_d.data_ptr(), scale2.data_ptr(), shift2.data_ptr(),
+        x_factor.data_ptr(), out.data_ptr(), n, h, w, cin, hid, cout,
+        cfg.stride, int(cfg.expand), int(cfg.use_res), methods,
+        int(cfg.emit_norm), int(cfg.out_bf16), stream_ptr(x))
+    build.check(err, "qblock")
+    fused_inverted_residual.launches += 1
+    return out
+
+
+fused_inverted_residual.launches = 0
