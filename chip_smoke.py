@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py
 
-It drives the three slices of the port, each on engine 'fused':
-ResNet-18 FP8 PTQ, ResNet-18 INT8 PTQ (--int8-mxu --quantize-input) and
-MobileNetV2 FP8 PTQ under --bn-mode fp32_after and folded.  Phases, one
+It drives the four slices of the port, each on engine 'fused':
+ResNet-18 FP8 PTQ, ResNet-18 INT8 PTQ (--int8-mxu --quantize-input),
+MobileNetV2 FP8 PTQ under --bn-mode fp32_after and folded, and ViT-S/16 FP8
+PTQ.  Phases, one
 JSON line each (a failed phase prints "ok": false and the script exits 1
 without the final result line):
 
@@ -87,9 +88,40 @@ without the final result line):
                 F.conv2d(groups=C), and for a block the three stages as
                 three calls (torch.matmul, F.conv2d(groups=C),
                 torch.matmul).
+9. vit_*      - ViT-S/16 FP8 (patch 16, dim 384, depth 12, 6 heads, MLP
+                ratio 4, 1000 classes, random timm-layout weights from the
+                seed, --quant-setup all): validate-quantized as in phase 4
+                (12 flash_mha and 37 qmatmul launches per forward), the
+                input-dependent share of the logits (> 0.01), then fused
+                against bf16 (whose attention is the float32 chain) on one
+                calibrated, baked state.  Twelve E3M4 blocks make the logits
+                chaotic, so fused is held to the floor that moving every
+                input by one float32 ulp gives the bf16 model: the rms gap
+                to bf16 over the logits' spread at most twice the floor,
+                with activation quantization on and off, and the rms error
+                against the float32 forward at most 1.25 times bf16's (the
+                shares of phase 4 are printed beside); throughput of fused
+                against bf16 at batch 64; a profile.  vit_check holds
+                the first fused forward's attention call (recorded, 12 uses)
+                and synthetic calls (64, 6, S, 64) for S in {50, 128, 256}
+                (strided float32 views as the model passes them) and one
+                on contiguous bf16 operands against
+                flash_mha_plain: >= 99% bit-equal and all within 2 bf16 ulps
+                at the larger of the two outputs and the attention-weighted
+                mean of |v| (where the weighted sum cancels, a p rounded to
+                its neighbouring bf16 value moves it by a step of the
+                terms); timed as in phase 6, the bound from the bytes the
+                kernel reads (float32 or bf16 q, k, v) and writes (float32)
+                and 4*B*H*S^2*D tensor-core operations; library_ms:
+                F.scaled_dot_product_attention on contiguous bf16
+                (B, H, S, D).  Then the forward's four qmatmul calls (qkv,
+                proj, mlp2: 12 uses each; the head: 1) against
+                qmatmul_plain as in phase 2, timed as in phase 6, with
+                their sums per ViT forward (the kernels line's qmatmul row
+                stays ResNet-18's forward).
 
 Then a {"kernels": [...]} line (launches: the sum over the main-path runs
-of phases 4, 5 and 8), the nvidia-smi name/power-limit line, and last
+of phases 4, 5, 8 and 9), the nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {...}}.  The plain versions run with TF32 off.
 """
 
@@ -296,20 +328,28 @@ def stem_cases(inp):
 
 
 def kernel_table():
-    """name -> (wrapper, plain, module) of the seven kernels."""
+    """name -> (wrapper, plain, module, CUDA source) of the eight kernels."""
     from fp8_quantization_tpu_torch.ops.kernels import (
-        qblock, qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8, qstem)
+        attention, qblock, qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8,
+        qstem)
     return {
-        "qstem": (qstem.fused_quant_stem, qstem.qstem_plain, qstem),
-        "qconv3x3": (qconv.fused_quant_conv3x3, qconv.qconv3x3_plain, qconv),
-        "qmatmul": (qmatmul.fused_quant_matmul, qmatmul.qmatmul_plain, qmatmul),
+        "qstem": (qstem.fused_quant_stem, qstem.qstem_plain, qstem, "qstem"),
+        "qconv3x3": (qconv.fused_quant_conv3x3, qconv.qconv3x3_plain, qconv,
+                     "qconv"),
+        "qmatmul": (qmatmul.fused_quant_matmul, qmatmul.qmatmul_plain, qmatmul,
+                    "qmatmul"),
         "qconv3x3_int8": (qconv_int8.fused_quant_conv3x3_int8,
-                          qconv_int8.qconv3x3_int8_plain, qconv_int8),
+                          qconv_int8.qconv3x3_int8_plain, qconv_int8,
+                          "qconv_int8"),
         "qmatmul_int8": (qmatmul_int8.fused_quant_matmul_int8,
-                         qmatmul_int8.qmatmul_int8_plain, qmatmul_int8),
+                         qmatmul_int8.qmatmul_int8_plain, qmatmul_int8,
+                         "qmatmul_int8"),
         "qdwconv3x3": (qdwconv.fused_quant_dwconv3x3, qdwconv.qdwconv3x3_plain,
-                       qdwconv),
-        "qblock": (qblock.fused_inverted_residual, qblock.qblock_plain, qblock),
+                       qdwconv, "qdwconv"),
+        "qblock": (qblock.fused_inverted_residual, qblock.qblock_plain, qblock,
+                   "qblock"),
+        "flash_mha": (attention.flash_mha, attention.flash_mha_plain,
+                      attention, "flash_mha"),
     }
 
 
@@ -322,7 +362,7 @@ def phase_check_and_time(results):
     ok_all = True
     for kname, make in (("qstem", stem_cases), ("qconv3x3", conv_cases),
                         ("qmatmul", matmul_cases)):
-        wrapper, plain, _ = table[kname]
+        wrapper, plain = table[kname][:2]
         agg = results.setdefault(kname, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                              bound_ms=0.0, library_ms=0.0))
         for name, args, cfg, flops, nbytes, uses, lib in make(inp):
@@ -462,7 +502,7 @@ def phase_int8_check(results):
     ok_all = True
     for kname, make in (("qconv3x3_int8", int8_conv_cases),
                         ("qmatmul_int8", int8_matmul_cases)):
-        wrapper, plain, _ = table[kname]
+        wrapper, plain = table[kname][:2]
         agg = results.setdefault(kname, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                              bound_ms=0.0, library_ms=0.0,
                                              peak=INT8_OPS_PER_S))
@@ -516,6 +556,53 @@ def expected_launches(per_forward):
     return {k: per_forward.get(k, 0) * EVAL_BATCHES for k in kernels.WRAPPERS}
 
 
+def run_main_path(cli, per_forward):
+    """validate-quantized through the CLI's entry point with the launch
+    counts zeroed just before and read just after: (metrics, counts, the
+    counts ``per_forward`` asks for, ok of the metrics line)."""
+    import torch
+    from fp8_quantization_tpu_torch.cli import image_net
+    from fp8_quantization_tpu_torch.ops import kernels
+    kernels.reset_launch_counts()
+    metrics = image_net.validate_quantized(image_net.build_parser().parse_args(cli))
+    torch.cuda.synchronize()
+    ok = (math.isfinite(metrics["loss"])
+          and metrics["num_examples"] == BATCH * EVAL_BATCHES)
+    return metrics, kernels.launch_counts(), expected_launches(per_forward), ok
+
+
+def engine_pair(cli):
+    """The evaluation batches and the model of ``cli`` under 'fused' and
+    'bf16', built from the seed's weights and calibrated (as 'fused', on the
+    first batch) to one state, not yet baked."""
+    from itertools import islice
+
+    from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
+    from fp8_quantization_tpu_torch.cli import image_net
+    from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
+    _, val = make_dataloaders(None, batch_size=BATCH, seed=SEED)
+    batches = list(islice(iter(val), EVAL_BATCHES))
+    fused = image_net.build_model(image_net.build_parser().parse_args(cli))
+    calibrate(fused, batches[:1], device="cuda", num_batches=1)
+    bf16 = image_net.build_model(image_net.build_parser().parse_args(
+        cli + ["--engine", "bf16"]))
+    bf16.load_state_dict(fused.state_dict())
+    return batches, fused, bf16
+
+
+def fused_forward(fused, x, captures, first):
+    """One fixed-mode forward of the baked 'fused' model; the first one of
+    a run records the depthwise, block and attention kernels' operands
+    (Capture) when ``captures`` is given."""
+    if not (first and captures is not None):
+        return fused(x, mode="fixed", quant_w=False)
+    with Capture() as cap:
+        a = fused(x, mode="fixed", quant_w=False)
+    for k, calls in cap.calls.items():
+        captures.setdefault(k, {}).update(calls)
+    return a
+
+
 def phase_slice(results, label="slice", cli=CLI_ARGS,
                 per_forward=RESNET_FP8_LAUNCHES, head="fc", min_share=0.0,
                 captures=None):
@@ -525,29 +612,11 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
     quantizer.  With ``captures`` the first fused forward records the
     depthwise and block kernels' operands (Capture); ``min_share`` bounds
     the input-dependent share of the logits from below."""
-    from itertools import islice
-
     import torch
-    from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
-    from fp8_quantization_tpu_torch.cli import image_net
-    from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
     from fp8_quantization_tpu_torch.nn.bake import bake_weights
-    from fp8_quantization_tpu_torch.ops import kernels
 
-    args = image_net.build_parser().parse_args(cli)
-    kernels.reset_launch_counts()
-    metrics = image_net.validate_quantized(args)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    want = expected_launches(per_forward)
-
-    _, val = make_dataloaders(None, batch_size=BATCH, seed=SEED)
-    batches = list(islice(iter(val), EVAL_BATCHES))
-    fused = image_net.build_model(args)
-    calibrate(fused, batches[:1], device="cuda", num_batches=1)
-    bf16 = image_net.build_model(image_net.build_parser().parse_args(
-        cli + ["--engine", "bf16"]))
-    bf16.load_state_dict(fused.state_dict())
+    metrics, counts, want, metrics_ok = run_main_path(cli, per_forward)
+    batches, fused, bf16 = engine_pair(cli)
     bake_weights(fused)
     bake_weights(bf16)
     agree, exact, within, share, classes, finite = [], [], [], [], [], True
@@ -555,13 +624,7 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
     with torch.no_grad():
         for i, (x, _) in enumerate(batches):
             xt = torch.as_tensor(x, device="cuda")
-            if i == 0 and captures is not None:
-                with Capture() as cap:
-                    a = fused(xt, mode="fixed", quant_w=False)
-                for k, calls in cap.calls.items():
-                    captures.setdefault(k, {}).update(calls)
-            else:
-                a = fused(xt, mode="fixed", quant_w=False)
+            a = fused_forward(fused, xt, captures, i == 0)
             b = bf16(xt, mode="fixed", quant_w=False)
             finite &= bool(torch.isfinite(a).all())
             agree.append(float((a.argmax(-1) == b.argmax(-1)).float().mean()))
@@ -572,8 +635,7 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
             share.append(input_share(a))
             classes.append(len(set(a.argmax(-1).tolist())))
     mean = lambda v: sum(v) / len(v)  # noqa: E731
-    ok = (counts == want and finite and math.isfinite(metrics["loss"])
-          and metrics["num_examples"] == BATCH * EVAL_BATCHES
+    ok = (counts == want and finite and metrics_ok
           and mean(agree) >= 0.99 and mean(within) >= 0.98 and min(share) > min_share)
     emit({"phase": label, "ok": ok, "metrics": metrics, "launches": counts,
           "expected_launches": want, "logits_finite": finite,
@@ -679,13 +741,17 @@ MNV2_LAUNCHES = {"fp32_after": {"qblock": 17, "qmatmul": 2},
 
 class Capture:
     """Records, while active, the first call of each distinct shape and
-    config of the depthwise and block wrappers as the model calls them,
-    with the number of calls (uses): the check phase replays them."""
+    config of the depthwise, block, attention and quant-matmul wrappers as
+    the model calls them, with the number of calls (uses): the check phases
+    replay them."""
 
     def __init__(self):
-        from fp8_quantization_tpu_torch.ops.kernels import qblock, qdwconv
+        from fp8_quantization_tpu_torch.ops.kernels import (
+            attention, qblock, qdwconv, qmatmul)
         self.targets = [(qdwconv, "fused_quant_dwconv3x3", "qdwconv3x3"),
-                        (qblock, "fused_inverted_residual", "qblock")]
+                        (qblock, "fused_inverted_residual", "qblock"),
+                        (attention, "flash_mha", "flash_mha"),
+                        (qmatmul, "fused_quant_matmul", "qmatmul")]
         self.calls = {}            # kernel -> {key: [args, kwargs, uses]}
 
     def __enter__(self):
@@ -697,7 +763,7 @@ class Capture:
 
             def record(*args, _fn=fn, _k=kname, **kw):
                 key = (tuple(tuple(a.shape) if isinstance(a, torch.Tensor) else a
-                             for a in args), kw["cfg"])
+                             for a in args), kw.get("cfg", kw.get("sm_scale")))
                 hit = self.calls.setdefault(_k, {}).setdefault(key, [args, kw, 0])
                 hit[2] += 1
                 return _fn(*args, **kw)
@@ -872,6 +938,206 @@ def phase_mnv2_check(results, captures):
     return ok_all
 
 
+# ---- ViT-S/16 -----------------------------------------------------------------
+
+# validate-quantized on ViT-S/16 FP8 (bench.py's ViT row without the TPU
+# deploy flags): the main path's quantizer config, random fan-in-scaled
+# timm-layout weights from the seed
+VIT_CLI_ARGS = ["validate-quantized", "--device", "cuda", "--engine", "fused",
+                "--architecture", "vit_small_quantized", "--quant-setup", "all",
+                "--per-channel", "--fp8-set-maxval", "--fp8-mantissa-bits", str(MBITS),
+                "--weight-quant-method", "current_minmax",
+                "--act-quant-method", "allminmax", "--num-est-batches", "1",
+                "--max-eval-batches", str(EVAL_BATCHES), "--batch-size", str(BATCH),
+                "--seed", str(SEED)]
+# launches per ViT-S forward: one attention per block; qkv, proj and mlp2 of
+# the 12 blocks and the head on qmatmul (the patch embed and the gelu mlp1
+# are composed PyTorch)
+VIT_LAUNCHES = {"flash_mha": 12, "qmatmul": 37}
+
+
+def logit_gap(a, b):
+    """rms(a - b) over the spread of b around its per-class means."""
+    return float((a - b).pow(2).mean().sqrt() / (b - b.mean(dim=0)).pow(2).mean().sqrt())
+
+
+def phase_vit_slice(results, captures):
+    """The ViT-S main path through the CLI's entry point, then fused against
+    bf16 on one calibrated, baked state.  Twelve E3M4 blocks make the logits
+    chaotic: moving every input value by one float32 ulp moves them about
+    as far as any other last-bit change does.  So fused is held to that
+    floor, measured here on the bf16 model: its gap to bf16 (rms over the
+    logits' spread) at most twice the floor, with activation
+    quantization on (the main path) and off, and its quantization error
+    (against the float32 forward, unquantized weights) at most 1.25 times
+    bf16's.  The shares of phase 4 are printed beside."""
+    import torch
+    from fp8_quantization_tpu_torch.nn.bake import bake_weights
+
+    metrics, counts, want, metrics_ok = run_main_path(VIT_CLI_ARGS, VIT_LAUNCHES)
+    batches, fused, bf16 = engine_pair(VIT_CLI_ARGS)
+    xs = [torch.as_tensor(x, device="cuda") for x, _ in batches]
+    with torch.no_grad():
+        ref32 = torch.cat([bf16(x, mode="fp32") for x in xs])
+    bake_weights(fused)
+    bake_weights(bf16)
+    maxval = float(fused.head.act_q.maxval)
+    out = {k: [] for k in ("a", "b", "b_ulp", "a_off", "b_off", "b_off_ulp")}
+    with torch.no_grad():
+        for i, x in enumerate(xs):
+            x_ulp = torch.nextafter(x, torch.full_like(x, math.inf))
+            out["a"].append(fused_forward(fused, x, captures, i == 0))
+            out["b"].append(bf16(x, mode="fixed", quant_w=False))
+            out["b_ulp"].append(bf16(x_ulp, mode="fixed", quant_w=False))
+            out["a_off"].append(fused(x, mode="fixed", quant_w=False, quant_a=False))
+            out["b_off"].append(bf16(x, mode="fixed", quant_w=False, quant_a=False))
+            out["b_off_ulp"].append(bf16(x_ulp, mode="fixed", quant_w=False,
+                                         quant_a=False))
+    t = {k: torch.cat(v) for k, v in out.items()}
+    a, b = t["a"], t["b"]
+    step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS + maxval * 2.0 ** -10
+    gaps = {"quant": logit_gap(a, b), "quant_floor": logit_gap(t["b_ulp"], b),
+            "act_quant_off": logit_gap(t["a_off"], t["b_off"]),
+            "act_quant_off_floor": logit_gap(t["b_off_ulp"], t["b_off"]),
+            "fused_vs_fp32": logit_gap(a, ref32), "bf16_vs_fp32": logit_gap(b, ref32)}
+    finite = bool(torch.isfinite(a).all())
+    share = [input_share(x) for x in out["a"]]
+    ok = (counts == want and finite and metrics_ok and min(share) > 0.01
+          and gaps["quant"] <= 2 * gaps["quant_floor"]
+          and gaps["act_quant_off"] <= 2 * gaps["act_quant_off_floor"]
+          and gaps["fused_vs_fp32"] <= 1.25 * gaps["bf16_vs_fp32"])
+    emit({"phase": "vit_slice", "ok": ok, "metrics": metrics, "launches": counts,
+          "expected_launches": want, "logits_finite": finite,
+          "logit_gaps": gaps,
+          "top1_agree_vs_bf16": float((a.argmax(-1) == b.argmax(-1)).float().mean()),
+          "top1_agree_bf16_one_ulp": float(
+              (t["b_ulp"].argmax(-1) == b.argmax(-1)).float().mean()),
+          "logits_within_one_step_vs_bf16": float(((a - b).abs() <= step).float().mean()),
+          "logits_exact_vs_bf16": float((a == b).float().mean()),
+          "input_dependent_share": share,
+          "distinct_top1_classes": [len(set(x.argmax(-1).tolist())) for x in out["a"]]})
+    add_launches(results, counts)
+    return ok, fused, bf16
+
+
+def flash_check(out, ref, q, k, v, sm_scale):
+    """(ok, max_abs_err, exact share): >= 99% bit-equal, every element within
+    2 bf16 ulps at the larger of |out|, |ref| and the attention-weighted
+    mean of |v| (float32 softmax of the bf16 operands)."""
+    import torch
+    a, b = out.float(), ref.float()
+    qb, kb, vb = (t.to(torch.bfloat16).float() for t in (q, k, v))
+    attn = torch.softmax((qb @ kb.transpose(-1, -2)) * sm_scale, dim=-1)
+    mag = torch.maximum(torch.maximum(a.abs(), b.abs()), attn @ vb.abs())
+    _, e = torch.frexp(torch.clamp(mag, min=2.0 ** -126))
+    ulp = torch.ldexp(torch.ones_like(mag), e - 8)
+    diff = (a - b).abs()
+    exact = float((diff == 0).float().mean())
+    ok = bool(torch.isfinite(a).all()) and bool((diff <= 2 * ulp).all()) and exact >= 0.99
+    return ok, float(diff.max()), exact
+
+
+def flash_synthetic_cases():
+    """(name, q, k, v) of the calls the main path does not make: views of a
+    (B, S, 3, H, D) float32 tensor as the model passes them, and contiguous
+    bf16 operands."""
+    import torch
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    cases = []
+    for s in (50, 128, 256):
+        qkv = torch.randn(BATCH, s, 3, 6, 64, generator=g, device="cuda") * 1.5
+        cases.append((f"flash_mha ({BATCH},6,{s},64) f32 views",
+                      *(qkv[:, :, i].transpose(1, 2) for i in range(3))))
+    qkv = torch.randn(3, BATCH, 6, 197, 64, generator=g, device="cuda").to(torch.bfloat16)
+    cases.append((f"flash_mha ({BATCH},6,197,64) bf16", *qkv.unbind(0)))
+    return cases
+
+
+def vit_matmul_check(captures):
+    """qmatmul against qmatmul_plain on the first fused ViT forward's calls
+    (qkv, proj, mlp2: 12 uses each; the head: 1), checked as phase 2 and
+    timed as phase 6; one line each and a line with their sums per
+    forward.  They are not added to the kernels line's qmatmul row, which
+    holds ResNet-18's forward."""
+    import torch
+    from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
+    from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
+    recorded = list(captures.get("qmatmul", {}).values())
+    ok_all = sorted(u for _, _, u in recorded) == [1, 12, 12, 12]
+    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for args, kw, uses in recorded:
+        x, w, _, a_c, scale, shift = args
+        cfg = kw["cfg"]
+        (m, k), n = x.shape, w.shape[0]
+        out = qm.fused_quant_matmul(*args, **kw)
+        with no_tf32():
+            ref = qm.qmatmul_plain(*args, cfg)
+        ok, err, exact = grid_check(out, ref, a_c, cfg.emit_norm)
+        ms = time_ms(lambda: qm.fused_quant_matmul(*args, **kw))
+        with no_tf32():
+            pms = time_ms(lambda: qm.qmatmul_plain(*args, cfg), iters=2, warmup=1)
+        xl, wl = x.to(torch.bfloat16), w.to(torch.bfloat16).t()
+        lms = time_ms(lambda: torch.matmul(xl, wl))
+        nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+                  + m * n * (2 if cfg.emit_norm else 4))
+        flops = 2 * m * n * k
+        bms = bound_ms(nbytes, flops)
+        emit({"phase": "vit_check", "case": f"qmatmul {m}x{k}x{n} ViT", "ok": ok,
+              "max_abs_err": err, "exact": exact, "ms": ms, "plain_ms": pms,
+              "library_ms": lms, "bound_ms": bms, "bound_by": bound_by(nbytes, flops),
+              "uses_per_forward": uses})
+        ok_all &= ok
+        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                         ("bound_ms", bms)):
+            total[key] += uses * val
+    emit({"phase": "vit_check", "case": "qmatmul per ViT forward", "ok": ok_all, **total})
+    return ok_all
+
+
+def phase_vit_check(results, captures):
+    """flash_mha against flash_mha_plain on the first fused forward's
+    attention call (12 uses) and the synthetic calls, timed as phase 6;
+    then the forward's qmatmul calls (vit_matmul_check)."""
+    import torch
+    import torch.nn.functional as F
+    from fp8_quantization_tpu_torch.ops.kernels import attention
+    from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
+    recorded = list(captures.get("flash_mha", {}).values())
+    cases = [("flash_mha (%d,%d,%d,%d) recorded" % tuple(a[0].shape), *a, uses)
+             for a, _, uses in recorded]
+    cases += [(*c, 0) for c in flash_synthetic_cases()]
+    ok_all = len(recorded) == 1 and recorded[0][2] == VIT_LAUNCHES["flash_mha"]
+    agg = results.setdefault("flash_mha", {})
+    for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
+        agg.setdefault(k, 0.0)
+    for name, q, k, v, uses in cases:
+        b, h, s, d = q.shape
+        scale = 1.0 / float(d) ** 0.5
+        out = attention.flash_mha(q, k, v, sm_scale=scale)
+        with no_tf32():
+            ref = attention.flash_mha_plain(q, k, v, sm_scale=scale)
+            ok, err, exact = flash_check(out, ref, q, k, v, scale)
+        ms = time_ms(lambda: attention.flash_mha(q, k, v, sm_scale=scale))
+        with no_tf32():
+            pms = time_ms(lambda: attention.flash_mha_plain(q, k, v, sm_scale=scale),
+                          iters=2, warmup=1)
+        ql, kl, vl = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
+        lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl))
+        nbytes = 3 * q.numel() * q.element_size() + q.numel() * 4
+        flops = 4 * b * h * s * s * d
+        bms = bound_ms(nbytes, flops)
+        emit({"phase": "vit_check", "case": name, "ok": ok, "max_abs_err": err,
+              "exact": exact, "ms": ms, "plain_ms": pms, "library_ms": lms,
+              "bound_ms": bms, "bound_by": bound_by(nbytes, flops),
+              "uses_per_forward": uses})
+        ok_all &= ok
+        agg["max_abs_err"] = max(agg["max_abs_err"], err)
+        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+                         ("bound_ms", bms), ("bytes", nbytes), ("flops", flops)):
+            agg[key] += uses * val
+    return vit_matmul_check(captures) and ok_all
+
+
 def phase_int8_throughput(fused):
     """Forward ms of the INT8 'fused' model at batch 64 and 256 (quant_w=True,
     int8-baked weights); images/s from the median of four runs."""
@@ -971,7 +1237,7 @@ def main():
 
     results = {}
     slice_out = {}
-    captures = {}
+    captures, vit_captures = {}, {}
 
     def run_slice():
         ok, fused, bf16 = phase_slice(results)
@@ -987,6 +1253,19 @@ def main():
             results, f"mnv2_{bn_mode}_slice", mnv2_cli_args(bn_mode),
             MNV2_LAUNCHES[bn_mode], "classifier", 0.01, captures)
         return ok
+
+    def run_vit_slice():
+        ok, slice_out["vit"], slice_out["vit_bf16"] = phase_vit_slice(
+            results, vit_captures)
+        return ok
+
+    vit_phases = [
+        ("vit_slice", run_vit_slice),
+        ("vit_check", lambda: phase_vit_check(results, vit_captures)),
+        ("vit_throughput", lambda: phase_throughput(
+            slice_out["vit"], slice_out["vit_bf16"], "vit_throughput", (BATCH,)) or True),
+        ("vit_profile", lambda: phase_profile(
+            slice_out["vit"], "vit_profile", kernel_names=("flash_mha", "qmatmul")))]
 
     mnv2_phases = []
     for bn_mode, kernel_names in (("fp32_after", ("qblock", "qmatmul")),
@@ -1011,6 +1290,7 @@ def main():
                   slice_out["int8"], "int8_profile", quant_w=True,
                   kernel_names=("qconv3x3_int8", "qmatmul_int8")))]
     phases += mnv2_phases + [("mnv2_check", lambda: phase_mnv2_check(results, captures))]
+    phases += vit_phases
     for name, fn in phases:
         t0 = time.perf_counter()
         try:
@@ -1024,7 +1304,7 @@ def main():
 
     table = kernel_table()
     rows = []
-    for name, (_, _, mod) in table.items():
+    for name, (_, _, mod, source) in table.items():
         r = results.get(name, {})
         if "bytes_s" in r:      # the MobileNetV2 kernels: mixed operation types
             by = "bytes" if r["bytes_s"] > r["ops_s"] else "operations"
@@ -1032,7 +1312,7 @@ def main():
             by = bound_by(r.get("bytes", 0), r.get("flops", 0),
                           r.get("peak", BF16_FLOPS_PER_S))
         rows.append({"name": name, "route": "cuda",
-                     "source": f"fp8_quantization_tpu_torch/csrc/{mod.__name__.split('.')[-1]}.cu",
+                     "source": f"fp8_quantization_tpu_torch/csrc/{source}.cu",
                      "replaces": mod.REPLACES, "launches": r.get("launches"),
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),

@@ -6,8 +6,8 @@ line.  The flag names are the JAX CLI's, plus ``--device {cuda,cpu}`` and
 ``--engine {parity,bf16,fused}``.  Two differences: ``--bake-weights`` is
 on by default (the fused engine's kernels for the stem, the 3x3 convs, the
 depthwise convs and the MobileNetV2 blocks need baked weights), and
-without ``--model-dir`` the weights are random in the torchvision (ResNet)
-or tonylins (MobileNetV2) layout, made from ``--seed``.  Under the int8 datapath
+without ``--model-dir`` the weights are random in the torchvision (ResNet),
+tonylins (MobileNetV2) or timm (ViT-S/16) layout, made from ``--seed``.  Under the int8 datapath
 (``--int8-mxu --quantize-input`` with symmetric weights and asymmetric
 inputs) the bake is ``bake_int8_weights`` and the model is evaluated with
 ``quant_w=True``, as ``bench.py`` does (lines 107-111): the JAX CLI's
@@ -25,6 +25,10 @@ weights (ROADMAP.md, section C).
         --device cpu --architecture mobilenet_v2_quantized --engine fused \\
         --bn-mode folded --per-channel --fp8-set-maxval \\
         --num-est-batches 1 --max-eval-batches 1 --batch-size 2
+    python -m fp8_quantization_tpu_torch.cli.image_net validate-quantized \\
+        --device cpu --architecture vit_small_quantized --engine fused \\
+        --per-channel --fp8-set-maxval --num-est-batches 1 \\
+        --max-eval-batches 1 --batch-size 2
 """
 
 from __future__ import annotations
@@ -53,11 +57,11 @@ def build_parser() -> argparse.ArgumentParser:
                    help="ImageNet root with val/ (synthetic data when omitted)")
     p.add_argument("--architecture", default="resnet18_quantized",
                    choices=["mobilenet_v2_quantized", "resnet18_quantized",
-                            "resnet50_quantized"])
+                            "resnet50_quantized", "vit_small_quantized"])
     p.add_argument("--model-dir", default=None,
-                   help="torchvision ResNet or tonylins MobileNetV2 "
-                        "checkpoint (.pth/.tar); random weights from --seed "
-                        "when omitted")
+                   help="torchvision ResNet, tonylins MobileNetV2 or timm "
+                        "ViT-S/16 checkpoint (.pth/.tar); random weights "
+                        "from --seed when omitted")
     p.add_argument("--batch-size", type=int, default=64)
     p.add_argument("--num-workers", type=int, default=8)
     p.add_argument("--interpolation", default="bilinear",
@@ -117,6 +121,7 @@ def build_model(args):
     from fp8_quantization_tpu_torch.models.mobilenet_v2 import (
         mobilenetv2_quantized)
     from fp8_quantization_tpu_torch.models.resnet import QUANT_ARCHITECTURES
+    from fp8_quantization_tpu_torch.models.vit import vit_small_quantized
     from fp8_quantization_tpu_torch.nn.config import make_layer_config
 
     config = make_layer_config(
@@ -140,6 +145,12 @@ def build_model(args):
         convert.load_tonylins_mobilenet_v2(
             model, checkpoint or convert.random_mobilenet_v2_state_dict(
                 args.seed))
+        return model.eval()
+    if arch == "vit_small_quantized":
+        model = vit_small_quantized(config, quant_setup=args.quant_setup,
+                                    device=device)
+        convert.load_timm_vit(
+            model, checkpoint or convert.random_vit_state_dict(args.seed))
         return model.eval()
     model = QUANT_ARCHITECTURES[arch](config, quant_setup=args.quant_setup,
                                       device=device)

@@ -9,8 +9,11 @@ the random checkpoints of ``tools/dress_rehearsal.py`` (lines 39-105):
   ``QuantizedResNet``;
 * ``load_tonylins_mobilenet_v2``: a tonylins MobileNetV2 state dict into a
   ``QuantizedMobileNetV2``;
-* ``random_resnet_state_dict`` / ``random_mobilenet_v2_state_dict``: random
-  state dicts in those layouts, made with numpy from a seed;
+* ``load_timm_vit``: a timm ``vit_small_patch16_224``-layout state dict
+  into a ``QuantizedViT`` (JAX ``convert_vit``, there lines 114-153);
+* ``random_resnet_state_dict`` / ``random_mobilenet_v2_state_dict`` /
+  ``random_vit_state_dict``: random state dicts in those layouts, made with
+  numpy from a seed;
 * ``load_jax_variables``: the JAX package's variables (nested dicts of
   numpy arrays: ``params`` with HWIO kernels, ``batch_stats``, the
   ``quant`` collection, ``baked`` and ``baked_int8``) into the port's
@@ -27,7 +30,7 @@ import torch
 from torch import nn
 
 from fp8_quantization_tpu_torch.nn.layers import (
-    QuantConv, QuantizedActivation, QuantizedLayerBase)
+    QuantConv, QuantizedActivation, QuantizedLayerBase, QuantLayerNorm)
 
 Arrays = Dict[str, np.ndarray]
 
@@ -133,6 +136,57 @@ def random_mobilenet_v2_state_dict(seed: int, settings=None,
     return sd
 
 
+def random_vit_state_dict(seed: int, depth: int = 12, dim: int = 384,
+                          mlp_ratio: int = 4, patch_size: int = 16,
+                          image_size: int = 224,
+                          num_classes: int = 1000) -> Arrays:
+    """Random weights in timm's ViT key layout, float32 numpy: every linear
+    and the patch conv N(0, 1 / fan_in), their biases N(0, 0.02^2), the
+    LayerNorm gammas U(0.5, 1.5) and betas N(0, 0.02^2), ``cls_token`` and
+    ``pos_embed`` N(0, 0.02^2); the head N(0, 0.02^2) with bias 0.
+
+    Fan-in scaling rather than timm's N(0, 0.02^2) init, as for the
+    MobileNetV2 weights: the cls row starts as the same vector for every
+    image and takes the input only through attention, and branches that
+    keep the scale of their input carry more of it (chip_smoke.py prints
+    the input-dependent share of the logits' spread and requires more than
+    0.01)."""
+    rng = np.random.RandomState(seed)
+
+    def normal(shape, std):
+        return (rng.standard_normal(shape) * std).astype(np.float32)
+
+    def linear(sd, prefix, n_out, n_in):
+        sd[f"{prefix}.weight"] = normal((n_out, n_in), np.sqrt(1.0 / n_in))
+        sd[f"{prefix}.bias"] = normal(n_out, 0.02)
+
+    def norm(sd, prefix):
+        sd[f"{prefix}.weight"] = rng.uniform(0.5, 1.5, dim).astype(np.float32)
+        sd[f"{prefix}.bias"] = normal(dim, 0.02)
+
+    n_tokens = (image_size // patch_size) ** 2 + 1
+    fan_in = 3 * patch_size * patch_size
+    sd: Arrays = {
+        "cls_token": normal((1, 1, dim), 0.02),
+        "pos_embed": normal((1, n_tokens, dim), 0.02),
+        "patch_embed.proj.weight": normal((dim, 3, patch_size, patch_size),
+                                          np.sqrt(1.0 / fan_in)),
+        "patch_embed.proj.bias": normal(dim, 0.02)}
+    hidden = dim * mlp_ratio
+    for i in range(depth):
+        t = f"blocks.{i}"
+        norm(sd, f"{t}.norm1")
+        linear(sd, f"{t}.attn.qkv", 3 * dim, dim)
+        linear(sd, f"{t}.attn.proj", dim, dim)
+        norm(sd, f"{t}.norm2")
+        linear(sd, f"{t}.mlp.fc1", hidden, dim)
+        linear(sd, f"{t}.mlp.fc2", dim, hidden)
+    norm(sd, "norm")
+    sd["head.weight"] = normal((num_classes, dim), 0.02)
+    sd["head.bias"] = np.zeros(num_classes, np.float32)
+    return sd
+
+
 def _bn_targets(mod_path: str, bn_prefix: str) -> dict:
     return {f"{bn_prefix}.weight": f"{mod_path}.bn_weight",
             f"{bn_prefix}.bias": f"{mod_path}.bn_bias",
@@ -182,6 +236,25 @@ def tonylins_key_map(model) -> dict:
     return keys
 
 
+def timm_vit_key_map(model) -> dict:
+    """timm key -> the port's state-dict key for a QuantizedViT (JAX
+    ``convert_vit``): ``blocks.{i}.{norm1,attn.qkv,attn.proj,norm2,mlp.fc1,
+    mlp.fc2}`` -> ``block{i}.{ln1,attn.qkv,attn.proj,ln2,mlp1,mlp2}``, the
+    final ``norm`` -> ``ln_final``; LayerNorm gamma is each ``weight``."""
+    keys = {"cls_token": "cls_token", "pos_embed": "pos_embed",
+            "patch_embed.proj.weight": "patch_embed.weight",
+            "patch_embed.proj.bias": "patch_embed.bias"}
+    names = [("norm1", "ln1"), ("attn.qkv", "attn.qkv"),
+             ("attn.proj", "attn.proj"), ("norm2", "ln2"),
+             ("mlp.fc1", "mlp1"), ("mlp.fc2", "mlp2")]
+    layers = [(f"blocks.{i}.{src}", f"block{i}.{dst}")
+              for i in range(model.depth) for src, dst in names]
+    for src, dst in layers + [("norm", "ln_final"), ("head", "head")]:
+        for p in ("weight", "bias"):
+            keys[f"{src}.{p}"] = f"{dst}.{p}"
+    return keys
+
+
 @torch.no_grad()
 def _load_by_map(model, sd, key_map: dict) -> None:
     own = model.state_dict()
@@ -205,6 +278,13 @@ def load_tonylins_mobilenet_v2(model, sd) -> None:
     """Copy a tonylins MobileNetV2 state dict into ``model`` (in place,
     shape checked; every parameter of the map must be present)."""
     _load_by_map(model, sd, tonylins_key_map(model))
+
+
+def load_timm_vit(model, sd) -> None:
+    """Copy a timm ViT state dict into ``model`` (in place, shape checked;
+    every parameter of the map must be present).  timm's LayerNorms use eps
+    1e-6; the port keeps JAX's 1e-5 (ROADMAP.md, section C)."""
+    _load_by_map(model, sd, timm_vit_key_map(model))
 
 
 def _node(tree, path: Sequence[str]):
@@ -259,13 +339,19 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
     ``q``/``est`` -> quantizer and estimator buffers (FP8 ``maxval``... or
     uniform ``delta``, ``zero_float``, ``signed``); ``baked/w_factor`` ->
     ``w_factor``; ``baked_int8`` -> ``w_int8`` (HWIO or (K, N) -> the int8
-    kernels' (C, K) layout), ``w_delta``, ``w_signed``.
+    kernels' (C, K) layout), ``w_delta``, ``w_signed``.  A ``QuantLayerNorm``
+    takes ``scale``/``bias`` and its two quantizers; parameters of the model
+    itself (the ViT's ``cls_token``, ``pos_embed``) come from the root of
+    ``params``.
     """
     params = variables.get("params", {})
     stats = variables.get("batch_stats", {})
     quant = variables.get("quant", {})
     baked = variables.get("baked", {})
     baked_int8 = variables.get("baked_int8", {})
+    if not isinstance(model, (QuantizedLayerBase, QuantLayerNorm)):
+        for name, param in model.named_parameters(recurse=False):
+            _copy(param, params[name])
     for name, mod in model.named_modules():
         path = name.split(".") if name else []
         if isinstance(mod, QuantizedLayerBase):
@@ -291,5 +377,14 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
                 np.asarray(wf), dtype=torch.float32,
                 device=mod.weight.device).reshape(-1))
             _load_int8_bake(mod, _node(baked_int8, path))
+        elif isinstance(mod, QuantLayerNorm):
+            p = _node(params, path)
+            if p is None:
+                raise KeyError(f"no params for {name!r}")
+            _copy(mod.weight, p["scale"])
+            _copy(mod.bias, p["bias"])
+            q = _node(quant, path) or {}
+            _load_quantizer(mod.weight_q, q.get("weight_q"))
+            _load_quantizer(mod.act_q, q.get("act_q"))
         elif isinstance(mod, QuantizedActivation):
             _load_quantizer(mod.act_q, _node(quant, path + ["act_q"]))

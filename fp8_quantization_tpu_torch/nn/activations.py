@@ -7,8 +7,11 @@ from __future__ import annotations
 
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
+
+_SQRT_HALF = float(np.sqrt(0.5).astype(np.float32))
 
 ACTIVATIONS: dict[str, Callable] = {
     "relu": torch.relu,
@@ -16,7 +19,9 @@ ACTIVATIONS: dict[str, Callable] = {
     "hardtanh": lambda x: torch.clamp(x, -1.0, 1.0),
     "sigmoid": torch.sigmoid,
     "tanh": torch.tanh,
-    "gelu": lambda x: F.gelu(x, approximate="none"),
+    # exact gelu in JAX's form, 0.5 * x * erfc(-x * sqrt(1/2)) (jax.nn.gelu
+    # with approximate=False), not torch's 1 + erf, which cancels for x < 0
+    "gelu": lambda x: 0.5 * x * torch.special.erfc(-x * _SQRT_HALF),
     "swish": F.silu,
     "hardswish": F.hardswish,
     "hardsigmoid": F.hardsigmoid,

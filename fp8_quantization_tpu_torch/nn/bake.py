@@ -16,6 +16,10 @@ weights (see ROADMAP.md, section C).  This port bakes each quantized layer
 directly from its weight quantizer, with no forward, so every layer with
 ``config.quant_w`` is baked whatever the engine.
 
+A ``QuantLayerNorm``'s gamma is baked to its full-scale fake-quant value on
+every engine, with no ``w_factor``: JAX quantizes it with ``_quant_w`` and
+sows that value (there lines 100-103, ``nn/layers.py:134-140``).
+
 Under folded BN (``bn_mode='folded'``) the bake stores the quantized
 *folded* weight and then neutralizes BN as the JAX ``bake_weights`` does
 (there lines 104-114): gamma = 1, beta = the folded shift, mean = 0,
@@ -35,7 +39,8 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from fp8_quantization_tpu_torch.nn.layers import QuantizedLayerBase, int8_datapath
+from fp8_quantization_tpu_torch.nn.layers import (
+    QuantizedLayerBase, QuantLayerNorm, int8_datapath)
 
 
 @torch.no_grad()
@@ -43,6 +48,8 @@ def bake_weights(model: nn.Module) -> nn.Module:
     """Bake every quantized layer of ``model`` in place; returns the model.
     Evaluate afterwards with ``quant_w=False``."""
     for layer in model.modules():
+        if isinstance(layer, QuantLayerNorm) and layer.config.quant_w:
+            layer.weight.copy_(layer.weight_q(layer.weight, mode="fixed"))
         if not isinstance(layer, QuantizedLayerBase) or not layer.config.quant_w:
             continue
         kernel = layer._kernel()

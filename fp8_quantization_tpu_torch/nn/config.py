@@ -27,8 +27,9 @@ class LayerQuantConfig:
       'bf16'   - operands on the normalized grid, exact in bf16, products
                  summed in fp32, channel factors applied after the product;
       'fused'  - the counterpart of the JAX 'pallas' engine: in fixed mode
-                 the stem, the 3x3 convs (both baked) and the 1x1 convs and
-                 linears run the hand-written kernels in ops/kernels/.
+                 the stem, the 3x3 convs (both baked), the 1x1 convs and
+                 linears and the ViT's attention run the hand-written
+                 kernels in ops/kernels/.
 
     ``quantize_input``: each layer quantizes its input (not its output).
     ``int8_mxu``: with ``quantize_input``, symmetric-uniform weights and

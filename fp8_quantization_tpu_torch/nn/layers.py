@@ -1,9 +1,9 @@
 """Quantized layers: the compute path of the port.
 
 Mirrors ``fp8_quantization_tpu/nn/layers.py``: ``QuantConv``,
-``QuantLinear``, ``QuantizedActivation`` and ``_batch_norm`` (running
-variance updated with the unbiased batch variance, as torch does, there
-lines 730-753).  Per layer:
+``QuantLinear``, ``QuantLayerNorm``, ``QuantizedActivation`` and
+``_batch_norm`` (running variance updated with the unbiased batch variance,
+as torch does, there lines 730-753).  Per layer:
 
     weight fake-quant -> conv/linear -> BN (fp32, own running stats)
     -> activation -> output act-quant
@@ -17,9 +17,10 @@ per channel along dim 0.  Engines (``config.engine``):
   1235-1246).  On the card the convolution may use TF32: every bf16 value
   is exact in TF32, so the products stay exact and the sums fp32;
 * ``fused``: the counterpart of ``pallas`` (there lines 367-520, 784-814,
-  856-941).  In fixed mode 1x1 convs (stride 1 or 2) and linears run
-  ``ops/kernels/qmatmul`` (FP8 weight quant in the kernel, or baked
-  weights), baked 3x3 convs run ``ops/kernels/qconv`` and the ResNet stem
+  856-941).  In fixed mode 1x1 convs (stride 1 or 2) and linears with no
+  activation, relu or relu6 run ``ops/kernels/qmatmul`` (FP8 weight quant
+  in the kernel, or baked weights; a gelu linear takes the bf16 path, as
+  in JAX), baked 3x3 convs run ``ops/kernels/qconv`` and the ResNet stem
   runs ``ops/kernels/qstem`` (models/resnet.py).  There is no autotune
   gate: the kernels always launch on the card.  Elsewhere the bf16 path
   runs.
@@ -128,6 +129,20 @@ def stage_state(config: LayerQuantConfig, quantizer: Quantizer,
                 factored_ok=factored_act_ok(config))
 
 
+def quant_output(config: LayerQuantConfig, quantizer: Quantizer, y, mode,
+                 quant_a: bool, out: str):
+    """A layer's output quant (JAX ``_quant_out`` after the activation):
+    ``Factored`` under ``out='factored'`` where the config allows it, the
+    fake-quantized value otherwise, ``y`` itself when the layer quantizes
+    its input instead or does not quantize."""
+    if quant_a and config.quant_a and not config.quantize_input:
+        if out == "factored" and factored_act_ok(config):
+            norm, factor = quantizer(y, mode=mode, out="factored")
+            return Factored(norm.to(torch.bfloat16), factor)
+        return quantizer(y, mode=mode)
+    return y
+
+
 class QuantizedLayerBase(nn.Module):
     """Shared quantizer, BN and engine plumbing of QuantConv/QuantLinear."""
 
@@ -180,12 +195,7 @@ class QuantizedLayerBase(nn.Module):
         act = get_activation(self.activation)
         if act is not None:
             y = act(y)
-        if quant_a and self.config.quant_a and not self.config.quantize_input:
-            if out == "factored" and factored_act_ok(self.config):
-                norm, factor = self.act_q(y, mode=mode, out="factored")
-                return Factored(norm.to(torch.bfloat16), factor)
-            return self.act_q(y, mode=mode)
-        return y
+        return quant_output(self.config, self.act_q, y, mode, quant_a, out)
 
     def _batch_norm(self, y, train_bn: bool):
         if train_bn:
@@ -644,6 +654,49 @@ class QuantLinear(QuantizedLayerBase):
         y = xm.to(torch.float32) @ wm.t()
         y = self._affine_epilogue(y, w_factor, x_factor, mode, train_bn)
         return self._quant_out(y, mode, quant_a, out)
+
+
+class QuantLayerNorm(nn.Module):
+    """Quantized LayerNorm over the last axis (JAX ``QuantLayerNorm``, there
+    lines 1249-1282): gamma (``weight``, JAX ``scale``) is fake-quantized as
+    the layer's weight, per channel when the config says so (each of the
+    ``features`` elements is its own channel, as JAX's ``channel_axis=-1``
+    on a 1-D parameter), at full scale on every engine (JAX ``_quant_w``:
+    no factored weight, so the bake stores the fake-quant gamma and no
+    ``w_factor``).  The normalization is float32 on the materialized input,
+    ``(x - mean) * rsqrt(var + eps) * gamma + beta`` with JAX's mean and
+    variance (sums divided by the count), then the output quant
+    (``Factored`` under ``out='factored'`` on bf16/fused)."""
+
+    def __init__(self, features: int,
+                 config: LayerQuantConfig = LayerQuantConfig(),
+                 epsilon: float = 1e-5):
+        super().__init__()
+        self.config, self.epsilon = config, epsilon
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.weight_q = Quantizer(
+            config.weight_quant, config.weight_range,
+            num_channels=features if config.weight_quant.per_channel else None,
+            channel_axis=0)
+        self.act_q = Quantizer(config.act_quant, config.act_range)
+
+    def forward(self, x, mode: str = "fixed", quant_w: bool = True,
+                quant_a: bool = True, out: str = "value"):
+        if mode == "fp32":
+            mode, quant_w, quant_a = "fixed", False, False
+        x = factored.materialize(x).to(torch.float32)
+        if self.config.quantize_input and quant_a and self.config.quant_a:
+            x = self.act_q(x, mode=mode)
+        w = self.weight
+        if quant_w and self.config.quant_w:
+            w = self.weight_q(w, mode=mode)
+        n = x.shape[-1]
+        mean = x.sum(dim=-1, keepdim=True) / n
+        xc = x - mean
+        var = (xc * xc).sum(dim=-1, keepdim=True) / n
+        y = xc * torch.rsqrt(var + self.epsilon) * w + self.bias
+        return quant_output(self.config, self.act_q, y, mode, quant_a, out)
 
 
 class QuantizedActivation(nn.Module):

@@ -5,6 +5,7 @@ for CUDA tensors (no fallback between the two); each wrapper counts its
 launches in its ``launches`` attribute.
 """
 
+from fp8_quantization_tpu_torch.ops.kernels.attention import flash_mha
 from fp8_quantization_tpu_torch.ops.kernels.qblock import (
     fused_inverted_residual)
 from fp8_quantization_tpu_torch.ops.kernels.qconv import fused_quant_conv3x3
@@ -22,7 +23,7 @@ WRAPPERS = {"qstem": fused_quant_stem, "qconv3x3": fused_quant_conv3x3,
             "qconv3x3_int8": fused_quant_conv3x3_int8,
             "qmatmul_int8": fused_quant_matmul_int8,
             "qdwconv3x3": fused_quant_dwconv3x3,
-            "qblock": fused_inverted_residual}
+            "qblock": fused_inverted_residual, "flash_mha": flash_mha}
 
 
 def reset_launch_counts() -> None:

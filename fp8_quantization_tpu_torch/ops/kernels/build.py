@@ -24,11 +24,11 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
 KERNELS = ("qmatmul", "qconv", "qstem", "qmatmul_int8", "qconv_int8",
-           "qdwconv", "qblock")
+           "qdwconv", "qblock", "flash_mha")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
-_P, _I = ctypes.c_void_p, ctypes.c_int
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
 # C signatures of the entry points, in the order of their arguments.
 SIGNATURES = {
     "qmatmul": ("qmatmul_launch",
@@ -47,6 +47,8 @@ SIGNATURES = {
                     _I, _I, _I, _P]),
     "qdwconv": ("qdwconv3x3_launch", [_P] * 6 + [_I] * 8 + [_P]),
     "qblock": ("qblock_launch", [_P] * 13 + [_I] * 12 + [_P]),
+    "flash_mha": ("flash_mha_launch",
+                  [_P, _P, _P, _I] + [_L] * 9 + [_P, _I, _I, _I, _I, _F, _P]),
 }
 
 _lock = threading.Lock()
