@@ -3,10 +3,11 @@
 
     python3 chip_smoke.py
 
-It drives the four slices of the port, each on engine 'fused':
-ResNet-18 FP8 PTQ, ResNet-18 INT8 PTQ (--int8-mxu --quantize-input),
-MobileNetV2 FP8 PTQ under --bn-mode fp32_after and folded, and ViT-S/16 FP8
-PTQ.  Phases, one
+It drives the slices of the port, each on engine 'fused': ResNet-18 FP8
+PTQ, ResNet-18 INT8 PTQ (--int8-mxu --quantize-input), MobileNetV2 FP8 PTQ
+under --bn-mode fp32_after and folded, ViT-S/16 FP8 PTQ, INT8 PTQ with
+output quant (BASELINE.json config 2) on ResNet-18 and MobileNetV2 in both
+bn modes, and ResNet-18 FP8 with --quantize-input.  Phases, one
 JSON line each (a failed phase prints "ok": false and the script exits 1
 without the final result line):
 
@@ -119,9 +120,39 @@ without the final result line):
                 qmatmul_plain as in phase 2, timed as in phase 6, with
                 their sums per ViT forward (the kernels line's qmatmul row
                 stays ResNet-18's forward).
+10. int_*     - the integer branches of the FP8/bf16 kernels and input
+                quantization in qmatmul.  int_check: as phase 2 on the
+                integer grids (int_asym output quant, baked int_sym
+                weights): qstem, qconv3x3 at the seven 3x3 shapes plus a
+                residual case, qmatmul at the three downsamples and the fc,
+                plus in-kernel int_sym weights (signed; unsigned on the
+                [0, 255] grid); >= 99% exact, the rest within one integer
+                step; then qmatmul with the input quantized in the kernel,
+                FP8 at the four calls of a --quantize-input forward and one
+                int_asym case (float32 output: >= 99% exact, all within
+                1e-5 of the largest); each timed as phase 6, with sums per
+                forward.  int8oq_slice: BASELINE config 2 (per-channel
+                symmetric_uniform weights, asymmetric_uniform activations
+                at each layer's output, current_minmax / allminmax) on
+                ResNet-18 as phase 4: exactly 1 qstem, 16 qconv3x3 and 4
+                qmatmul launches per forward and no int8 kernel, fused
+                against bf16 on the fc's integer grid, input-dependent
+                share > 0.01; a throughput turn and a profile.  qi_slice:
+                the FP8 main path with --quantize-input: 4 qmatmul per
+                forward and neither qstem nor qconv3x3; the fc re-quantizes
+                the materialized avgpool output where bf16 does not, so
+                fused is held against the same model on the CPU (the
+                kernels' plain versions); its logits are chaotic, so as in
+                vit_slice the rms gap over their spread is held to twice
+                the one-float32-ulp floor; fused against bf16 printed.  mnv2_int8_*: MobileNetV2 under config 2's
+                quantizers in both bn modes as phase 8 (17 qblock + 2
+                qmatmul; 17 qdwconv3x3 + 35 qmatmul, each with a throughput
+                turn and a profile), and mnv2_int8_check on their recorded
+                depthwise and block calls.
 
 Then a {"kernels": [...]} line (launches: the sum over the main-path runs
-of phases 4, 5, 8 and 9), the nvidia-smi name/power-limit line, and last
+of phases 4, 5, 8, 9 and 10; times: the FP8 forwards of phases 6, 8 and
+9), the nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {...}}.  The plain versions run with TF32 off.
 """
 
@@ -195,28 +226,55 @@ def bound_by(bytes_moved, flops, peak=BF16_FLOPS_PER_S):
     return "bytes" if bytes_moved / HBM_BYTES_PER_S > flops / peak else "operations"
 
 
-def grid_check(out, ref, consts, normalized, extra=0.0):
-    """(ok, max_abs_err, exact share): >= 99% exact, the rest within one
-    FP8 grid step (2^-M of the larger magnitude, plus the smallest step),
-    plus ``extra`` (per element) where a step upstream carries through."""
+def grid_step(a, b, consts, normalized, method="fp8"):
+    """One grid step of the quantizer of the (6, 1) ``consts`` at the larger
+    of |a|, |b|: FP8, 2^-M of the magnitude plus the smallest step;
+    int_asym, one integer step (delta, or 1 on the normalized grid)."""
     import torch
-    a, b = out.float(), ref.float()
-    diff = (a - b).abs()
+    if method == "int_asym":
+        return 1.0 if normalized else float(consts[0, 0])
     min_step = 2.0 ** (1.0 + float(consts[4, 0]))
     if not normalized:
         min_step *= float(consts[5, 0])
-    step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS + min_step + extra
+    return torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS + min_step
+
+
+def grid_check(out, ref, consts, normalized, extra=0.0, method="fp8"):
+    """(ok, max_abs_err, exact share): >= 99% exact, the rest within one
+    grid step of the output quantizer (grid_step), plus ``extra`` (per
+    element) where a step upstream carries through."""
+    import torch
+    a, b = out.float(), ref.float()
+    diff = (a - b).abs()
+    step = grid_step(a, b, consts, normalized, method) + extra
     exact = float((diff == 0).float().mean())
     ok = bool(torch.isfinite(a).all()) and bool((diff <= step).all()) and exact >= 0.99
     return ok, float(diff.max()), exact
 
 
-class Inputs:
-    """Random operands on the card from one seeded generator."""
+def sum_check(out, ref):
+    """(ok, max_abs_err, exact share) of an output with no quantizer after
+    the product (the sums run in another order): >= 99% exact, all within
+    1e-5 of the largest magnitude."""
+    import torch
+    a, b = out.float(), ref.float()
+    diff = (a - b).abs()
+    exact = float((diff == 0).float().mean())
+    ok = (bool(torch.isfinite(a).all()) and exact >= 0.99
+          and float(diff.max()) <= 1e-5 * float(b.abs().max()))
+    return ok, float(diff.max()), exact
 
-    def __init__(self):
+
+class Inputs:
+    """Random operands on the card from one seeded generator, on the FP8
+    grids (``grid="fp8"``) or the integer ones (``grid="int"``: int_asym
+    activations, per-channel int_sym weights)."""
+
+    def __init__(self, grid="fp8"):
         import torch
         self.g = torch.Generator(device="cuda").manual_seed(SEED)
+        self.grid = grid
+        self.act_method = "fp8" if grid == "fp8" else "int_asym"
 
     def randn(self, *shape, scale=1.0):
         import torch
@@ -227,53 +285,117 @@ class Inputs:
         return torch.rand(n, generator=self.g, device="cuda") * (hi - lo) + lo
 
     def norms(self, *shape, maxval=4.0):
-        """Activations on the normalized E3M4 grid, bf16 (a factored input)."""
+        """Activations on the normalized grid, bf16 (a factored input): E3M4
+        values, or the integers xint - zp of a relu'd block output."""
         import torch
         from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts, fp8_quantize_prepared
+        if self.grid == "int":
+            x = torch.round(torch.relu(self.randn(*shape)) * 40.0).clamp(0.0, 255.0)
+            return x.to(torch.bfloat16).contiguous()
         c = fp8_consts(torch.tensor([maxval], device="cuda"), MBITS)
         return fp8_quantize_prepared(self.randn(*shape), c,
                                      normalized=True).to(torch.bfloat16).contiguous()
 
     def weight_norms(self, w):
-        """Per-output-channel normalized weights (dim 0), float32 values."""
+        """Per-output-channel normalized weights (dim 0), float32 values: the
+        E3M4 grid, or the signed 8-bit integers of a symmetric quantizer."""
+        import torch
         from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts, fp8_quantize_prepared
-        c = fp8_consts(w.abs().reshape(w.shape[0], -1).amax(dim=1), MBITS)
-        return fp8_quantize_prepared(w, c, channel_axis=0, normalized=True)
+        amax = w.abs().reshape(w.shape[0], -1).amax(dim=1)
+        if self.grid == "int":
+            delta = (amax / 127.0).reshape(-1, *[1] * (w.dim() - 1))
+            return torch.round(w / delta).clamp(-128.0, 127.0)
+        return fp8_quantize_prepared(w, fp8_consts(amax, MBITS), channel_axis=0,
+                                     normalized=True)
 
-
-def out_consts(y0):
-    import torch
-    from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
-    return fp8_consts(torch.tensor([0.8 * float(y0.abs().max())], device="cuda"), MBITS)
+    def out_consts(self, y0):
+        """(6, 1) output-quant constants with a range 0.8 of y0's."""
+        import torch
+        from fp8_quantization_tpu_torch.ops import uniform
+        from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
+        if self.grid == "int":
+            delta, zf = uniform.asymmetric_set_quant_range(0.8 * y0.min(), 0.8 * y0.max(), 8)
+            return uniform.int_asym_consts(delta, zf, 8)
+        return fp8_consts(torch.tensor([0.8 * float(y0.abs().max())], device="cuda"), MBITS)
 
 
 def matmul_cases(inp):
-    """(name, args, cfg, flops, bytes, uses, library fn) per qmatmul case."""
+    """(name, args, cfg, flops, bytes, uses, library fn) per qmatmul case:
+    the three downsamples and the fc with baked weights, then weights
+    quantized in the kernel (FP8; on the int grids signed and unsigned)."""
     import torch
+    from fp8_quantization_tpu_torch.ops import uniform
     from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
     from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
     cases = []
-    for M, K, N, out in MATMUL_SHAPES + [(BATCH, 512, 1000, "fp8w")]:
+    extra = ([(BATCH, 512, 1000, "fp8w")] if inp.grid == "fp8" else
+             [(BATCH, 512, 1000, "int_sym w"),
+              (BATCH * 14 * 14, 128, 256, "int_sym w unsigned")])
+    for M, K, N, out in MATMUL_SHAPES + extra:
         x = inp.norms(M, K)
         scale, shift = inp.uniform(N, 0.005, 0.015), inp.randn(N, scale=0.1)
+        if inp.grid == "int":
+            scale = scale * 0.05
         if out == "fp8w":      # weights quantized in the kernel (not baked)
             w = inp.randn(N, K, scale=0.02).contiguous()
             w_c = fp8_consts(w.abs().amax(dim=1), MBITS)
             wm = "fp8"
+        elif out.startswith("int_sym"):
+            w = inp.randn(N, K, scale=0.02)
+            w = (w.abs() if out.endswith("unsigned") else w).contiguous()
+            delta, sgn = uniform.symmetric_set_quant_range(w.amin(dim=1), w.amax(dim=1), 8)
+            w_c = uniform.int_sym_consts(delta, sgn, 8)
+            wm = "int_sym"
         else:
             w = inp.weight_norms(inp.randn(N, K, scale=0.05)).to(torch.bfloat16)
             w_c, wm = None, "none"
         emit_norm = out == "norm"
         y0 = qm.qmatmul_plain(x, w, w_c, None, scale, shift,
                               qm.FusedQuantMatmulConfig(weight_method=wm))
-        cfg = qm.FusedQuantMatmulConfig(weight_method=wm, act_method="fp8",
+        cfg = qm.FusedQuantMatmulConfig(weight_method=wm, act_method=inp.act_method,
                                         emit_norm=emit_norm)
-        args = (x, w, w_c, out_consts(y0), scale, shift)
+        args = (x, w, w_c, inp.out_consts(y0), scale, shift)
         out_bytes = M * N * (2 if emit_norm else 4)
         nbytes = x.numel() * 2 + w.numel() * w.element_size() + out_bytes
         xt, wt = x, w.to(torch.bfloat16).t()
         cases.append((f"qmatmul {M}x{K}x{N} {out}", args, cfg, 2 * M * N * K,
-                      nbytes, 0 if out == "fp8w" else 1,
+                      nbytes, 1 if wm == "none" else 0,
+                      lambda xt=xt, wt=wt: torch.matmul(xt, wt)))
+    return cases
+
+
+def qi_matmul_cases(inp):
+    """qmatmul with the input quantized in the kernel: the four calls of a
+    ResNet-18 FP8 --quantize-input forward (the materialized float32 block
+    outputs, baked FP8 weights, float32 output; uses 1 each), then one
+    int_asym input case with in-kernel int_sym weights (uses 0)."""
+    import torch
+    from fp8_quantization_tpu_torch.ops import uniform
+    from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
+    from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
+    cases = []
+    shapes = [(M, K, N, "fp8") for M, K, N, _ in MATMUL_SHAPES]
+    shapes.append((BATCH * 14 * 14, 128, 256, "int_asym"))
+    for M, K, N, method in shapes:
+        x = torch.relu(inp.randn(M, K)).contiguous()
+        scale, shift = inp.uniform(N, 0.5, 1.5), inp.randn(N, scale=0.1)
+        if method == "fp8":
+            w = inp.weight_norms(inp.randn(N, K, scale=0.05)).to(torch.bfloat16)
+            w_c, wm = None, "none"
+            a_c = fp8_consts(torch.tensor([0.8 * float(x.max())], device="cuda"), MBITS)
+        else:
+            w = inp.randn(N, K, scale=0.05).contiguous()
+            delta, sgn = uniform.symmetric_set_quant_range(w.amin(dim=1), w.amax(dim=1), 8)
+            w_c, wm = uniform.int_sym_consts(delta, sgn, 8), "int_sym"
+            a_delta, a_zf = uniform.asymmetric_set_quant_range(x.min(), 0.8 * x.max(), 8)
+            a_c = uniform.int_asym_consts(a_delta, a_zf, 8)
+        cfg = qm.FusedQuantMatmulConfig(weight_method=wm, act_method=method,
+                                        quantize_input=True)
+        nbytes = x.numel() * 4 + w.numel() * w.element_size() + M * N * 4
+        xt, wt = x.to(torch.bfloat16), w.to(torch.bfloat16).t()
+        cases.append((f"qmatmul {M}x{K}x{N} {method} input quant",
+                      (x, w, w_c, a_c, scale, shift), cfg, 2 * M * N * K, nbytes,
+                      1 if method == "fp8" else 0,
                       lambda xt=xt, wt=wt: torch.matmul(xt, wt)))
     return cases
 
@@ -289,13 +411,15 @@ def conv_cases(inp):
         w4 = inp.weight_norms(inp.randn(cout, cin, 3, 3, scale=0.05))
         w = qc.weight_matrix(w4)
         scale, shift = inp.uniform(cout, 0.005, 0.015), inp.randn(cout, scale=0.1)
+        if inp.grid == "int":
+            scale = scale * 0.05
         ho = (H - 1) // s + 1
         res = inp.norms(BATCH, ho, ho, cout).float() if residual else None
         y0 = qc.qconv3x3_plain(x, w, None, scale, shift, res,
                                qc.FusedConvConfig(stride=s, residual=residual))
-        cfg = qc.FusedConvConfig(act_method="fp8", activation="relu",
+        cfg = qc.FusedConvConfig(act_method=inp.act_method, activation="relu",
                                  residual=residual, emit_norm=True, stride=s)
-        args = (x, w, out_consts(y0), scale, shift, res)
+        args = (x, w, inp.out_consts(y0), scale, shift, res)
         flops = 2 * BATCH * ho * ho * 9 * cin * cout
         nbytes = x.numel() * 2 + w.numel() * 2 + BATCH * ho * ho * cout * 2
         if residual:
@@ -316,9 +440,11 @@ def stem_cases(inp):
     w4 = inp.weight_norms(inp.randn(64, 3, 7, 7, scale=0.05))
     w = qs.weight_matrix(w4)
     scale, shift = inp.uniform(64, 0.5, 1.5), inp.randn(64, scale=0.1)
+    if inp.grid == "int":
+        scale = scale * 0.02
     y0 = qs.qstem_plain(x, w, None, scale, shift, qs.FusedStemConfig(act_method="none"))
-    cfg = qs.FusedStemConfig(act_method="fp8", emit_norm=True)
-    args = (x, w, out_consts(y0), scale, shift)
+    cfg = qs.FusedStemConfig(act_method=inp.act_method, emit_norm=True)
+    args = (x, w, inp.out_consts(y0), scale, shift)
     flops = 2 * BATCH * 112 * 112 * 147 * 64
     nbytes = x.numel() * 4 + w.numel() * 2 + BATCH * 56 * 56 * 64 * 2
     xl = x.to(torch.bfloat16).permute(0, 3, 1, 2)
@@ -353,30 +479,34 @@ def kernel_table():
     }
 
 
-def phase_check_and_time(results):
-    """Phases 2 and 4 for the kernels: one pass over the cases, holding each
-    against its plain version and timing kernel, plain and library call."""
+def check_cases(kinds, results, label):
+    """Each case against its plain version, timed (kernel, plain, library
+    call) and bounded; one line each.  ``results[kernel]`` sums the cases
+    weighted by their uses per forward."""
     from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
-    inp = Inputs()
     table = kernel_table()
     ok_all = True
-    for kname, make in (("qstem", stem_cases), ("qconv3x3", conv_cases),
-                        ("qmatmul", matmul_cases)):
+    for kname, cases in kinds:
         wrapper, plain = table[kname][:2]
         agg = results.setdefault(kname, dict(max_abs_err=0.0, ms=0.0, plain_ms=0.0,
                                              bound_ms=0.0, library_ms=0.0))
-        for name, args, cfg, flops, nbytes, uses, lib in make(inp):
+        for name, args, cfg, flops, nbytes, uses, lib in cases:
             out = wrapper(*args, cfg=cfg)
             with no_tf32():
                 ref = plain(*args, cfg)
             consts = args[3] if kname == "qmatmul" else args[2]
-            ok, err, exact = grid_check(out, ref, consts, getattr(cfg, "emit_norm", False))
+            if getattr(cfg, "quantize_input", False):       # no output quant
+                ok, err, exact = sum_check(out, ref)
+            else:
+                ok, err, exact = grid_check(out, ref, consts,
+                                            getattr(cfg, "emit_norm", False),
+                                            method=cfg.act_method)
             ms = time_ms(lambda: wrapper(*args, cfg=cfg))
             with no_tf32():
                 pms = time_ms(lambda: plain(*args, cfg), iters=5)
             lms = time_ms(lib)
             bms = bound_ms(nbytes, flops)
-            emit({"phase": "check", "case": name, "ok": ok, "max_abs_err": err,
+            emit({"phase": label, "case": name, "ok": ok, "max_abs_err": err,
                   "exact": exact, "ms": ms, "plain_ms": pms, "library_ms": lms,
                   "bound_ms": bms, "bound_by": bound_by(nbytes, flops),
                   "uses_per_forward": uses})
@@ -389,6 +519,38 @@ def phase_check_and_time(results):
                 agg["bytes"] = agg.get("bytes", 0) + uses * nbytes
                 agg["flops"] = agg.get("flops", 0) + uses * flops
     return ok_all
+
+
+def phase_check_and_time(results):
+    """Phases 2 and 6 for the FP8 kernels: one pass over the cases, holding
+    each against its plain version and timing kernel, plain and library
+    call; the sums per ResNet-18 FP8 forward go to ``results``."""
+    inp = Inputs()
+    return check_cases((("qstem", stem_cases(inp)), ("qconv3x3", conv_cases(inp)),
+                        ("qmatmul", matmul_cases(inp))), results, "check")
+
+
+def phase_int_check(int_results):
+    """The integer branches and input quantization of the FP8/bf16 kernels,
+    as phase 2 on the integer grids: qstem, qconv3x3 and qmatmul as a
+    ResNet-18 INT8 output-quant forward calls them (sums per forward in
+    ``int_results``), qmatmul with in-kernel int_sym weights (signed,
+    unsigned), and qmatmul with FP8 input quant as a --quantize-input
+    forward calls it (sums under "qmatmul_qi") plus one int_asym input
+    case.  Int outputs hold if >= 99% are exact and the rest within one
+    integer step; input-quant outputs (float32, no output quant) if >= 99%
+    are exact and all within 1e-5 of the largest."""
+    inp = Inputs("int")
+    ok = check_cases((("qstem", stem_cases(inp)), ("qconv3x3", conv_cases(inp)),
+                      ("qmatmul", matmul_cases(inp))), int_results, "int_check")
+    qi = {}
+    ok &= check_cases((("qmatmul", qi_matmul_cases(Inputs())),), qi, "int_check")
+    int_results["qmatmul_qi"] = qi["qmatmul"]
+    emit({"phase": "int_check", "case": "sums per forward", "ok": ok,
+          "resnet18_int8_out_quant": {k: int_results[k] for k in
+                                      ("qstem", "qconv3x3", "qmatmul")},
+          "resnet18_fp8_quantize_input_qmatmul": qi["qmatmul"]})
+    return ok
 
 
 # ---- the int8 kernels --------------------------------------------------------
@@ -603,15 +765,38 @@ def fused_forward(fused, x, captures, first):
     return a
 
 
+def logit_step(quantizer, a, b):
+    """One grid step of the last layer's output quantizer at the larger of
+    |a|, |b|: E3M4 (2^-M of the magnitude plus maxval * 2^-10), or the
+    integer step of an int_asym quantizer."""
+    import torch
+    if quantizer.spec.is_fp8:
+        return (torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS
+                + float(quantizer.maxval) * 2.0 ** -10)
+    return float(torch.clamp(quantizer.delta, min=1e-8))
+
+
 def phase_slice(results, label="slice", cli=CLI_ARGS,
                 per_forward=RESNET_FP8_LAUNCHES, head="fc", min_share=0.0,
-                captures=None):
-    """An FP8 main path through the CLI's entry point (launch counts
-    against ``per_forward``), then fused against bf16 on one calibrated,
-    baked state, judged on the grid of the ``head`` layer's output
-    quantizer.  With ``captures`` the first fused forward records the
-    depthwise and block kernels' operands (Capture); ``min_share`` bounds
-    the input-dependent share of the logits from below."""
+                captures=None, plain_reference=False):
+    """A main path through the CLI's entry point (launch counts against
+    ``per_forward``), then fused against bf16 on one calibrated, baked
+    state, judged on the grid of the ``head`` layer's output quantizer
+    (logit_step): top-1 >= 99%, >= 98% within one step.  With
+    ``plain_reference`` (--quantize-input, where fused and bf16 differ by
+    design, see QI_CLI_ARGS) the judged reference is instead the same fused
+    model on the CPU, where every wrapper takes its plain version.  Its
+    logits are not quantized and chaotic (a last-bit difference anywhere
+    flips input-quantizer bins downstream), so, as vit_slice does, the rms
+    gap over the logits' spread (logit_gap) to the plain versions is held
+    to at most twice the floor that moving every input value by one
+    float32 ulp gives the fused model on the card; fused against bf16 is
+    printed.
+    With ``captures`` the first fused forward records the depthwise and
+    block kernels' operands (Capture); ``min_share`` bounds the
+    input-dependent share of the logits from below."""
+    import copy
+
     import torch
     from fp8_quantization_tpu_torch.nn.bake import bake_weights
 
@@ -619,8 +804,10 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
     batches, fused, bf16 = engine_pair(cli)
     bake_weights(fused)
     bake_weights(bf16)
-    agree, exact, within, share, classes, finite = [], [], [], [], [], True
-    maxval = float(getattr(fused, head).act_q.maxval)
+    plain = copy.deepcopy(fused).cpu() if plain_reference else None
+    agree, exact, within, share, classes, gap, finite = [], [], [], [], [], [], True
+    runs = {"fused": [], "plain": [], "fused_ulp": []}
+    head_q = getattr(fused, head).act_q
     with torch.no_grad():
         for i, (x, _) in enumerate(batches):
             xt = torch.as_tensor(x, device="cuda")
@@ -628,21 +815,42 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
             b = bf16(xt, mode="fixed", quant_w=False)
             finite &= bool(torch.isfinite(a).all())
             agree.append(float((a.argmax(-1) == b.argmax(-1)).float().mean()))
-            # one grid step of the head's E3M4 output quantizer
-            step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS + maxval * 2.0 ** -10
-            within.append(float(((a - b).abs() <= step).float().mean()))
+            within.append(float(((a - b).abs() <= logit_step(head_q, a, b))
+                                .float().mean()))
             exact.append(float((a == b).float().mean()))
+            gap.append(logit_gap(a, b))
             share.append(input_share(a))
             classes.append(len(set(a.argmax(-1).tolist())))
+            if plain is not None:
+                x_ulp = torch.nextafter(xt, torch.full_like(xt, math.inf))
+                runs["fused"].append(a)
+                runs["fused_ulp"].append(fused(x_ulp, mode="fixed", quant_w=False))
+                runs["plain"].append(plain(torch.as_tensor(x), mode="fixed",
+                                           quant_w=False).to(a.device))
     mean = lambda v: sum(v) / len(v)  # noqa: E731
-    ok = (counts == want and finite and metrics_ok
-          and mean(agree) >= 0.99 and mean(within) >= 0.98 and min(share) > min_share)
-    emit({"phase": label, "ok": ok, "metrics": metrics, "launches": counts,
-          "expected_launches": want, "logits_finite": finite,
-          "top1_agree_vs_bf16": mean(agree),
-          "logits_within_one_step_vs_bf16": mean(within),
-          "logits_exact_vs_bf16": mean(exact), "input_dependent_share": share,
-          "distinct_top1_classes": classes})
+    if plain is None:
+        close = mean(agree) >= 0.99 and mean(within) >= 0.98
+    else:
+        t = {k: torch.cat(v) for k, v in runs.items()}
+        plain_gap = {"fused_vs_plain_cpu": logit_gap(t["fused"], t["plain"]),
+                     "fused_one_ulp_floor": logit_gap(t["fused_ulp"], t["fused"])}
+        close = plain_gap["fused_vs_plain_cpu"] <= 2 * plain_gap["fused_one_ulp_floor"]
+    ok = (counts == want and finite and metrics_ok and close
+          and min(share) > min_share)
+    line = {"phase": label, "ok": ok, "metrics": metrics, "launches": counts,
+            "expected_launches": want, "logits_finite": finite,
+            "top1_agree_vs_bf16": mean(agree),
+            "logits_within_one_step_vs_bf16": mean(within),
+            "logits_exact_vs_bf16": mean(exact), "logit_gap_vs_bf16": gap,
+            "input_dependent_share": share, "distinct_top1_classes": classes}
+    if plain is not None:
+        argmax = {k: v.argmax(-1) for k, v in t.items()}
+        line.update({"logit_gaps": plain_gap,
+                     "top1_agree_vs_plain_cpu": float(
+                         (argmax["fused"] == argmax["plain"]).float().mean()),
+                     "top1_agree_fused_one_ulp": float(
+                         (argmax["fused"] == argmax["fused_ulp"]).float().mean())})
+    emit(line)
     add_launches(results, counts)
     return ok, fused, bf16
 
@@ -717,16 +925,42 @@ def phase_int8_slice(results):
     return ok, fused
 
 
+# BASELINE.json config 2, INT8 PTQ with output quant: per-channel symmetric
+# weights, asymmetric per-tensor activations quantized at each layer's
+# output (no --quantize-input, no --int8-mxu); the FP8/bf16 kernels'
+# integer branches: 1 qstem, 16 qconv3x3 and 4 qmatmul per forward
+INT8_OQ_QUANT = ["--qmethod", "symmetric_uniform", "--qmethod-act", "asymmetric_uniform"]
+INT8_OQ_CLI_ARGS = ["validate-quantized", "--device", "cuda", "--engine", "fused",
+                    "--architecture", "resnet18_quantized", *INT8_OQ_QUANT,
+                    "--per-channel", "--weight-quant-method", "current_minmax",
+                    "--act-quant-method", "allminmax", "--num-est-batches", "1",
+                    "--max-eval-batches", str(EVAL_BATCHES), "--batch-size", str(BATCH),
+                    "--seed", str(SEED)]
+# the main path's FP8 config with --quantize-input: the downsamples and the
+# fc quantize their inputs in qmatmul; the stem and the 3x3 convs take the
+# bf16 path, as in JAX (4 qmatmul launches per forward, no qstem/qconv3x3)
+QI_CLI_ARGS = CLI_ARGS + ["--quantize-input"]
+QI_LAUNCHES = {"qmatmul": 4}
+# fused against bf16 under --quantize-input: the fc re-quantizes the
+# materialized tied-avgpool output on its own grid in fused (as the int8
+# datapath does, nn/layers.py) where bf16 takes the Factored value as it
+# is, so their logits (not quantized) differ by design: qi_slice holds
+# fused against its plain versions on the CPU instead, to the one-ulp
+# noise floor of these chaotic logits (phase_slice)
+
+
 # ---- MobileNetV2 -----------------------------------------------------------
 
-def mnv2_cli_args(bn_mode):
+def mnv2_cli_args(bn_mode, int8=False):
     """validate-quantized on MobileNetV2 FP8 (BASELINE.json config 4 without
     the pretrained checkpoint): the main path's quantizer config, random
-    fan-in-scaled tonylins-layout weights from the seed."""
+    fan-in-scaled tonylins-layout weights from the seed; with ``int8``
+    BASELINE config 2's quantizers (INT8_OQ_QUANT) instead."""
+    quant = (INT8_OQ_QUANT if int8 else
+             ["--fp8-set-maxval", "--fp8-mantissa-bits", str(MBITS)])
     return ["validate-quantized", "--device", "cuda", "--engine", "fused",
             "--architecture", "mobilenet_v2_quantized", "--bn-mode", bn_mode,
-            "--per-channel", "--fp8-set-maxval", "--fp8-mantissa-bits", str(MBITS),
-            "--weight-quant-method", "current_minmax",
+            "--per-channel", *quant, "--weight-quant-method", "current_minmax",
             "--act-quant-method", "allminmax", "--num-est-batches", "1",
             "--max-eval-batches", str(EVAL_BATCHES), "--batch-size", str(BATCH),
             "--seed", str(SEED)]
@@ -806,7 +1040,8 @@ def mnv2_dw_case(args, kw, uses):
     return (f"qdwconv3x3 {h}x{wd}x{c} s{cfg.stride}",
             lambda: qd.fused_quant_dwconv3x3(*args, **kw),
             lambda: qd.qdwconv3x3_plain(*args, cfg),
-            lambda out, ref: grid_check(out, ref, a_c, cfg.emit_norm),
+            lambda out, ref: grid_check(out, ref, a_c, cfg.emit_norm,
+                                        method=cfg.act_method),
             nbytes, op_s, uses,
             lambda: F.conv2d(xl, wl, stride=cfg.stride, padding=1, groups=c))
 
@@ -853,14 +1088,15 @@ def mnv2_block_case(args, kw, uses, label=""):
         # grid (at |sum - residual| <= |sum| + |residual|), which can be
         # several steps of the block quantizer's grid after cancellation
         extra = 0.0
-        if cfg.use_res and cfg.methods[qb.ROW_PROJECT] != "none":
+        proj = cfg.methods[qb.ROW_PROJECT]
+        if cfg.use_res and proj != "none":
             f_out = float(a_c[5, col]) if cfg.emit_norm else 1.0
             y = torch.maximum(out.float().abs(), ref.float().abs()) * f_out
             p = y + (x.float() * xf).abs()
-            p_min = 2.0 ** (1.0 + float(a_c[4, qb.ROW_PROJECT])) * float(
-                a_c[5, qb.ROW_PROJECT])
-            extra = (p * 2.0 ** -MBITS + p_min) / f_out
-        return grid_check(out, ref, a_c[:, col:col + 1], cfg.emit_norm, extra)
+            extra = grid_step(p, p, a_c[:, qb.ROW_PROJECT:qb.ROW_PROJECT + 1],
+                              False, proj) / f_out
+        return grid_check(out, ref, a_c[:, col:col + 1], cfg.emit_norm, extra,
+                          cfg.methods[col])
     tag = "t1" if not cfg.expand else ("res" if cfg.use_res else f"s{cfg.stride}")
     name = f"qblock {h}x{w} {cin}->{hid}->{cout} {tag}{label}"
     return (name, lambda: qb.fused_inverted_residual(*args, **kw),
@@ -888,19 +1124,19 @@ def capture_dw_bf16_blocks():
     return cap.calls.get("qblock", {})
 
 
-def phase_mnv2_check(results, captures):
+def phase_mnv2_check(results, captures, label="mnv2_check", dw_bf16=True):
     """Each MobileNetV2 kernel against its plain version on the operands the
     main path gave it (recorded by the slice phases), timed as in phase 2:
     17 depthwise calls in 10 shapes and 17 blocks in 12 configurations,
-    plus two blocks (56x56 residual, 14x14 without residual) as a
-    dw_bf16_acts model calls them (expand and dw rows "none")."""
+    plus (``dw_bf16``) two blocks (56x56 residual, 14x14 without residual)
+    as a dw_bf16_acts model calls them (expand and dw rows "none")."""
     from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
     cases = [("qdwconv3x3", mnv2_dw_case(a, kw, u))
              for a, kw, u in captures.get("qdwconv3x3", {}).values()]
     cases += [("qblock", mnv2_block_case(a, kw, u))
               for a, kw, u in captures.get("qblock", {}).values()]
     n_main = len(cases)
-    for a, kw, _ in capture_dw_bf16_blocks().values():
+    for a, kw, _ in (capture_dw_bf16_blocks().values() if dw_bf16 else ()):
         cfg = kw["cfg"]
         if (cfg.expand and cfg.stride == 1
                 and (a[0].shape[1], cfg.use_res) in ((56, True), (14, False))):
@@ -908,7 +1144,7 @@ def phase_mnv2_check(results, captures):
                 a, kw, 0, " dw_bf16_acts " + "/".join(cfg.methods))))
     want_cases = {"qdwconv3x3": 10, "qblock": 12}
     ok_all = (all(len(captures.get(k, {})) == n for k, n in want_cases.items())
-              and len(cases) == n_main + 2)
+              and len(cases) == n_main + 2 * dw_bf16)
     for kname, (name, call, plain, check, nbytes, op_s, uses, lib) in cases:
         agg = results.setdefault(kname, {})
         for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -926,7 +1162,7 @@ def phase_mnv2_check(results, captures):
         lms = time_ms(lib)
         bytes_s = nbytes / HBM_BYTES_PER_S
         bms = 1e3 * max(bytes_s, op_s)
-        emit({"phase": "mnv2_check", "case": name, "ok": ok, "max_abs_err": err,
+        emit({"phase": label, "case": name, "ok": ok, "max_abs_err": err,
               "exact": exact, "ms": ms, "plain_ms": pms, "library_ms": lms,
               "bound_ms": bms, "bound_by": "bytes" if bytes_s > op_s else "operations",
               "uses_per_forward": uses})
@@ -1220,6 +1456,62 @@ def phase_profile(fused, label="profile", quant_w=False,
     return True
 
 
+def phase_mnv2_int8_check(int_results, int_captures):
+    """mnv2_check on the MobileNetV2 INT8 slices' calls, then their sums
+    per forward (qblock: fp32_after; qdwconv3x3: folded)."""
+    ok = phase_mnv2_check(int_results, int_captures, "mnv2_int8_check", dw_bf16=False)
+    emit({"phase": "mnv2_int8_check", "case": "sums per forward", "ok": ok,
+          **{k: int_results.get(k) for k in ("qblock", "qdwconv3x3")}})
+    return ok
+
+
+def int_phases(results, slice_out):
+    """Phase 10: the integer branches of the FP8/bf16 kernels and input
+    quantization in qmatmul (int_check), BASELINE config 2 on ResNet-18
+    (int8oq_slice, a throughput turn and a profile), ResNet-18 FP8
+    --quantize-input (qi_slice), MobileNetV2 under config 2's quantizers in
+    both bn modes (each with a throughput turn and a profile), and its
+    depthwise and block calls (mnv2_int8_check).
+    Their launches join the kernels line; their times print per forward."""
+    int_results, int_captures = {}, {}
+
+    def int8oq_slice():
+        ok, slice_out["int8oq"], slice_out["int8oq_bf16"] = phase_slice(
+            results, "int8oq_slice", INT8_OQ_CLI_ARGS, RESNET_FP8_LAUNCHES, "fc", 0.01)
+        return ok
+
+    def mnv2_int8_slice(bn_mode):
+        key = "int8_" + bn_mode
+        ok, slice_out[key], slice_out[key + "_bf16"] = phase_slice(
+            results, f"mnv2_{key}_slice", mnv2_cli_args(bn_mode, int8=True),
+            MNV2_LAUNCHES[bn_mode], "classifier", 0.01, int_captures)
+        return ok
+
+    mnv2 = []
+    for bn_mode, kernel_names in (("fp32_after", ("qblock", "qmatmul")),
+                                  ("folded", ("qdwconv3x3", "qmatmul"))):
+        key = "int8_" + bn_mode
+        mnv2 += [
+            (f"mnv2_{key}_slice", lambda m=bn_mode: mnv2_int8_slice(m)),
+            (f"mnv2_{key}_throughput", lambda k=key: phase_throughput(
+                slice_out[k], slice_out[k + "_bf16"], f"mnv2_{k}_throughput",
+                (BATCH,)) or True),
+            (f"mnv2_{key}_profile", lambda k=key, n=kernel_names: phase_profile(
+                slice_out[k], f"mnv2_{k}_profile", kernel_names=n))]
+
+    return [
+        ("int_check", lambda: phase_int_check(int_results)),
+        ("int8oq_slice", int8oq_slice),
+        ("int8oq_throughput", lambda: phase_throughput(
+            slice_out["int8oq"], slice_out["int8oq_bf16"], "int8oq_throughput",
+            (BATCH,)) or True),
+        ("int8oq_profile", lambda: phase_profile(slice_out["int8oq"], "int8oq_profile")),
+        ("qi_slice", lambda: phase_slice(results, "qi_slice", QI_CLI_ARGS, QI_LAUNCHES,
+                                         "fc", 0.01, plain_reference=True)[0]),
+        *mnv2,
+        ("mnv2_int8_check", lambda: phase_mnv2_int8_check(int_results, int_captures))]
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1290,6 +1582,7 @@ def main():
                   slice_out["int8"], "int8_profile", quant_w=True,
                   kernel_names=("qconv3x3_int8", "qmatmul_int8")))]
     phases += mnv2_phases + [("mnv2_check", lambda: phase_mnv2_check(results, captures))]
+    phases += int_phases(results, slice_out)
     phases += vit_phases
     for name, fn in phases:
         t0 = time.perf_counter()

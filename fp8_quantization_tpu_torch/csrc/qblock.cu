@@ -25,9 +25,11 @@
 //      (residual) the full-scale project quant, + x*x_factor and the block
 //      quant; stored as normalized bf16 or float32.
 //
-// A stage whose method bit is clear is a plain bf16 cast (the dw_bf16_acts
-// preset).  Quantizers come as a (6, 4) constant array, one column per
-// stage (fq_epilogue.cuh).  Built with -fmad=false, so every epilogue step
+// Each stage quantizes by its own method (FP8, int_asym or none), two bits
+// of ``methods`` per stage (stage r at bits 2r, 2r+1; fq_epilogue.cuh's
+// QuantMethod codes); a stage without a quantizer is a plain bf16 cast (the
+// dw_bf16_acts preset).  Quantizers come as a (6, 4) constant array, one
+// column per stage (fq_epilogue.cuh).  Built with -fmad=false, so every epilogue step
 // rounds as the plain version's does; the sums of the two products run in
 // another order (wmma, and the project over chunks).
 //
@@ -97,10 +99,10 @@ Geometry make_geometry(int Ho, int stride, int cin, int cout, int expand,
 }
 
 // One stage's epilogue: y*scale + shift, activation, and the stage's quant
-// when its method bit is set.
+// (method code ``quant``, kQuantNone for none).
 __device__ __forceinline__ float stage(float y, float scale, float shift,
-                                       int activation, bool quant,
-                                       const fq::Fp8Consts& c,
+                                       int activation, int quant,
+                                       const fq::QuantConsts& c,
                                        bool normalized) {
   return fq::epilogue(y, scale, shift, false, 0.0f, activation, quant, c,
                       normalized);
@@ -140,12 +142,12 @@ qblock_kernel(const __nv_bfloat16* __restrict__ x,
   const int ow0 = (blockIdx.x % tiles_w) * g.T;
   const long long img = blockIdx.y;
   const int ih0 = oh0 * stride - 1, iw0 = ow0 * stride - 1;
-  const fq::Fp8Consts c_exp = fq::load_consts(aconsts, 4, 0);
-  const fq::Fp8Consts c_dw = fq::load_consts(aconsts, 4, 1);
-  const fq::Fp8Consts c_proj = fq::load_consts(aconsts, 4, 2);
-  const fq::Fp8Consts c_blk = fq::load_consts(aconsts, 4, 3);
-  const bool q_exp = methods & 1, q_dw = methods & 2, q_proj = methods & 4,
-             q_blk = methods & 8;
+  const fq::QuantConsts c_exp = fq::load_consts(aconsts, 4, 0);
+  const fq::QuantConsts c_dw = fq::load_consts(aconsts, 4, 1);
+  const fq::QuantConsts c_proj = fq::load_consts(aconsts, 4, 2);
+  const fq::QuantConsts c_blk = fq::load_consts(aconsts, 4, 3);
+  const int q_exp = methods & 3, q_dw = (methods >> 2) & 3,
+            q_proj = (methods >> 4) & 3, q_blk = (methods >> 6) & 3;
 
   // 1. the input tile with its halo, zero outside the image and in padding
   const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
@@ -271,7 +273,7 @@ qblock_kernel(const __nv_bfloat16* __restrict__ x,
       const float xr = __bfloat162float(
           xs[((oi + 1) * g.TI + oj + 1) * g.ldx + c]);
       y = __fadd_rn(y, __fmul_rn(xr, xf));
-      if (q_blk) y = fq::fq_quantize(y, c_blk, emit_norm);
+      y = fq::quantize(y, q_blk, c_blk, emit_norm);
     } else {
       y = stage(accs[o * g.ldacc + c], s2[c], b2[c], fq::kActNone, q_proj,
                 c_proj, emit_norm);

@@ -10,8 +10,9 @@
 // padding is a bounds mask and stride 2 is index arithmetic (the Pallas
 // even/odd phase split was a Mosaic workaround and is gone).  B is the
 // baked (9*Cin, Cout) bf16 weight matrix.  The epilogue is y*scale + shift
-// [+ residual], relu/relu6 and the output FP8 quant, stored as the
-// normalized bf16 value (emit_norm) or float32.
+// [+ residual], relu/relu6 and the output quant (FP8 or int_asym,
+// fq_epilogue.cuh), stored as the normalized bf16 value (emit_norm) or
+// float32.
 //
 // Bound on the card: at ResNet-18's shapes the early layers (56x56x64)
 // move about as many bytes as they do tensor-core work at 989 TFLOP/s
@@ -32,7 +33,7 @@ qconv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                 const float* __restrict__ scale,
                 const float* __restrict__ shift, const RT* __restrict__ res,
                 void* __restrict__ out, int Nimg, int H, int W, int Cin,
-                int Cout, int stride, int Ho, int Wo, bool act_fp8,
+                int Cout, int stride, int Ho, int Wo, int a_method,
                 int activation, bool emit_norm) {
   using namespace fq;
   __shared__ GemmSmem s;
@@ -92,7 +93,7 @@ qconv3x3_kernel(const __nv_bfloat16* __restrict__ x,
   store_acc(s, acc, warp);
   __syncthreads();
 
-  const Fp8Consts ac = load_consts(aconsts, 1, 0);
+  const QuantConsts ac = load_consts(aconsts, 1, 0);
   for (int i = tid; i < BM * BN; i += THREADS) {
     const int r = i / BN, c = i % BN, n = n0 + c;
     const long long m = m0 + r;
@@ -100,7 +101,7 @@ qconv3x3_kernel(const __nv_bfloat16* __restrict__ x,
     const long long o = m * Cout + n;
     const float rv = res != nullptr ? to_float(res[o]) : 0.0f;
     const float y = epilogue(s.c[r * LDC + c], scale[n], shift[n],
-                             res != nullptr, rv, activation, act_fp8, ac,
+                             res != nullptr, rv, activation, a_method, ac,
                              emit_norm);
     store_out(out, o, y, emit_norm);
   }
@@ -112,7 +113,7 @@ extern "C" int qconv3x3_launch(const void* x, const void* w,
                                const float* aconsts, const float* scale,
                                const float* shift, const void* res,
                                int res_bf16, void* out, int N, int H, int W,
-                               int Cin, int Cout, int stride, int act_fp8,
+                               int Cin, int Cout, int stride, int a_method,
                                int activation, int emit_norm, void* stream) {
   const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
   const long long M = static_cast<long long>(N) * Ho * Wo;
@@ -125,11 +126,11 @@ extern "C" int qconv3x3_launch(const void* x, const void* w,
     qconv3x3_kernel<__nv_bfloat16><<<grid, fq::THREADS, 0, st>>>(
         xb, wb, aconsts, scale, shift,
         static_cast<const __nv_bfloat16*>(res), out, N, H, W, Cin, Cout,
-        stride, Ho, Wo, act_fp8 != 0, activation, emit_norm != 0);
+        stride, Ho, Wo, a_method, activation, emit_norm != 0);
   else
     qconv3x3_kernel<float><<<grid, fq::THREADS, 0, st>>>(
         xb, wb, aconsts, scale, shift, static_cast<const float*>(res), out, N,
-        H, W, Cin, Cout, stride, Ho, Wo, act_fp8 != 0, activation,
+        H, W, Cin, Cout, stride, Ho, Wo, a_method, activation,
         emit_norm != 0);
   return static_cast<int>(cudaGetLastError());
 }

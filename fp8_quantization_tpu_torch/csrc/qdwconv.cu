@@ -11,7 +11,7 @@
 // order, as the Pallas body does (qconv.py:203-207); with -fmad=false and
 // the _rn intrinsics every step is the plain version's, bit for bit (each
 // product of a bf16 input and a bf16-exact weight is exact in float32).
-// Then y*scale + shift, relu/relu6 and the output FP8 quant
+// Then y*scale + shift, relu/relu6 and the output quant, FP8 or int_asym
 // (fq_epilogue.cuh), stored as the normalized bf16 value (emit_norm) or
 // float32.
 //
@@ -57,7 +57,7 @@ qdwconv3x3_kernel(const __nv_bfloat16* __restrict__ x,
                   const float* __restrict__ scale,
                   const float* __restrict__ shift, void* __restrict__ out,
                   int Nimg, int H, int W, int C, int stride, int Ho, int Wo,
-                  bool act_fp8, int activation, bool emit_norm) {
+                  int a_method, int activation, bool emit_norm) {
   const int CV = C / VEC;
   const long long total = static_cast<long long>(Nimg) * Ho * Wo * CV;
   const long long i = static_cast<long long>(blockIdx.x) * kThreads + threadIdx.x;
@@ -90,13 +90,13 @@ qdwconv3x3_kernel(const __nv_bfloat16* __restrict__ x,
     }
   }
 
-  const fq::Fp8Consts ac = fq::load_consts(aconsts, 1, 0);
+  const fq::QuantConsts ac = fq::load_consts(aconsts, 1, 0);
   const long long o = pix * C + c0;
   float y[VEC];
 #pragma unroll
   for (int v = 0; v < VEC; ++v)
     y[v] = fq::epilogue(acc[v], __ldg(scale + c0 + v), __ldg(shift + c0 + v),
-                        false, 0.0f, activation, act_fp8, ac, emit_norm);
+                        false, 0.0f, activation, a_method, ac, emit_norm);
   if constexpr (VEC == 8) {
     if (emit_norm) {
       uint4 packed;
@@ -121,7 +121,7 @@ qdwconv3x3_kernel(const __nv_bfloat16* __restrict__ x,
 extern "C" int qdwconv3x3_launch(const void* x, const float* w,
                                  const float* aconsts, const float* scale,
                                  const float* shift, void* out, int N, int H,
-                                 int W, int C, int stride, int act_fp8,
+                                 int W, int C, int stride, int a_method,
                                  int activation, int emit_norm, void* stream) {
   const int Ho = (H - 1) / stride + 1, Wo = (W - 1) / stride + 1;
   const int vec = C % 8 == 0 ? 8 : 1;
@@ -132,10 +132,10 @@ extern "C" int qdwconv3x3_launch(const void* x, const float* w,
   if (vec == 8)
     qdwconv3x3_kernel<8><<<blocks, kThreads, 0, st>>>(
         xb, w, aconsts, scale, shift, out, N, H, W, C, stride, Ho, Wo,
-        act_fp8 != 0, activation, emit_norm != 0);
+        a_method, activation, emit_norm != 0);
   else
     qdwconv3x3_kernel<1><<<blocks, kThreads, 0, st>>>(
         xb, w, aconsts, scale, shift, out, N, H, W, C, stride, Ho, Wo,
-        act_fp8 != 0, activation, emit_norm != 0);
+        a_method, activation, emit_norm != 0);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,5 +1,5 @@
 // Fused ResNet stem for Hopper: conv7x7/2 pad 3 + folded BN + relu +
-// maxpool3x3/2 pad 1 + output FP8 quant, in one pass.
+// maxpool3x3/2 pad 1 + output quant (FP8 or int_asym), in one pass.
 //
 // Replaces _qstem_kernel of fp8_quantization_tpu/ops/pallas/qstem.py
 // (line 88, pallas_call at line 242).  The Pallas kernel walks bands of
@@ -13,9 +13,9 @@
 // from shared memory into a (pixels x K) bf16 matrix and the product runs
 // on the tensor cores in fp32.  Conv pixels outside the image are set to 0
 // after relu: the max identity for post-relu values, so the pool's zero
-// padding is exact.  The pool comes before the quant: FP8 quantization is
-// monotone, so quant(pool(y)) == pool(quant(y)) and 4x fewer values are
-// quantized.
+// padding is exact.  The pool comes before the quant: FP8 and integer
+// quantization are monotone, so quant(pool(y)) == pool(quant(y)) and 4x
+// fewer values are quantized.
 //
 // Bound on the card: at (64, 224, 224, 3) the conv is 15.1 GFLOP against
 // 19 MB of input and 26 MB of bf16 output, so operations bound it; the
@@ -50,7 +50,7 @@ qstem_kernel(const XT* __restrict__ x, const __nv_bfloat16* __restrict__ w,
              const float* __restrict__ aconsts,
              const float* __restrict__ scale, const float* __restrict__ shift,
              void* __restrict__ out, int S, int cin, int Kp, int C, int P,
-             bool act_fp8, bool emit_norm) {
+             int a_method, bool emit_norm) {
   using namespace nvcuda;
   extern __shared__ __align__(128) unsigned char smem[];
   const int ldA = lda(Kp);
@@ -150,7 +150,7 @@ qstem_kernel(const XT* __restrict__ x, const __nv_bfloat16* __restrict__ w,
   }
   __syncthreads();
 
-  const fq::Fp8Consts ac = fq::load_consts(aconsts, 1, 0);
+  const fq::QuantConsts ac = fq::load_consts(aconsts, 1, 0);
   for (int i = tid; i < TP * TQ * COUT; i += THREADS) {
     const int c = i % COUT, qq = (i / COUT) % TQ, pp = i / (COUT * TQ);
     const int p = p0 + pp, q = q0 + qq;
@@ -161,7 +161,7 @@ qstem_kernel(const XT* __restrict__ x, const __nv_bfloat16* __restrict__ w,
 #pragma unroll
       for (int dc = 0; dc < 3; ++dc)
         y = fmaxf(y, Cs[((2 * pp + dr) * CC + 2 * qq + dc) * LDCS + c]);
-    if (act_fp8) y = fq::fq_quantize(y, ac, emit_norm);
+    y = fq::quantize(y, a_method, ac, emit_norm);
     fq::store_out(out, ((static_cast<long long>(n) * P + p) * P + q) * COUT + c,
                   y, emit_norm);
   }
@@ -170,7 +170,7 @@ qstem_kernel(const XT* __restrict__ x, const __nv_bfloat16* __restrict__ w,
 template <typename XT>
 int launch(const void* x, const void* w, int Kp, const float* aconsts,
            const float* scale, const float* shift, void* out, int N, int S,
-           int cin, int act_fp8, int emit_norm, cudaStream_t stream) {
+           int cin, int a_method, int emit_norm, cudaStream_t stream) {
   const int C = (S - 1) / 2 + 1, P = (C - 1) / 2 + 1;
   const size_t smem = smem_bytes(Kp, cin);
   cudaError_t err = cudaFuncSetAttribute(
@@ -180,7 +180,7 @@ int launch(const void* x, const void* w, int Kp, const float* aconsts,
   const dim3 grid((P + TQ - 1) / TQ, (P + TP - 1) / TP, N);
   qstem_kernel<XT><<<grid, THREADS, smem, stream>>>(
       static_cast<const XT*>(x), static_cast<const __nv_bfloat16*>(w), aconsts,
-      scale, shift, out, S, cin, Kp, C, P, act_fp8 != 0, emit_norm != 0);
+      scale, shift, out, S, cin, Kp, C, P, a_method, emit_norm != 0);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -191,12 +191,12 @@ int launch(const void* x, const void* w, int Kp, const float* aconsts,
 extern "C" int qstem_launch(const void* x, int x_bf16, const void* w, int Kp,
                             const float* aconsts, const float* scale,
                             const float* shift, void* out, int N, int S,
-                            int cin, int act_fp8, int emit_norm,
+                            int cin, int a_method, int emit_norm,
                             void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   if (x_bf16)
     return launch<__nv_bfloat16>(x, w, Kp, aconsts, scale, shift, out, N, S,
-                                 cin, act_fp8, emit_norm, st);
+                                 cin, a_method, emit_norm, st);
   return launch<float>(x, w, Kp, aconsts, scale, shift, out, N, S, cin,
-                       act_fp8, emit_norm, st);
+                       a_method, emit_norm, st);
 }

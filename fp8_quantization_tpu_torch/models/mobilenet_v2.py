@@ -14,7 +14,8 @@ nor are width multipliers other than 1 and the untied avgpool of the
 
 Under ``engine='fused'`` in fixed mode a block whose stages are all baked
 runs ``ops/kernels/qblock`` as one kernel (there lines 86-190, without the
-measured gate): each stage's scale comes from the layer's own ``_fold``
+measured gate), each stage with its own output quant (FP8, int_asym or
+none): each stage's scale comes from the layer's own ``_fold``
 with the upstream factor folded in (the block input's factor to expand, or
 to dw in a t=1 block; the expand output's factor to dw; dw's to project).
 Otherwise, and under folded BN (``fused_state`` returns None there, JAX

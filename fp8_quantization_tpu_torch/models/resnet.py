@@ -10,8 +10,9 @@ the JAX package (``stem``, ``layer{s}_{b}.conv{i}``,
 variables carry over by path (models/convert.load_jax_variables).
 
 Under ``engine='fused'`` in fixed mode the stem (conv7x7/2 + BN + relu +
-maxpool + quant) runs the qstem kernel once it is baked (there lines
-132-173).  Under the int8 datapath (nn/layers.int8_datapath) the stem takes
+maxpool + quant, FP8 or int_asym) runs the qstem kernel once it is baked
+(there lines 132-173); under ``quantize_input`` it takes the layer path,
+as in JAX (``_conv_fused_state`` returns None).  Under the int8 datapath (nn/layers.int8_datapath) the stem takes
 the layer route (``ops/int8.int8_conv``) and ``fmax_pool`` instead, as the
 JAX model does when ``_conv_fused_state`` returns None (there lines
 146-157, and nn/layers.py:795-799); the block tails and the tied avgpool

@@ -17,13 +17,18 @@ per channel along dim 0.  Engines (``config.engine``):
   1235-1246).  On the card the convolution may use TF32: every bf16 value
   is exact in TF32, so the products stay exact and the sums fp32;
 * ``fused``: the counterpart of ``pallas`` (there lines 367-520, 784-814,
-  856-941).  In fixed mode 1x1 convs (stride 1 or 2) and linears with no
-  activation, relu or relu6 run ``ops/kernels/qmatmul`` (FP8 weight quant
-  in the kernel, or baked weights; a gelu linear takes the bf16 path, as
+  856-941).  In fixed mode, for FP8 or symmetric-uniform weights and FP8 or
+  per-tensor asymmetric-uniform activations (JAX ``_pallas_supported``,
+  there lines 268-282), 1x1 convs (stride 1 or 2) and linears with no
+  activation, relu or relu6 run ``ops/kernels/qmatmul`` (FP8 or int_sym
+  weight quant in the kernel, or baked weights; under ``quantize_input``
+  the input quantized in the kernel; a gelu linear takes the bf16 path, as
   in JAX), baked 3x3 convs run ``ops/kernels/qconv`` and the ResNet stem
-  runs ``ops/kernels/qstem`` (models/resnet.py).  There is no autotune
-  gate: the kernels always launch on the card.  Elsewhere the bf16 path
-  runs.
+  runs ``ops/kernels/qstem`` (models/resnet.py), each with its output
+  quant (FP8 or int_asym) in the epilogue.  Under ``quantize_input`` the
+  3x3 and depthwise convs and the stem take the bf16 path, as in JAX
+  (there lines 901-903, 987, 795-799).  There is no autotune gate: the
+  kernels always launch on the card.  Elsewhere the bf16 path runs.
 
 The int8 datapath (``int8_datapath``: ``int8_mxu`` + ``quantize_input``,
 symmetric-uniform weights, per-tensor asymmetric-uniform inputs, <= 8
@@ -49,11 +54,14 @@ static conditions of JAX lines 976-987, without the measured gate).
 ``QuantConv.fused_state`` hands a MobileNetV2 block its stages' baked
 operands for ``ops/kernels/qblock`` (models/mobilenet_v2.py).
 
+A ``Factored`` input to a layer that quantizes its input in the qmatmul
+kernel is materialized and re-quantized by the layer's own input quantizer,
+as on the int8 datapath (the JAX ``pallas`` engine instead quantizes the
+norm with this layer's step, ROADMAP.md section C).
+
 Not ported, and rejected where they would be selected: cast fast paths, f8
 storage, space-to-depth stems, grouped convs other than depthwise, the int8
-datapath with depthwise convs (nn/config.py or the layers raise); under
-``fused``, input quantization outside the int8 datapath and uniform
-quantizers in the FP8 kernels.
+datapath with depthwise convs (nn/config.py or the layers raise).
 """
 
 from __future__ import annotations
@@ -73,9 +81,10 @@ from fp8_quantization_tpu_torch.ops import int8 as int8_ops
 from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
 from fp8_quantization_tpu_torch.ops.kernels import (
     qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8, qstem)
-from fp8_quantization_tpu_torch.ops.kernels.common import int_grid_unported
+from fp8_quantization_tpu_torch.ops.kernels.common import pack_act_consts
 from fp8_quantization_tpu_torch.ops.quantizer import QMethod
-from fp8_quantization_tpu_torch.ops.uniform import _scale_from_delta
+from fp8_quantization_tpu_torch.ops.uniform import (
+    _scale_from_delta, int_sym_consts)
 
 FUSED_ACTIVATIONS = (None, "relu", "relu6")
 
@@ -98,22 +107,12 @@ def factored_act_ok(cfg: LayerQuantConfig) -> bool:
             and cfg.act_quant.n_bits <= 8)
 
 
-def act_consts(quantizer: Quantizer) -> torch.Tensor:
-    """(6, 1) kernel constants of a per-tensor FP8 act quantizer; maxval is
-    floored at 1e-30 as the Pallas wrappers do."""
-    st = quantizer.state()
-    return fp8_consts(torch.clamp(st["maxval"], min=1e-30),
-                      st["mantissa_bits"], quantizer.spec.n_bits,
-                      st["sign_bits"])
-
-
 def out_quant(config: LayerQuantConfig, quantizer: Quantizer, quant_a: bool):
-    """(method, (6, 1) constants or None) of an output quantizer for the
-    kernels' epilogues: "fp8", or "none" when it does not quantize."""
+    """(method, (6, 1) constants or None) of an activation quantizer for the
+    kernels (``common.pack_act_consts``): "fp8" or "int_asym", or "none"
+    when it does not quantize."""
     if quant_a and config.quant_a:
-        if not config.act_quant.is_fp8:
-            raise int_grid_unported("an asymmetric output quantizer")
-        return "fp8", act_consts(quantizer)
+        return pack_act_consts(quantizer.spec, quantizer.state())
     return "none", None
 
 
@@ -303,24 +302,25 @@ class QuantizedLayerBase(nn.Module):
     def _baked(self, quant_w) -> bool:
         return not (quant_w and self.config.quant_w) and self.w_factor is not None
 
-    def _fused_ok(self, mode, train_bn, quant_w, quant_a) -> bool:
-        """Whether the FP8 kernels take this layer; raises for what they do
-        not carry yet, rather than falling through to another route."""
+    def _fused_ok(self, mode, train_bn) -> bool:
+        """Whether the kernels take this layer (JAX ``_pallas_supported``,
+        there lines 268-282): 'fused' in fixed mode, an activation they
+        apply, FP8 or symmetric-uniform weights and FP8 or per-tensor
+        asymmetric-uniform activations.  Asymmetric weights and symmetric
+        or per-channel activations take the bf16 path: JAX sends them to
+        its composed path, so that is the reference's route, not a
+        fallback that hides a kernel."""
         cfg = self.config
         if not (cfg.engine == "fused" and mode == "fixed" and not train_bn
                 and self.activation in FUSED_ACTIVATIONS):
             return False
-        if cfg.quantize_input and quant_a and cfg.quant_a:
-            raise NotImplementedError(
-                "engine='fused' with quantize_input outside the int8 "
-                "datapath: input quantization in the FP8 kernels is not "
-                "ported yet (ROADMAP.md, section B, item 10); the parity and "
-                "bf16 engines run it")
-        if ((quant_w and cfg.quant_w and not cfg.weight_quant.is_fp8)
-                or (quant_a and cfg.quant_a and not cfg.act_quant.is_fp8)):
-            raise int_grid_unported("engine='fused' with uniform quantizers "
-                                    "outside the int8 datapath")
-        return True
+        if cfg.quant_w and cfg.weight_quant.method not in (
+                QMethod.fp_quantizer, QMethod.symmetric_uniform):
+            return False
+        return not (cfg.quant_a and (
+            cfg.act_quant.method not in (QMethod.fp_quantizer,
+                                         QMethod.asymmetric_uniform)
+            or cfg.act_quant.per_channel))
 
     # ---- the int8 datapath (JAX nn/layers.py:629-727) ------------------------
 
@@ -425,16 +425,28 @@ class QuantizedLayerBase(nn.Module):
 
     def _fused_matmul(self, x2d, features, mode, quant_w, quant_a, x_factor,
                       out):
-        """The qmatmul kernel route (JAX ``_pallas_forward``)."""
+        """The qmatmul kernel route (JAX ``_pallas_forward``) for an (M, K)
+        input and its factor (None for a plain tensor).  Under
+        ``quantize_input`` the kernel quantizes the input, a ``Factored``
+        one materialized first (see the module docstring)."""
+        cfg = self.config
+        quant_in = cfg.quantize_input and quant_a and cfg.quant_a
+        if quant_in and x_factor is not None:
+            x2d, x_factor = factored.materialize(Factored(x2d, x_factor)), None
         w2d = self._kernel().reshape(features, -1)
-        if quant_w and self.config.quant_w:
-            _, wst = self.weight_q(w2d, mode=mode, out="state")
-            w_method, wop = "fp8", w2d.detach().contiguous()
-            w_c = fp8_consts(torch.broadcast_to(wst["maxval"].reshape(-1),
-                                                (features,)),
-                             wst["mantissa_bits"],
-                             self.config.weight_quant.n_bits, wst["sign_bits"])
-            w_factor = None          # applied in the kernel
+        if quant_w and cfg.quant_w:
+            wop, w_factor = w2d.detach().contiguous(), None  # factor in kernel
+            if cfg.weight_quant.is_fp8:
+                _, wst = self.weight_q(w2d, mode=mode, out="state")
+                w_method = "fp8"
+                w_c = fp8_consts(torch.broadcast_to(wst["maxval"].reshape(-1),
+                                                    (features,)),
+                                 wst["mantissa_bits"],
+                                 cfg.weight_quant.n_bits, wst["sign_bits"])
+            else:
+                w_method = "int_sym"
+                w_c = int_sym_consts(*self._int8_quant_state(),
+                                     cfg.weight_quant.n_bits)
         else:
             w_method, w_c = "none", None
             wop = self._operand("matmul", lambda w: w.reshape(features, -1)
@@ -442,11 +454,12 @@ class QuantizedLayerBase(nn.Module):
             w_factor = self.w_factor
         a_method, a_c = self._act_method(quant_a)
         scale, shift = self._fold(w_factor, x_factor)
-        emit = (out == "factored" and a_method != "none"
-                and factored_act_ok(self.config))
+        emit = (out == "factored" and a_method != "none" and not quant_in
+                and factored_act_ok(cfg))
         kcfg = qmatmul.FusedQuantMatmulConfig(
             weight_method=w_method, act_method=a_method,
-            activation=self.activation, emit_norm=emit)
+            quantize_input=cfg.quantize_input, activation=self.activation,
+            emit_norm=emit)
         y = qmatmul.fused_quant_matmul(x2d.contiguous(), wop, w_c, a_c,
                                        scale.contiguous(), shift.contiguous(),
                                        cfg=kcfg)
@@ -493,10 +506,12 @@ class QuantConv(QuantizedLayerBase):
         (the input's factor) folded in, the output quant (``stage_state``)
         and, for a 1x1 or depthwise 3x3 conv, the qblock weight operand
         ``w`` (``block_operand``).  None unless baked, and None under input
-        quantization, the int8 datapath or folded BN."""
+        quantization, the int8 datapath, folded BN or quantizers that the
+        kernels do not take (``_fused_ok``)."""
         cfg = self.config
         if (cfg.quantize_input or cfg.int8_mxu or self._folded()
-                or not self._baked(quant_w)):
+                or not self._baked(quant_w)
+                or not self._fused_ok("fixed", False)):
             return None
         scale, shift = self._fold(self.w_factor, x_factor)
         return dict(scale=scale, shift=shift, w=self.block_operand(),
@@ -524,9 +539,12 @@ class QuantConv(QuantizedLayerBase):
         x, x_factor = factored.split(x)
         k, s, p = self.kernel_size, self.stride, self.padding
         cin = x.shape[-1]
-        if self._fused_ok(mode, train_bn, quant_w, quant_a):
+        if self._fused_ok(mode, train_bn):
+            # the 3x3 and depthwise kernels take baked weights and quantize
+            # outputs only (JAX deploy_ok, there lines 901-903, 987)
+            deploy = self._baked(quant_w) and not self.config.quantize_input
             if self.depthwise:
-                if (k == 3 and p == 1 and s in (1, 2) and self._baked(quant_w)
+                if (k == 3 and p == 1 and s in (1, 2) and deploy
                         and cin >= 32
                         and (s == 1 or (x.shape[1] % 2 == 0
                                         and x.shape[2] % 2 == 0))):
@@ -539,7 +557,7 @@ class QuantConv(QuantizedLayerBase):
                 if isinstance(y, Factored):
                     return Factored(y.norm.reshape(n, h, w_, -1), y.factor)
                 return y.reshape(n, h, w_, -1)
-            if (k == 3 and p == 1 and s in (1, 2) and self._baked(quant_w)
+            if (k == 3 and p == 1 and s in (1, 2) and deploy
                     and cin % 8 == 0 and self.features % 8 == 0):
                 return self._fused_conv3x3(x, quant_a, x_factor, out)
 
@@ -641,7 +659,7 @@ class QuantLinear(QuantizedLayerBase):
             y = self._int8_matmul(x.reshape(-1, x.shape[-1]))
             return y.reshape(*x.shape[:-1], -1)
         x, x_factor = factored.split(x)
-        if self._fused_ok(mode, train_bn, quant_w, quant_a):
+        if self._fused_ok(mode, train_bn):
             lead = x.shape[:-1]
             y = self._fused_matmul(x.reshape(-1, x.shape[-1]), self.features,
                                    mode, quant_w, quant_a, x_factor, out)

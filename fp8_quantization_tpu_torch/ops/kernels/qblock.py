@@ -18,21 +18,23 @@ Numerics are the Pallas body's, stage by stage (``qblock_plain``):
 * the depthwise stage pads the *expanded* tensor with zeros (qblock.py:132):
   an input pixel outside the image is 0 after the expansion, not
   ``quant(relu6(shift1))``;
-* a stage whose method is "none" (the ``dw_bf16_acts`` preset) is a plain
-  bf16 cast, with no quant (qblock.py:123-125, 141-143);
+* each stage quantizes by its own method, "fp8" or "int_asym"; a stage
+  whose method is "none" (the ``dw_bf16_acts`` preset) is a plain bf16
+  cast, with no quant (qblock.py:69-80, 123-125, 141-143);
 * with a residual the project output is quantized at full scale, then
   ``x * x_factor`` is added, then the block quantizer runs
   (qblock.py:152-162);
 * the output is bf16 only when ``emit_norm`` holds and the final stage
   quantizes (qblock.py:232-235), float32 otherwise.
 
-The quantizers arrive as one ``(6, 4)`` constant tensor from
-``ops/fp8.fp8_consts`` (columns: expand, dw, project, block; maxval floored
-at 1e-30 and mbits rounded and clipped there, the Pallas wrapper's
-``_precondition_scalars``).  The kernel's project sum runs over chunks, so
-it is not bit-exact against the plain version's single fp32 matmul: it is
-held as the FP8 kernels are, >= 99% exactly equal and the rest within one
-grid step.  The TPU knobs (``imgs_per_block``, the VMEM limit) do not carry
+The quantizers arrive as one ``(6, 4)`` constant tensor (columns: expand,
+dw, project, block), each column from ``ops/fp8.fp8_consts`` (maxval
+floored at 1e-30 and mbits rounded and clipped there, the Pallas wrapper's
+``_precondition_scalars``, which touches only the fp8 rows) or
+``ops/uniform.int_asym_consts``.  The kernel's project sum runs over
+chunks, so it is not bit-exact against the plain version's single fp32
+matmul: it is held as the fused kernels are, >= 99% exactly equal and the
+rest within one grid step.  The TPU knobs (``imgs_per_block``, the VMEM limit) do not carry
 over.
 """
 
@@ -43,10 +45,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from fp8_quantization_tpu_torch.ops.fp8 import fp8_quantize_prepared
 from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import (
-    check_methods, on_card, require, stream_ptr)
+    QUANT_CODES, check_methods, on_card, quantize_prepared, require,
+    stream_ptr)
 from fp8_quantization_tpu_torch.ops.kernels.qdwconv import dw_taps_sum, out_hw
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qblock.py:82"
@@ -59,7 +61,8 @@ class FusedBlockConfig:
     stride: int = 1                     # the depthwise stride, 1 or 2
     use_res: bool = False               # residual add + block quant
     emit_norm: bool = False             # final output as normalized bf16
-    # output quant per stage (expand, dw, project, block): "fp8" | "none"
+    # output quant per stage (expand, dw, project, block): "fp8" |
+    # "int_asym" | "none"
     methods: Tuple[str, str, str, str] = ("fp8", "fp8", "fp8", "fp8")
 
     def __post_init__(self):
@@ -81,10 +84,8 @@ class FusedBlockConfig:
 
 def _stage_quant(y, a_consts, cfg: FusedBlockConfig, row: int,
                  normalized: bool):
-    if cfg.methods[row] == "none":
-        return y
-    return fp8_quantize_prepared(y, a_consts[:, row:row + 1],
-                                 normalized=normalized)
+    return quantize_prepared(y, cfg.methods[row], a_consts[:, row:row + 1],
+                             normalized=normalized)
 
 
 def _relu6(y):
@@ -184,7 +185,8 @@ def fused_inverted_residual(x: torch.Tensor, w1: Optional[torch.Tensor],
     ho, wo = out_hw(h, w, cfg.stride)
     out = torch.empty((n, ho, wo, cout), device=x.device,
                       dtype=torch.bfloat16 if cfg.out_bf16 else torch.float32)
-    methods = sum(1 << r for r, m in enumerate(cfg.methods) if m == "fp8")
+    # two bits per stage, stage r at bit 2r (csrc/qblock.cu)
+    methods = sum(QUANT_CODES[m] << (2 * r) for r, m in enumerate(cfg.methods))
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = build.entry("qblock")(
         x.data_ptr(), ptr(w1), wd.data_ptr(), w2.data_ptr(),

@@ -9,11 +9,12 @@ N = Cout, with SAME padding as a bounds mask and stride 2 as index
 arithmetic.
 
 Semantics carried over: ``act_method``, ``activation``, ``residual``,
-``emit_norm`` and ``stride``.  The input is a factored bf16 norm; the
-weights are baked normalized values laid out once, at bake time, as a
-``(9*Cin, Cout)`` bf16 matrix (``weight_matrix``).  The TPU knobs
-(``imgs_per_block``, ``im2col``, the phase split, the VMEM limit) do not
-carry over; the int8 body waits for the INT8 slice.
+``emit_norm`` and ``stride``; the output quant is FP8 or int_asym.  The
+input is a factored bf16 norm; the weights are baked normalized values
+laid out once, at bake time, as a ``(9*Cin, Cout)`` bf16 matrix
+(``weight_matrix``).  The TPU knobs (``imgs_per_block``, ``im2col``, the
+phase split, the VMEM limit) do not carry over; the int8 body is
+``ops/kernels/qconv_int8``.
 
 On the card the early layers are bound by bytes and the late ones by
 operations (see the note in csrc/qconv.cu).
@@ -28,18 +29,18 @@ import torch
 import torch.nn.functional as F
 
 from fp8_quantization_tpu_torch.nn.activations import get_activation
-from fp8_quantization_tpu_torch.ops.fp8 import fp8_quantize_prepared
 from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import (
-    ACTIVATION_CODES, check_methods, consts_or_dummy, on_card, require,
-    stream_ptr)
+    ACTIVATION_CODES, QUANT_CODES, check_methods, consts_or_dummy, on_card,
+    quantize_prepared, require, stream_ptr)
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qconv.py:130"
 
 
 @dataclasses.dataclass(frozen=True)
 class FusedConvConfig:
-    act_method: str = "none"            # output quantizer: "fp8" | "none"
+    act_method: str = "none"            # output quantizer: "fp8" |
+                                        # "int_asym" | "none"
     activation: Optional[str] = None    # None | "relu" | "relu6"
     residual: bool = False              # add a residual after scale/shift
     emit_norm: bool = False             # store the normalized bf16 value
@@ -81,8 +82,7 @@ def qconv3x3_plain(x: torch.Tensor, w: torch.Tensor, a_consts,
     act = get_activation(cfg.activation)
     if act is not None:
         y = act(y)
-    if cfg.act_method == "fp8":
-        y = fp8_quantize_prepared(y, a_consts, normalized=cfg.emit_norm)
+    y = quantize_prepared(y, cfg.act_method, a_consts, normalized=cfg.emit_norm)
     return y.to(torch.bfloat16 if cfg.emit_norm else torch.float32).contiguous()
 
 
@@ -114,13 +114,13 @@ def fused_quant_conv3x3(x: torch.Tensor, w: torch.Tensor,
     extra = [t for t in (a_consts, residual) if t is not None]
     if not on_card(x, w, scale, shift, *extra):
         return qconv3x3_plain(x, w, a_consts, scale, shift, residual, cfg)
-    af8 = cfg.act_method == "fp8"
-    if af8 and a_consts is None:
-        raise ValueError("act_method='fp8' needs a_consts")
+    aq = cfg.act_method != "none"
+    if aq and a_consts is None:
+        raise ValueError(f"act_method={cfg.act_method!r} needs a_consts")
     if cin % 8 or cout % 8:
         raise ValueError(f"the conv kernel needs Cin and Cout divisible by 8, "
                          f"got {cin}, {cout}")
-    a_consts = consts_or_dummy(a_consts if af8 else None, x)
+    a_consts = consts_or_dummy(a_consts if aq else None, x)
     require(x, "x", (torch.bfloat16,), vector_loads=True)
     require(w, "w", (torch.bfloat16,), vector_loads=True)
     require(a_consts, "a_consts", (torch.float32,), (6, 1))
@@ -132,7 +132,8 @@ def fused_quant_conv3x3(x: torch.Tensor, w: torch.Tensor,
         x.data_ptr(), w.data_ptr(), a_consts.data_ptr(), scale.data_ptr(),
         shift.data_ptr(), residual.data_ptr() if residual is not None else None,
         int(residual is not None and residual.dtype == torch.bfloat16),
-        out.data_ptr(), n, h, wd, cin, cout, cfg.stride, int(af8),
+        out.data_ptr(), n, h, wd, cin, cout, cfg.stride,
+        QUANT_CODES[cfg.act_method],
         ACTIVATION_CODES[cfg.activation], int(cfg.emit_norm), stream_ptr(x))
     build.check(err, "qconv3x3")
     fused_quant_conv3x3.launches += 1

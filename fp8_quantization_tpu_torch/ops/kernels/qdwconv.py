@@ -10,7 +10,8 @@ row-major order, SAME padding as a bounds mask (an out-of-image tap reads
 (about 18 operations for every 4 bytes it moves, see the note in the
 source).
 
-Semantics carried over: ``act_method``, ``activation`` and ``emit_norm``.
+Semantics carried over: ``act_method`` (FP8 or int_asym), ``activation``
+and ``emit_norm``.
 The input is a factored bf16 norm (or a bf16 value); the weights are the
 baked normalized taps as a ``(3, 3, C)`` float32 tensor (bf16-exact
 values, ``weight_taps``).  Every tap product of a bf16 input and a
@@ -28,18 +29,18 @@ import torch
 import torch.nn.functional as F
 
 from fp8_quantization_tpu_torch.nn.activations import get_activation
-from fp8_quantization_tpu_torch.ops.fp8 import fp8_quantize_prepared
 from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import (
-    ACTIVATION_CODES, check_methods, consts_or_dummy, on_card, require,
-    stream_ptr)
+    ACTIVATION_CODES, QUANT_CODES, check_methods, consts_or_dummy, on_card,
+    quantize_prepared, require, stream_ptr)
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qconv.py:183"
 
 
 @dataclasses.dataclass(frozen=True)
 class DwConvConfig:
-    act_method: str = "none"            # output quantizer: "fp8" | "none"
+    act_method: str = "none"            # output quantizer: "fp8" |
+                                        # "int_asym" | "none"
     activation: Optional[str] = None    # None | "relu" | "relu6"
     emit_norm: bool = False             # store the normalized bf16 value
     stride: int = 1                     # 1 or 2
@@ -92,8 +93,7 @@ def qdwconv3x3_plain(x: torch.Tensor, w: torch.Tensor, a_consts,
     act = get_activation(cfg.activation)
     if act is not None:
         y = act(y)
-    if cfg.act_method == "fp8":
-        y = fp8_quantize_prepared(y, a_consts, normalized=cfg.emit_norm)
+    y = quantize_prepared(y, cfg.act_method, a_consts, normalized=cfg.emit_norm)
     return y.to(torch.bfloat16 if cfg.emit_norm else torch.float32).contiguous()
 
 
@@ -112,10 +112,10 @@ def fused_quant_dwconv3x3(x: torch.Tensor, w: torch.Tensor,
     extra = [t for t in (a_consts,) if t is not None]
     if not on_card(x, w, scale, shift, *extra):
         return qdwconv3x3_plain(x, w, a_consts, scale, shift, cfg)
-    af8 = cfg.act_method == "fp8"
-    if af8 and a_consts is None:
-        raise ValueError("act_method='fp8' needs a_consts")
-    a_consts = consts_or_dummy(a_consts if af8 else None, x)
+    aq = cfg.act_method != "none"
+    if aq and a_consts is None:
+        raise ValueError(f"act_method={cfg.act_method!r} needs a_consts")
+    a_consts = consts_or_dummy(a_consts if aq else None, x)
     require(x, "x", (torch.bfloat16,), vector_loads=True)
     require(w, "w", (torch.float32,), (3, 3, c))
     require(a_consts, "a_consts", (torch.float32,), (6, 1))
@@ -126,7 +126,8 @@ def fused_quant_dwconv3x3(x: torch.Tensor, w: torch.Tensor,
                       dtype=torch.bfloat16 if cfg.emit_norm else torch.float32)
     err = build.entry("qdwconv")(
         x.data_ptr(), w.data_ptr(), a_consts.data_ptr(), scale.data_ptr(),
-        shift.data_ptr(), out.data_ptr(), n, h, wd, c, cfg.stride, int(af8),
+        shift.data_ptr(), out.data_ptr(), n, h, wd, c, cfg.stride,
+        QUANT_CODES[cfg.act_method],
         ACTIVATION_CODES[cfg.activation], int(cfg.emit_norm), stream_ptr(x))
     build.check(err, "qdwconv3x3")
     fused_quant_dwconv3x3.launches += 1

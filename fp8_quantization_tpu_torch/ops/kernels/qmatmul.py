@@ -1,21 +1,26 @@
-"""Fused quant-matmul: ``y = epilogue(fq(x) @ fq(w)^T)``.
+"""Fused quant-matmul: ``y = epilogue(q(x) @ q(w)^T)``.
 
 Mirrors ``fused_quant_matmul`` of ``fp8_quantization_tpu/ops/pallas/
 qmatmul.py`` (Pallas body ``_qmatmul_kernel``, line 145; ``pallas_call`` at
 line 389).  The kernel is ``csrc/qmatmul.cu``.
 
-Semantics carried over: ``weight_method`` ("fp8": w is raw float32 and is
-FP8-quantized per output channel in the kernel; "none": w is already on the
-normalized grid), ``act_method``, ``quantize_input``, ``activation`` and
-``emit_norm``.  Operands enter the product as bf16 on the normalized grid
-with fp32 sums; the epilogue multiplies the channel factors back in, then
-``y*scale + shift``, relu/relu6 and the optional output FP8 quant.  The TPU
-tiling knobs (block sizes, VMEM limit) do not carry over; the int_sym /
-int_asym branches and the int8 body wait for the INT8 slice.
+Semantics carried over: ``weight_method`` ("fp8" or "int_sym": w is raw
+float32 and is quantized per output channel in the kernel, int_sym on the
+calibrated signed or unsigned grid; "none": w is already on the normalized
+grid), ``act_method`` ("fp8" | "int_asym" | "none"), ``quantize_input``
+(the act quantizer quantizes x while it is staged; else it quantizes the
+output), ``activation`` and ``emit_norm``.  Operands enter the product as
+bf16 on the normalized grid with fp32 sums; the epilogue multiplies the
+in-kernel weight factor and the input's factor back in, then ``y*scale +
+shift``, relu/relu6 and the optional output quant.  The TPU tiling knobs
+(block sizes, VMEM limit) do not carry over; ``mxu_dtype="float32"`` (a
+parity debugging mode) is not ported, and the int8 body is
+``ops/kernels/qmatmul_int8``.
 
 Differences from the JAX signature: ``w`` is ``(N, K)`` (torch's Linear
 layout, the kernel reads it as the column-major B operand) and the
-quantizers arrive as ``(6, C)`` constants from ``ops/fp8.fp8_consts``.
+quantizers arrive as ``(6, C)`` constants from ``ops/fp8.fp8_consts`` or
+``ops/uniform.int_asym_consts`` / ``int_sym_consts``.
 
 On the card the kernel is bound by bytes and launch latency at ResNet-18's
 shapes (see the note in csrc/qmatmul.cu).
@@ -28,11 +33,10 @@ from typing import Optional
 
 import torch
 
-from fp8_quantization_tpu_torch.ops.fp8 import fp8_quantize_prepared
 from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import (
-    ACTIVATION_CODES, check_methods, consts_or_dummy, on_card, require,
-    stream_ptr)
+    ACTIVATION_CODES, QUANT_CODES, check_methods, consts_or_dummy, on_card,
+    quantize_prepared, require, stream_ptr)
 from fp8_quantization_tpu_torch.nn.activations import get_activation
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qmatmul.py:145"
@@ -40,8 +44,9 @@ REPLACES = "fp8_quantization_tpu/ops/pallas/qmatmul.py:145"
 
 @dataclasses.dataclass(frozen=True)
 class FusedQuantMatmulConfig:
-    weight_method: str = "fp8"          # "fp8" | "none"
-    act_method: str = "none"            # "fp8" | "none": x-in or y-out quant
+    weight_method: str = "fp8"          # "fp8" | "int_sym" | "none"
+    act_method: str = "none"            # "fp8" | "int_asym" | "none":
+                                        # x-in or y-out quant
     quantize_input: bool = False        # True: quantize x; False: quantize y
     activation: Optional[str] = None    # None | "relu" | "relu6"
     emit_norm: bool = False             # store the normalized bf16 value
@@ -57,24 +62,24 @@ def qmatmul_plain(x: torch.Tensor, w: torch.Tensor, w_consts, a_consts,
                   cfg: FusedQuantMatmulConfig) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch (CPU tests, card reference).
     On the card call it under ``common.no_tf32()``."""
-    xf = x.to(torch.float32)
-    if cfg.quantize_input and cfg.act_method == "fp8":
-        xf = fp8_quantize_prepared(xf, a_consts, normalized=True)
-    wf = w.to(torch.float32)
-    if cfg.weight_method == "fp8":
-        wf = fp8_quantize_prepared(wf, w_consts, channel_axis=0, normalized=True)
+    x_method = cfg.act_method if cfg.quantize_input else "none"
+    xf = quantize_prepared(x.to(torch.float32), x_method, a_consts,
+                           normalized=True)
+    wf = quantize_prepared(w.to(torch.float32), cfg.weight_method, w_consts,
+                           channel_axis=0, normalized=True)
     y = (xf.to(torch.bfloat16).to(torch.float32)
          @ wf.to(torch.bfloat16).to(torch.float32).t())
-    if cfg.weight_method == "fp8":
+    if cfg.weight_method != "none":
         y = y * w_consts[5]
-    if cfg.quantize_input and cfg.act_method == "fp8":
+    if x_method != "none":
         y = y * a_consts[5, 0]
     y = y * scale + shift
     act = get_activation(cfg.activation)
     if act is not None:
         y = act(y)
-    if cfg.act_method == "fp8" and not cfg.quantize_input:
-        y = fp8_quantize_prepared(y, a_consts, normalized=cfg.emit_norm)
+    if not cfg.quantize_input:
+        y = quantize_prepared(y, cfg.act_method, a_consts,
+                              normalized=cfg.emit_norm)
     return y.to(torch.bfloat16 if cfg.emit_norm else torch.float32)
 
 
@@ -83,13 +88,15 @@ def fused_quant_matmul(x: torch.Tensor, w: torch.Tensor,
                        a_consts: Optional[torch.Tensor],
                        scale: torch.Tensor, shift: torch.Tensor, *,
                        cfg: FusedQuantMatmulConfig) -> torch.Tensor:
-    """y (M, N) = epilogue(fq(x) @ fq(w)^T).
+    """y (M, N) = epilogue(q(x) @ q(w)^T).
 
     Args:
       x: (M, K) float32 or bf16.
-      w: (N, K) float32 (weight_method "fp8") or bf16 normalized grid.
-      w_consts: (6, N) per-channel weight quantizer constants ("fp8").
-      a_consts: (6, 1) activation quantizer constants (act_method "fp8").
+      w: (N, K) float32 (weight_method "fp8" / "int_sym") or bf16
+        normalized grid ("none").
+      w_consts: (6, N) per-channel weight quantizer constants.
+      a_consts: (6, 1) activation quantizer constants (act_method "fp8" /
+        "int_asym"), for x under ``cfg.quantize_input``, else for y.
       scale, shift: (N,) float32 epilogue ``y*scale + shift``.
     Returns float32, or bf16 normalized values with ``cfg.emit_norm``.
     CPU tensors take ``qmatmul_plain``; CUDA tensors launch the kernel.
@@ -101,16 +108,16 @@ def fused_quant_matmul(x: torch.Tensor, w: torch.Tensor,
     extra = [t for t in (w_consts, a_consts) if t is not None]
     if not on_card(x, w, scale, shift, *extra):
         return qmatmul_plain(x, w, w_consts, a_consts, scale, shift, cfg)
-    wf8 = cfg.weight_method == "fp8"
-    af8 = cfg.act_method == "fp8"
-    if wf8 and w_consts is None or af8 and a_consts is None:
-        raise ValueError("fp8 methods need their quantizer constants")
-    w_consts = consts_or_dummy(w_consts if wf8 else None, x)
-    a_consts = consts_or_dummy(a_consts if af8 else None, x)
+    wq = cfg.weight_method != "none"
+    aq = cfg.act_method != "none"
+    if wq and w_consts is None or aq and a_consts is None:
+        raise ValueError("quantizing methods need their quantizer constants")
+    w_consts = consts_or_dummy(w_consts if wq else None, x)
+    a_consts = consts_or_dummy(a_consts if aq else None, x)
     fp = (torch.float32, torch.bfloat16)
     require(x, "x", fp)
-    require(w, "w", (torch.float32,) if wf8 else (torch.bfloat16,))
-    require(w_consts, "w_consts", (torch.float32,), (6, N) if wf8 else (6, 1))
+    require(w, "w", (torch.float32,) if wq else (torch.bfloat16,))
+    require(w_consts, "w_consts", (torch.float32,), (6, N) if wq else (6, 1))
     require(a_consts, "a_consts", (torch.float32,), (6, 1))
     require(scale, "scale", (torch.float32,), (N,))
     require(shift, "shift", (torch.float32,), (N,))
@@ -120,7 +127,8 @@ def fused_quant_matmul(x: torch.Tensor, w: torch.Tensor,
         x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
         int(w.dtype == torch.bfloat16), w_consts.data_ptr(),
         a_consts.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        out.data_ptr(), M, N, K, int(wf8), int(af8), int(cfg.quantize_input),
+        out.data_ptr(), M, N, K, QUANT_CODES[cfg.weight_method],
+        QUANT_CODES[cfg.act_method], int(cfg.quantize_input),
         ACTIVATION_CODES[cfg.activation], int(cfg.emit_norm), stream_ptr(x))
     build.check(err, "qmatmul")
     fused_quant_matmul.launches += 1

@@ -8,13 +8,13 @@ recomputes the conv rows and columns its pooling windows read (a halo),
 instead of the Pallas band loop with its carried row.  The input is cast
 to bf16 inside the kernel as it loads and cin = 3 is read directly (the
 ``k_pad`` lane padding and the plane-building prologue are TPU artefacts).
-The pool runs before the quant: FP8 quantization is monotone, so this is
-exactly the model's quant-then-pool order.
+The pool runs before the quant: FP8 and integer quantization are
+monotone, so this is exactly the model's quant-then-pool order.
 
-Semantics carried over: ``act_method`` and ``emit_norm``; the activation is
-relu (zero pool padding is exact after relu).  ``imgs_per_block``,
-``k_pad``, ``band_rows`` and the VMEM limit do not carry over; int_asym
-waits for the INT8 slice.
+Semantics carried over: ``act_method`` (FP8 or int_asym) and
+``emit_norm``; the activation is relu (zero pool padding is exact after
+relu).  ``imgs_per_block``, ``k_pad``, ``band_rows`` and the VMEM limit do
+not carry over.
 
 On the card it is bound by operations (see the note in csrc/qstem.cu).
 """
@@ -27,10 +27,10 @@ import torch
 import torch.nn.functional as F
 
 from fp8_quantization_tpu_torch.nn.factored import max_pool_nhwc
-from fp8_quantization_tpu_torch.ops.fp8 import fp8_quantize_prepared
 from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import (
-    check_methods, consts_or_dummy, on_card, require, stream_ptr)
+    QUANT_CODES, check_methods, consts_or_dummy, on_card, quantize_prepared,
+    require, stream_ptr)
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qstem.py:88"
 COUT = 64          # the kernel is written for the ResNet stem's width
@@ -38,7 +38,8 @@ COUT = 64          # the kernel is written for the ResNet stem's width
 
 @dataclasses.dataclass(frozen=True)
 class FusedStemConfig:
-    act_method: str = "fp8"        # output quantizer: "fp8" | "none"
+    act_method: str = "fp8"        # output quantizer: "fp8" | "int_asym"
+                                   # | "none"
     emit_norm: bool = False        # store the normalized bf16 value
 
     def __post_init__(self):
@@ -74,8 +75,7 @@ def qstem_plain(x: torch.Tensor, w: torch.Tensor, a_consts,
     y = F.conv2d(xb, wk, stride=2, padding=3).permute(0, 2, 3, 1)
     y = torch.relu(y * scale + shift)
     y = max_pool_nhwc(y, 3, 2, 1)
-    if cfg.act_method == "fp8":
-        y = fp8_quantize_prepared(y, a_consts, normalized=cfg.emit_norm)
+    y = quantize_prepared(y, cfg.act_method, a_consts, normalized=cfg.emit_norm)
     return y.to(torch.bfloat16 if cfg.emit_norm else torch.float32).contiguous()
 
 
@@ -98,10 +98,10 @@ def fused_quant_stem(x: torch.Tensor, w: torch.Tensor, a_consts,
     if w.shape[1] != COUT or cin > 4:
         raise ValueError(f"the stem kernel takes Cout = {COUT} and cin <= 4, "
                          f"got {w.shape[1]}, {cin}")
-    af8 = cfg.act_method == "fp8"
-    if af8 and a_consts is None:
-        raise ValueError("act_method='fp8' needs a_consts")
-    a_consts = consts_or_dummy(a_consts if af8 else None, x)
+    aq = cfg.act_method != "none"
+    if aq and a_consts is None:
+        raise ValueError(f"act_method={cfg.act_method!r} needs a_consts")
+    a_consts = consts_or_dummy(a_consts if aq else None, x)
     require(x, "x", (torch.float32, torch.bfloat16))
     require(w, "w", (torch.bfloat16,), vector_loads=True)
     require(a_consts, "a_consts", (torch.float32,), (6, 1))
@@ -113,7 +113,8 @@ def fused_quant_stem(x: torch.Tensor, w: torch.Tensor, a_consts,
     err = build.entry("qstem")(
         x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(), kp,
         a_consts.data_ptr(), scale.data_ptr(), shift.data_ptr(),
-        out.data_ptr(), n, s, cin, int(af8), int(cfg.emit_norm), stream_ptr(x))
+        out.data_ptr(), n, s, cin, QUANT_CODES[cfg.act_method],
+        int(cfg.emit_norm), stream_ptr(x))
     build.check(err, "qstem")
     fused_quant_stem.launches += 1
     return out

@@ -6,6 +6,12 @@ Mirrors ``fp8_quantization_tpu/ops/uniform.py`` (lines 22-134):
 gradient), ``tensorize_min_max`` and the two ``set_quant_range`` functions.
 ``delta`` / ``zero_float`` must already broadcast against ``x``.
 
+``int_asym_consts`` / ``int_sym_consts`` / ``int_quantize_prepared`` freeze
+a fixed quantizer into the ``(6, C)`` constant tensor that the CUDA kernels
+read (see ``csrc/fq_epilogue.cuh``), as ``ops/fp8.fp8_consts`` does for FP8:
+the arithmetic of the Pallas tiles ``_int_asym_quantize_tile`` and
+``_int_sym_quantize_tile`` (JAX ``ops/pallas/qmatmul.py:107-142``).
+
 Clipping is ``torch.minimum(torch.maximum(x, lo), hi)`` on tensors, as
 ``jnp.clip`` is: both split the gradient in half on a tie with a bound, so
 the gradient w.r.t. x is bit-exact too.  The LSQ gradient scaling
@@ -113,3 +119,64 @@ def symmetric_set_quant_range(x_min, x_max, n_bits: int, *,
     if scale_domain == "log":
         delta = torch.log(delta)
     return delta, signed
+
+
+# Row order of the (6, C) constants of an integer quantizer that the kernels
+# read; keep in step with csrc/fq_epilogue.cuh.  Row 5 is the normalized
+# grid's factor, as in ops/fp8.FP8_CONST_ROWS.
+INT_CONST_ROWS = ("delta", "zero_point", "int_min", "int_max", "unused",
+                  "factor")
+
+
+def _int_rows(delta, zp, lo, hi, factor) -> torch.Tensor:
+    delta = delta.reshape(-1)
+    rows = [delta, zp, lo, hi, torch.zeros_like(delta), factor]
+    return torch.stack([torch.as_tensor(r, dtype=torch.float32,
+                                        device=delta.device).expand_as(delta)
+                        for r in rows]).contiguous()
+
+
+def int_asym_consts(scale: torch.Tensor, zero_float: torch.Tensor,
+                    n_bits: int) -> torch.Tensor:
+    """(6, 1) constants (rows as in ``INT_CONST_ROWS``) of a fixed
+    per-tensor asymmetric quantizer from its scale (``_scale_from_delta`` of its delta) and ``zero_float``: the step
+    floored at 1e-8 and the zero point clip(round(zero_float), 0, 2^n - 1),
+    as ``_int_asym_quantize_tile`` computes them; the factor of its
+    normalized output is the scale itself (JAX ``_act_factor``)."""
+    scale = torch.as_tensor(scale, dtype=torch.float32).reshape(1)
+    lo, hi = asymmetric_int_bounds(n_bits)
+    zp = _clip(torch.round(torch.as_tensor(zero_float, dtype=torch.float32,
+                                           device=scale.device).reshape(1)),
+               lo, hi)
+    return _int_rows(torch.clamp(scale, min=_EPS), zp, lo, hi, scale)
+
+
+def int_sym_consts(scale: torch.Tensor, signed, n_bits: int) -> torch.Tensor:
+    """(6, C) constants of a fixed (per-channel) symmetric quantizer from its
+    scale and its 0/1 ``signed``: the step floored at 1e-8, zero point 0,
+    the signed or unsigned grid; the factor is the floored step (the Pallas
+    epilogue's ``max(delta, 1e-8)``)."""
+    scale = torch.as_tensor(scale, dtype=torch.float32).reshape(-1)
+    lo, hi = symmetric_int_bounds(n_bits, signed)
+    delta = torch.clamp(scale, min=_EPS)
+    return _int_rows(delta, 0.0, lo.to(delta.device), hi.to(delta.device),
+                     delta)
+
+
+def int_quantize_prepared(x: torch.Tensor, c: torch.Tensor, *,
+                          channel_axis: int = -1,
+                          normalized: bool = False) -> torch.Tensor:
+    """Fixed uniform fake-quant of float32 ``x`` from ``int_asym_consts`` /
+    ``int_sym_consts`` output ``c`` (per channel along ``channel_axis`` when
+    ``c`` has C > 1 columns): ``xint = clip(round(x / delta) + zp, lo, hi)``,
+    then ``xint - zp`` (normalized) or ``(xint - zp) * delta``.  The plain
+    version of the kernels' ``int_quantize`` device function."""
+    if c.shape[1] > 1:
+        shape = [1] * x.ndim
+        shape[channel_axis] = c.shape[1]
+        delta, zp, lo, hi = (r.reshape(shape) for r in c[:4])
+    else:
+        delta, zp, lo, hi = c[:4, 0]
+    xi = torch.minimum(torch.maximum(torch.round(x / delta) + zp, lo), hi)
+    q = xi - zp
+    return q if normalized else q * delta

@@ -151,8 +151,10 @@ def test_qstem_plain_matches_pallas(s, emit):
 
 def test_wrappers_take_plain_version_on_cpu_and_reject_int8():
     """CPU tensors never reach a kernel (the launch counts stay put); the
-    integer grids of the FP8/bf16 bodies raise until they are ported (the
-    int8 datapath has kernels of its own, tests/test_torch_int8.py)."""
+    configs take the Pallas bodies' integer methods (int_sym weights,
+    int_asym activations, tests/test_torch_int_grids.py) and reject any
+    other method (the int8 datapath has kernels of its own,
+    tests/test_torch_int8.py)."""
     before = (qmatmul.fused_quant_matmul.launches,
               qconv.fused_quant_conv3x3.launches,
               qstem.fused_quant_stem.launches)
@@ -160,7 +162,11 @@ def test_wrappers_take_plain_version_on_cpu_and_reject_int8():
     assert (qmatmul.fused_quant_matmul.launches,
             qconv.fused_quant_conv3x3.launches,
             qstem.fused_quant_stem.launches) == before
-    with pytest.raises(NotImplementedError, match="integer grids"):
-        qmatmul.FusedQuantMatmulConfig(weight_method="int_sym")
-    with pytest.raises(NotImplementedError, match="integer grids"):
-        qconv.FusedConvConfig(act_method="int_asym")
+    qmatmul.FusedQuantMatmulConfig(weight_method="int_sym",
+                                   act_method="int_asym", quantize_input=True)
+    qconv.FusedConvConfig(act_method="int_asym")
+    qstem.FusedStemConfig(act_method="int_asym")
+    with pytest.raises(ValueError, match="weight_method"):
+        qmatmul.FusedQuantMatmulConfig(weight_method="int_asym")
+    with pytest.raises(ValueError, match="act_method"):
+        qconv.FusedConvConfig(act_method="int_sym")
