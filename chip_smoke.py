@@ -17,7 +17,9 @@ without the final result line):
 2. check      - each FP8 kernel against its plain PyTorch version on the
                 card at the main path's shapes, batch 64: qmatmul at the
                 three downsample shapes, the fc and one in-kernel FP8-weight
-                case; qconv3x3 at ResNet-18's seven 3x3 shapes plus one
+                case, and at the edges of its 128 x BN x 64 tiling (M =
+                1,000 and 12,608, K = 72 and 1,000, N = 16 and 24, float32
+                and bf16 x); qconv3x3 at ResNet-18's seven 3x3 shapes plus one
                 residual case; qstem at (64, 224, 224, 3).  Holds if >= 99%
                 of elements are exact and the rest within one FP8 grid step
                 (the kernel sums in another order than cuDNN/cuBLAS in fp32).
@@ -25,12 +27,17 @@ without the final result line):
                 sums in float64): qmatmul_int8 at the three downsample shapes
                 and the fc with baked int8 weights, plus one in-kernel-weight
                 and one unsigned-grid case; qconv3x3_int8 at the seven 3x3
-                shapes, baked, plus one in-kernel-weight and one
-                unsigned-grid case.  Holds if >= 99% of elements are exact
-                and all within rtol = atol = 2e-5.  library_ms times
-                torch._int_mm on the s8 operands (for the conv, on a
-                prebuilt s8 im2col matrix: PyTorch has no int8 convolution
-                on CUDA, so it times the product alone).
+                shapes, baked, plus in-kernel and unsigned weights and the
+                edges of its tiling (H = 15 at stride 2, 7x7 with in-kernel
+                unsigned weights, Cin = 16, Cout = 80).  Holds if >= 99% of
+                elements are exact and all within rtol = atol = 2e-5.
+                library_ms times torch._int_mm on the s8 operands (for the
+                conv, on a prebuilt s8 im2col matrix: PyTorch has no int8
+                convolution on CUDA, so it times the product alone).
+   batch256   - qmatmul (downsamples and fc) and qconv3x3_int8 (the seven
+                3x3 shapes) at ResNet-18's shapes at batch 256, checked as
+                in phases 2 and 3, timed warm and cold, with sums per
+                forward.
 4. slice      - the FP8 main path as a user runs it: validate-quantized
                 through the CLI's entry point (cli/image_net.
                 validate_quantized) on ResNet-18 at full width with random
@@ -51,12 +58,16 @@ without the final result line):
                 >= 98% of logits within rtol = atol = 1e-3 (an input-quant
                 bin flip from one float ulp upstream moves a few).
 6. timing     - per kernel, summed over one ResNet-18 forward at batch 64:
-                CUDA-event ms of the kernel, of its plain version, of one
+                device ms (kernel_ms: CUDA events, the calls enqueued while
+                the card spins, so no host time) of the kernel, of its
+                plain version, of one
                 PyTorch call computing the same function (library_ms: bf16
                 channels-last F.conv2d, torch.matmul, F.conv2d +
                 max_pool2d, torch._int_mm) and the bound max(bytes / 3.35
                 TB/s, operations / peak: 989 TFLOP/s bf16, 1,979 TOP/s
-                int8); images/s of FP8 'fused' against 'bf16' at batch 64
+                int8); for qmatmul and qconv3x3_int8 also ms_cold, with
+                the L2 cache flushed by a 64 MB write before each call
+                (cold_ms); images/s of FP8 'fused' against 'bf16' at batch 64
                 and 256, timed in turns (fused, bf16, bf16, fused, ...),
                 each turn's ms listed and images/s from their median; and
                 images/s of INT8 'fused' at batch 64 and 256.
@@ -116,22 +127,26 @@ without the final result line):
                 and 4*B*H*S^2*D tensor-core operations; library_ms:
                 F.scaled_dot_product_attention on contiguous bf16
                 (B, H, S, D).  Then the forward's four qmatmul calls (qkv,
-                proj, mlp2: 12 uses each; the head: 1) against
-                qmatmul_plain as in phase 2, timed as in phase 6, with
-                their sums per ViT forward (the kernels line's qmatmul row
-                stays ResNet-18's forward).
+                proj, mlp2: 12 uses each; the head: 1) and two edge calls
+                at the ViT's M (K = 72, N = 16; K = 1,000, N = 24 with
+                float32 x, input quant and in-kernel weights) against
+                qmatmul_plain as in phase 2, timed warm and cold as in
+                phase 6, with their sums per ViT forward (the kernels
+                line's qmatmul row stays ResNet-18's forward).
 10. int_*     - the integer branches of the FP8/bf16 kernels and input
                 quantization in qmatmul.  int_check: as phase 2 on the
                 integer grids (int_asym output quant, baked int_sym
                 weights): qstem, qconv3x3 at the seven 3x3 shapes plus a
                 residual case, qmatmul at the three downsamples and the fc,
                 plus in-kernel int_sym weights (signed; unsigned on the
-                [0, 255] grid); >= 99% exact, the rest within one integer
-                step; then qmatmul with the input quantized in the kernel,
-                FP8 at the four calls of a --quantize-input forward and one
-                int_asym case (float32 output: >= 99% exact, all within
-                1e-5 of the largest); each timed as phase 6, with sums per
-                forward.  int8oq_slice: BASELINE config 2 (per-channel
+                [0, 255] grid) and two edge cases (M = 1,000 and 777, K =
+                72 and 1,000, N = 16 and 24); >= 99% exact, the rest within
+                one integer step; then qmatmul with the input quantized in
+                the kernel, FP8 at the four calls of a --quantize-input
+                forward, one int_asym case and two edge cases (K = 72, N =
+                24; K = 1,000, N = 16 on bf16 x) (float32 output: >= 99%
+                exact, all within 1e-5 of the largest); each timed as phase
+                6, with sums per forward.  int8oq_slice: BASELINE config 2 (per-channel
                 symmetric_uniform weights, asymmetric_uniform activations
                 at each layer's output, current_minmax / allminmax) on
                 ResNet-18 as phase 4: exactly 1 qstem, 16 qconv3x3 and 4
@@ -139,12 +154,14 @@ without the final result line):
                 against bf16 on the fc's integer grid, input-dependent
                 share > 0.01; a throughput turn and a profile.  qi_slice:
                 the FP8 main path with --quantize-input: 4 qmatmul per
-                forward and neither qstem nor qconv3x3; the fc re-quantizes
-                the materialized avgpool output where bf16 does not, so
-                fused is held against the same model on the CPU (the
-                kernels' plain versions); its logits are chaotic, so as in
-                vit_slice the rms gap over their spread is held to twice
-                the one-float32-ulp floor; fused against bf16 printed.  mnv2_int8_*: MobileNetV2 under config 2's
+                forward and neither qstem nor qconv3x3; its logits are not
+                quantized and chaotic (every layer quantizes its input on
+                an E3M4 grid), so fused is held against the same model on
+                the CPU (the kernels' plain versions), as in vit_slice the
+                rms gap over their spread at most twice the
+                one-float32-ulp floor; the gaps of fused and bf16 to the
+                'parity' engine (the reference's semantics) and parity's
+                own floor are printed.  mnv2_int8_*: MobileNetV2 under config 2's
                 quantizers in both bn modes as phase 8 (17 qblock + 2
                 qmatmul; 17 qdwconv3x3 + 35 qmatmul, each with a throughput
                 turn and a profile), and mnv2_int8_check on their recorded
@@ -181,9 +198,25 @@ THROUGHPUT_ITERS = 5               # forwards per timed turn
 CONV_SHAPES = [(56, 64, 64, 1, 4), (56, 64, 128, 2, 1), (28, 128, 128, 1, 3),
                (28, 128, 256, 2, 1), (14, 256, 256, 1, 3), (14, 256, 512, 2, 1),
                (7, 512, 512, 1, 3)]
-# (M, K, N, out) of the qmatmul calls: the 1x1/2 downsamples and the fc
-MATMUL_SHAPES = [(BATCH * 28 * 28, 64, 128, "norm"), (BATCH * 14 * 14, 128, 256, "norm"),
-                 (BATCH * 7 * 7, 256, 512, "norm"), (BATCH, 512, 1000, "value")]
+
+
+def matmul_shapes(batch=BATCH):
+    """(M, K, N, out) of ResNet-18's qmatmul calls: the 1x1/2 downsamples
+    and the fc."""
+    return [(batch * 28 * 28, 64, 128, "norm"), (batch * 14 * 14, 128, 256, "norm"),
+            (batch * 7 * 7, 256, 512, "norm"), (batch, 512, 1000, "value")]
+
+
+MATMUL_SHAPES = matmul_shapes()
+# (M, K, N, x dtype, weights, out) of qmatmul calls at the edges of its
+# 128 x BN x 64 tiling that the main path does not reach: M not a multiple
+# of 128, K not a multiple of 64, N below 32, float32 and bf16 x, weights
+# baked or quantized in the kernel
+MATMUL_EDGES = {"fp8": [(1000, 72, 16, "bf16", "baked", "norm"),
+                        (BATCH, 1000, 24, "float32", "in-kernel", "value"),
+                        (12608, 1000, 24, "bf16", "baked", "norm")],
+                "int": [(1000, 72, 16, "bf16", "in-kernel", "value"),
+                        (777, 1000, 24, "float32", "baked", "norm")]}
 
 
 def emit(obj):
@@ -216,6 +249,66 @@ def time_ms(fn, iters=20, warmup=3):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def kernel_ms(fn, iters=20, warmup=3):
+    """Device ms per call of ``fn``: the calls are enqueued while the card
+    spins (torch.cuda._sleep) before the start event, so the time between
+    the events is the card's alone even where the wrapper's Python takes
+    longer than a short kernel."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(spin_cycles(host_s))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def spin_cycles(host_s):
+    """Clock cycles for the card to spin while the host spends ``host_s``
+    enqueueing (1.5x and 0.2 ms more, at the H100's 1.98 GHz boost clock;
+    a slower clock spins longer), at most one second."""
+    return int(min(1.5 * host_s + 2e-4, 1.0) * 1.98e9)
+
+
+def cold_ms(fn, iters=10):
+    """Device ms of one call of ``fn`` with the L2 cache (50 MB) flushed
+    before it by a 64 MB scratch write; the card spins while the host
+    enqueues the call, and the events bracket the call alone."""
+    import torch
+    scratch = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    pairs = []
+    for _ in range(iters):
+        scratch.fill_(1)
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(spin_cycles(host_s))
+        start.record()
+        fn()
+        end.record()
+        pairs.append((start, end))
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / iters
+
+
+# the redesigned kernels, timed also with the L2 cache flushed (cold_ms)
+COLD_TIMED = ("qmatmul", "qconv3x3_int8")
 
 
 def bound_ms(bytes_moved, flops, peak=BF16_FLOPS_PER_S):
@@ -319,33 +412,70 @@ class Inputs:
         return fp8_consts(torch.tensor([0.8 * float(y0.abs().max())], device="cuda"), MBITS)
 
 
-def matmul_cases(inp):
-    """(name, args, cfg, flops, bytes, uses, library fn) per qmatmul case:
-    the three downsamples and the fc with baked weights, then weights
-    quantized in the kernel (FP8; on the int grids signed and unsigned)."""
-    import torch
+def in_kernel_weights(inp, N, K, unsigned=False):
+    """(float32 w, (6, N) constants, method) of weights quantized in the
+    kernel: FP8 on the FP8 grid, int_sym (signed or on the unsigned [0,
+    255] grid) on the integer grids."""
     from fp8_quantization_tpu_torch.ops import uniform
     from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
+    w = inp.randn(N, K, scale=0.02)
+    w = (w.abs() if unsigned else w).contiguous()
+    if inp.grid == "fp8":
+        return w, fp8_consts(w.abs().amax(dim=1), MBITS), "fp8"
+    delta, sgn = uniform.symmetric_set_quant_range(w.amin(dim=1), w.amax(dim=1), 8)
+    return w, uniform.int_sym_consts(delta, sgn, 8), "int_sym"
+
+
+def matmul_edge_cases(inp):
+    """qmatmul cases at the edges of its tiling (MATMUL_EDGES; uses 0),
+    with the output quant of ``inp``'s grid."""
+    import torch
     from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
     cases = []
-    extra = ([(BATCH, 512, 1000, "fp8w")] if inp.grid == "fp8" else
-             [(BATCH, 512, 1000, "int_sym w"),
-              (BATCH * 14 * 14, 128, 256, "int_sym w unsigned")])
-    for M, K, N, out in MATMUL_SHAPES + extra:
+    for M, K, N, xdt, weights, out in MATMUL_EDGES[inp.grid]:
+        x = inp.norms(M, K)
+        if xdt == "float32":
+            x = x.float().contiguous()
+        scale, shift = inp.uniform(N, 0.005, 0.015), inp.randn(N, scale=0.1)
+        if inp.grid == "int":
+            scale = scale * 0.05
+        if weights == "baked":
+            w = inp.weight_norms(inp.randn(N, K, scale=0.05)).to(torch.bfloat16)
+            w_c, wm = None, "none"
+        else:
+            w, w_c, wm = in_kernel_weights(inp, N, K)
+        y0 = qm.qmatmul_plain(x, w, w_c, None, scale, shift,
+                              qm.FusedQuantMatmulConfig(weight_method=wm))
+        cfg = qm.FusedQuantMatmulConfig(weight_method=wm, act_method=inp.act_method,
+                                        emit_norm=out == "norm")
+        nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+                  + M * N * (2 if out == "norm" else 4))
+        xt, wt = x.to(torch.bfloat16), w.to(torch.bfloat16).t()
+        cases.append((f"qmatmul {M}x{K}x{N} edge {xdt} x {weights} w {out}",
+                       (x, w, w_c, inp.out_consts(y0), scale, shift), cfg,
+                       2 * M * N * K, nbytes, 0,
+                       lambda xt=xt, wt=wt: torch.matmul(xt, wt)))
+    return cases
+
+
+def matmul_cases(inp, batch=BATCH, edges=True):
+    """(name, args, cfg, flops, bytes, uses, library fn) per qmatmul case:
+    the three downsamples and the fc with baked weights, then weights
+    quantized in the kernel (FP8; on the int grids signed and unsigned),
+    then the edge cases (matmul_edge_cases)."""
+    import torch
+    from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
+    cases = []
+    extra = ([(batch, 512, 1000, "fp8w")] if inp.grid == "fp8" else
+             [(batch, 512, 1000, "int_sym w"),
+              (batch * 14 * 14, 128, 256, "int_sym w unsigned")])
+    for M, K, N, out in matmul_shapes(batch) + (extra if edges else []):
         x = inp.norms(M, K)
         scale, shift = inp.uniform(N, 0.005, 0.015), inp.randn(N, scale=0.1)
         if inp.grid == "int":
             scale = scale * 0.05
-        if out == "fp8w":      # weights quantized in the kernel (not baked)
-            w = inp.randn(N, K, scale=0.02).contiguous()
-            w_c = fp8_consts(w.abs().amax(dim=1), MBITS)
-            wm = "fp8"
-        elif out.startswith("int_sym"):
-            w = inp.randn(N, K, scale=0.02)
-            w = (w.abs() if out.endswith("unsigned") else w).contiguous()
-            delta, sgn = uniform.symmetric_set_quant_range(w.amin(dim=1), w.amax(dim=1), 8)
-            w_c = uniform.int_sym_consts(delta, sgn, 8)
-            wm = "int_sym"
+        if out == "fp8w" or out.startswith("int_sym"):   # quantized in the kernel
+            w, w_c, wm = in_kernel_weights(inp, N, K, out.endswith("unsigned"))
         else:
             w = inp.weight_norms(inp.randn(N, K, scale=0.05)).to(torch.bfloat16)
             w_c, wm = None, "none"
@@ -361,23 +491,30 @@ def matmul_cases(inp):
         cases.append((f"qmatmul {M}x{K}x{N} {out}", args, cfg, 2 * M * N * K,
                       nbytes, 1 if wm == "none" else 0,
                       lambda xt=xt, wt=wt: torch.matmul(xt, wt)))
-    return cases
+    return cases + (matmul_edge_cases(inp) if edges else [])
 
 
 def qi_matmul_cases(inp):
     """qmatmul with the input quantized in the kernel: the four calls of a
     ResNet-18 FP8 --quantize-input forward (the materialized float32 block
     outputs, baked FP8 weights, float32 output; uses 1 each), then one
-    int_asym input case with in-kernel int_sym weights (uses 0)."""
+    int_asym input case with in-kernel int_sym weights and two edge cases
+    (uses 0)."""
     import torch
     from fp8_quantization_tpu_torch.ops import uniform
     from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
     from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
     cases = []
-    shapes = [(M, K, N, "fp8") for M, K, N, _ in MATMUL_SHAPES]
-    shapes.append((BATCH * 14 * 14, 128, 256, "int_asym"))
-    for M, K, N, method in shapes:
+    shapes = [(M, K, N, "fp8", 1, "") for M, K, N, _ in MATMUL_SHAPES]
+    shapes.append((BATCH * 14 * 14, 128, 256, "int_asym", 0, ""))
+    # edges: K and M off the tile, N below 32; a bf16 x is converted by the
+    # wrapper (the kernel quantizes float32 inputs)
+    shapes += [(1000, 72, 24, "fp8", 0, " edge"),
+               (BATCH, 1000, 16, "int_asym", 0, " edge bf16 x")]
+    for M, K, N, method, uses, label in shapes:
         x = torch.relu(inp.randn(M, K)).contiguous()
+        if label.endswith("bf16 x"):
+            x = x.to(torch.bfloat16)
         scale, shift = inp.uniform(N, 0.5, 1.5), inp.randn(N, scale=0.1)
         if method == "fp8":
             w = inp.weight_norms(inp.randn(N, K, scale=0.05)).to(torch.bfloat16)
@@ -387,16 +524,16 @@ def qi_matmul_cases(inp):
             w = inp.randn(N, K, scale=0.05).contiguous()
             delta, sgn = uniform.symmetric_set_quant_range(w.amin(dim=1), w.amax(dim=1), 8)
             w_c, wm = uniform.int_sym_consts(delta, sgn, 8), "int_sym"
-            a_delta, a_zf = uniform.asymmetric_set_quant_range(x.min(), 0.8 * x.max(), 8)
+            a_delta, a_zf = uniform.asymmetric_set_quant_range(
+                x.float().min(), 0.8 * x.float().max(), 8)
             a_c = uniform.int_asym_consts(a_delta, a_zf, 8)
         cfg = qm.FusedQuantMatmulConfig(weight_method=wm, act_method=method,
                                         quantize_input=True)
-        nbytes = x.numel() * 4 + w.numel() * w.element_size() + M * N * 4
+        nbytes = x.numel() * x.element_size() + w.numel() * w.element_size() + M * N * 4
         xt, wt = x.to(torch.bfloat16), w.to(torch.bfloat16).t()
-        cases.append((f"qmatmul {M}x{K}x{N} {method} input quant",
+        cases.append((f"qmatmul {M}x{K}x{N} {method} input quant{label}",
                       (x, w, w_c, a_c, scale, shift), cfg, 2 * M * N * K, nbytes,
-                      1 if method == "fp8" else 0,
-                      lambda xt=xt, wt=wt: torch.matmul(xt, wt)))
+                      uses, lambda xt=xt, wt=wt: torch.matmul(xt, wt)))
     return cases
 
 
@@ -501,21 +638,23 @@ def check_cases(kinds, results, label):
                 ok, err, exact = grid_check(out, ref, consts,
                                             getattr(cfg, "emit_norm", False),
                                             method=cfg.act_method)
-            ms = time_ms(lambda: wrapper(*args, cfg=cfg))
+            ms = kernel_ms(lambda: wrapper(*args, cfg=cfg))
+            cold = {"ms_cold": cold_ms(lambda: wrapper(*args, cfg=cfg))} \
+                if kname in COLD_TIMED else {}
             with no_tf32():
-                pms = time_ms(lambda: plain(*args, cfg), iters=5)
-            lms = time_ms(lib)
+                pms = kernel_ms(lambda: plain(*args, cfg), iters=5)
+            lms = kernel_ms(lib)
             bms = bound_ms(nbytes, flops)
             emit({"phase": label, "case": name, "ok": ok, "max_abs_err": err,
-                  "exact": exact, "ms": ms, "plain_ms": pms, "library_ms": lms,
+                  "exact": exact, "ms": ms, **cold, "plain_ms": pms, "library_ms": lms,
                   "bound_ms": bms, "bound_by": bound_by(nbytes, flops),
                   "uses_per_forward": uses})
             ok_all &= ok
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
             if uses:
                 for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
-                             ("bound_ms", bms)):
-                    agg[k] += uses * v
+                             ("bound_ms", bms), *cold.items()):
+                    agg[k] = agg.get(k, 0.0) + uses * v
                 agg["bytes"] = agg.get("bytes", 0) + uses * nbytes
                 agg["flops"] = agg.get("flops", 0) + uses * flops
     return ok_all
@@ -617,16 +756,25 @@ def im2col_s8(x_s8, pad_value, stride):
     return torch.cat(taps, dim=-1).reshape(n * ho * wo, 9 * c).contiguous()
 
 
-def int8_conv_cases(inp):
+def int8_conv_cases(inp, batch=BATCH, edges=True):
+    """qconv3x3_int8 cases: ResNet-18's seven 3x3 shapes with baked
+    weights, in-kernel and unsigned weights, and (``edges``) the edges of
+    its tiling: odd H at stride 2, the 7x7 map with in-kernel unsigned
+    weights, Cin = 16, Cout not a multiple of the tile."""
     import torch
     from fp8_quantization_tpu_torch.ops.kernels import qconv_int8 as qc
     cases = []
     shapes = [(H, cin, cout, s, uses, "baked", True, True)
               for H, cin, cout, s, uses in CONV_SHAPES]
-    shapes += [(28, 128, 128, 1, 0, "in-kernel w", False, True),
-               (28, 128, 256, 2, 0, "baked unsigned", True, False)]
+    if edges:
+        shapes += [(28, 128, 128, 1, 0, "in-kernel w", False, True),
+                   (28, 128, 256, 2, 0, "baked unsigned", True, False),
+                   (15, 64, 64, 2, 0, "baked, odd H", True, True),
+                   (7, 512, 512, 1, 0, "in-kernel w unsigned", False, False),
+                   (15, 16, 32, 1, 0, "in-kernel w, Cin 16", False, True),
+                   (9, 16, 80, 2, 0, "baked unsigned, Cin 16", True, False)]
     for H, cin, cout, s, uses, label, prequant, signed in shapes:
-        x = torch.relu(inp.randn(BATCH, H, H, cin))   # every 3x3 input follows a relu
+        x = torch.relu(inp.randn(batch, H, H, cin))   # every 3x3 input follows a relu
         w4 = inp.randn(cout, cin, 3, 3, scale=0.05)
         args, x_s8, w_s8, zp = int8_operands(inp, x, w4, signed, prequant)
         args = (args[0], qc.weight_matrix(args[1])) + args[2:]
@@ -634,9 +782,9 @@ def int8_conv_cases(inp):
         cols = im2col_s8(x_s8, int(zp) - 128, s)
         cfg = qc.Int8ConvConfig(stride=s, activation="relu")
         ho = (H - 1) // s + 1
-        ops = 2 * BATCH * ho * ho * 9 * cin * cout
+        ops = 2 * batch * ho * ho * 9 * cin * cout
         nbytes = x.numel() * 4 + cout * 9 * cin * args[1].element_size() \
-            + BATCH * ho * ho * cout * 4 + 8 * cout
+            + batch * ho * ho * cout * 4 + 8 * cout
 
         def lib(cols=cols, w_t=w_t):
             return torch._int_mm(cols, w_t)
@@ -673,12 +821,14 @@ def phase_int8_check(results):
             torch.cuda.synchronize()
             ref = plain(*args, cfg)
             ok, err, exact = int8_check(out, ref)
-            ms = time_ms(lambda: wrapper(*args, cfg=cfg))
-            pms = time_ms(lambda: plain(*args, cfg), iters=3)
-            lms = time_ms(lib)
+            ms = kernel_ms(lambda: wrapper(*args, cfg=cfg))
+            cold = {"ms_cold": cold_ms(lambda: wrapper(*args, cfg=cfg))} \
+                if kname in COLD_TIMED else {}
+            pms = kernel_ms(lambda: plain(*args, cfg), iters=3)
+            lms = kernel_ms(lib)
             bms = bound_ms(nbytes, ops, INT8_OPS_PER_S)
             emit({"phase": "int8_check", "case": name, "ok": ok, "max_abs_err": err,
-                  "exact": exact, "ms": ms, "plain_ms": pms, "library_ms": lms,
+                  "exact": exact, "ms": ms, **cold, "plain_ms": pms, "library_ms": lms,
                   "bound_ms": bms,
                   "bound_by": bound_by(nbytes, ops, INT8_OPS_PER_S),
                   "uses_per_forward": uses})
@@ -686,8 +836,8 @@ def phase_int8_check(results):
             agg["max_abs_err"] = max(agg["max_abs_err"], err)
             if uses:
                 for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
-                             ("bound_ms", bms)):
-                    agg[k] += uses * v
+                             ("bound_ms", bms), *cold.items()):
+                    agg[k] = agg.get(k, 0.0) + uses * v
                 agg["bytes"] = agg.get("bytes", 0) + uses * nbytes
                 agg["flops"] = agg.get("flops", 0) + uses * ops
     return ok_all
@@ -790,8 +940,10 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
     flips input-quantizer bins downstream), so, as vit_slice does, the rms
     gap over the logits' spread (logit_gap) to the plain versions is held
     to at most twice the floor that moving every input value by one
-    float32 ulp gives the fused model on the card; fused against bf16 is
-    printed.
+    float32 ulp gives the fused model on the card; the gaps of fused and
+    bf16 to the 'parity' engine (the reference's semantics, from the same
+    calibrated state, weights quantized on the fly) and parity's own
+    one-ulp floor are printed, as is fused against bf16.
     With ``captures`` the first fused forward records the depthwise and
     block kernels' operands (Capture); ``min_share`` bounds the
     input-dependent share of the logits from below."""
@@ -802,11 +954,18 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
 
     metrics, counts, want, metrics_ok = run_main_path(cli, per_forward)
     batches, fused, bf16 = engine_pair(cli)
+    parity = None
+    if plain_reference:        # the reference's semantics, same state
+        from fp8_quantization_tpu_torch.cli import image_net
+        parity = image_net.build_model(image_net.build_parser().parse_args(
+            cli + ["--engine", "parity"]))
+        parity.load_state_dict(fused.state_dict())
     bake_weights(fused)
     bake_weights(bf16)
     plain = copy.deepcopy(fused).cpu() if plain_reference else None
     agree, exact, within, share, classes, gap, finite = [], [], [], [], [], [], True
-    runs = {"fused": [], "plain": [], "fused_ulp": []}
+    runs = {"fused": [], "plain": [], "fused_ulp": [], "bf16": [], "parity": [],
+            "parity_ulp": []}
     head_q = getattr(fused, head).act_q
     with torch.no_grad():
         for i, (x, _) in enumerate(batches):
@@ -824,9 +983,12 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
             if plain is not None:
                 x_ulp = torch.nextafter(xt, torch.full_like(xt, math.inf))
                 runs["fused"].append(a)
+                runs["bf16"].append(b)
                 runs["fused_ulp"].append(fused(x_ulp, mode="fixed", quant_w=False))
                 runs["plain"].append(plain(torch.as_tensor(x), mode="fixed",
                                            quant_w=False).to(a.device))
+                runs["parity"].append(parity(xt, mode="fixed"))
+                runs["parity_ulp"].append(parity(x_ulp, mode="fixed"))
     mean = lambda v: sum(v) / len(v)  # noqa: E731
     if plain is None:
         close = mean(agree) >= 0.99 and mean(within) >= 0.98
@@ -845,7 +1007,14 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
             "input_dependent_share": share, "distinct_top1_classes": classes}
     if plain is not None:
         argmax = {k: v.argmax(-1) for k, v in t.items()}
+        plain_gap.update({"fused_vs_parity": logit_gap(t["fused"], t["parity"]),
+                          "bf16_vs_parity": logit_gap(t["bf16"], t["parity"]),
+                          "parity_one_ulp_floor": logit_gap(t["parity_ulp"], t["parity"])})
         line.update({"logit_gaps": plain_gap,
+                     "top1_agree_fused_vs_parity": float(
+                         (argmax["fused"] == argmax["parity"]).float().mean()),
+                     "top1_agree_bf16_vs_parity": float(
+                         (argmax["bf16"] == argmax["parity"]).float().mean()),
                      "top1_agree_vs_plain_cpu": float(
                          (argmax["fused"] == argmax["plain"]).float().mean()),
                      "top1_agree_fused_one_ulp": float(
@@ -941,12 +1110,13 @@ INT8_OQ_CLI_ARGS = ["validate-quantized", "--device", "cuda", "--engine", "fused
 # bf16 path, as in JAX (4 qmatmul launches per forward, no qstem/qconv3x3)
 QI_CLI_ARGS = CLI_ARGS + ["--quantize-input"]
 QI_LAUNCHES = {"qmatmul": 4}
-# fused against bf16 under --quantize-input: the fc re-quantizes the
-# materialized tied-avgpool output on its own grid in fused (as the int8
-# datapath does, nn/layers.py) where bf16 takes the Factored value as it
-# is, so their logits (not quantized) differ by design: qi_slice holds
-# fused against its plain versions on the CPU instead, to the one-ulp
-# noise floor of these chaotic logits (phase_slice)
+# fused and bf16 under --quantize-input: every layer quantizes its input
+# on an E3M4 grid and the logits are not quantized, so a last-bit
+# difference anywhere (another summation order) flips bins downstream and
+# the logits are chaotic: qi_slice holds fused against its plain versions
+# on the CPU, to the one-ulp noise floor of the fused model (phase_slice),
+# and prints the gaps of fused and bf16 to 'parity' (the reference), whose
+# Factored-input semantics both follow (nn/layers.py)
 
 
 # ---- MobileNetV2 -----------------------------------------------------------
@@ -1156,10 +1326,10 @@ def phase_mnv2_check(results, captures, label="mnv2_check", dw_bf16=True):
         ok, err, exact = check(out, ref)
         if kname == "qdwconv3x3":
             ok = ok and exact == 1.0                 # the same sums, in order
-        ms = time_ms(call)
+        ms = kernel_ms(call)
         with no_tf32():
-            pms = time_ms(plain, iters=2, warmup=1)
-        lms = time_ms(lib)
+            pms = kernel_ms(plain, iters=2, warmup=1)
+        lms = kernel_ms(lib)
         bytes_s = nbytes / HBM_BYTES_PER_S
         bms = 1e3 * max(bytes_s, op_s)
         emit({"phase": label, "case": name, "ok": ok, "max_abs_err": err,
@@ -1300,33 +1470,113 @@ def vit_matmul_check(captures):
     from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
     recorded = list(captures.get("qmatmul", {}).values())
     ok_all = sorted(u for _, _, u in recorded) == [1, 12, 12, 12]
-    total = dict(ms=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
-    for args, kw, uses in recorded:
+    total = dict(ms=0.0, ms_cold=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+    for args, kw, uses, label in ([(*r, "ViT") for r in recorded]
+                                  + vit_matmul_edges(captures)):
         x, w, _, a_c, scale, shift = args
         cfg = kw["cfg"]
         (m, k), n = x.shape, w.shape[0]
         out = qm.fused_quant_matmul(*args, **kw)
         with no_tf32():
             ref = qm.qmatmul_plain(*args, cfg)
-        ok, err, exact = grid_check(out, ref, a_c, cfg.emit_norm)
-        ms = time_ms(lambda: qm.fused_quant_matmul(*args, **kw))
+        if cfg.quantize_input:
+            ok, err, exact = sum_check(out, ref)
+        else:
+            ok, err, exact = grid_check(out, ref, a_c, cfg.emit_norm)
+        ms = kernel_ms(lambda: qm.fused_quant_matmul(*args, **kw))
+        cms = cold_ms(lambda: qm.fused_quant_matmul(*args, **kw))
         with no_tf32():
-            pms = time_ms(lambda: qm.qmatmul_plain(*args, cfg), iters=2, warmup=1)
+            pms = kernel_ms(lambda: qm.qmatmul_plain(*args, cfg), iters=2, warmup=1)
         xl, wl = x.to(torch.bfloat16), w.to(torch.bfloat16).t()
-        lms = time_ms(lambda: torch.matmul(xl, wl))
+        lms = kernel_ms(lambda: torch.matmul(xl, wl))
         nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
                   + m * n * (2 if cfg.emit_norm else 4))
         flops = 2 * m * n * k
         bms = bound_ms(nbytes, flops)
-        emit({"phase": "vit_check", "case": f"qmatmul {m}x{k}x{n} ViT", "ok": ok,
-              "max_abs_err": err, "exact": exact, "ms": ms, "plain_ms": pms,
-              "library_ms": lms, "bound_ms": bms, "bound_by": bound_by(nbytes, flops),
-              "uses_per_forward": uses})
+        emit({"phase": "vit_check", "case": f"qmatmul {m}x{k}x{n} {label}", "ok": ok,
+              "max_abs_err": err, "exact": exact, "ms": ms, "ms_cold": cms,
+              "plain_ms": pms, "library_ms": lms, "bound_ms": bms,
+              "bound_by": bound_by(nbytes, flops), "uses_per_forward": uses})
         ok_all &= ok
-        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
-                         ("bound_ms", bms)):
+        for key, val in (("ms", ms), ("ms_cold", cms), ("plain_ms", pms),
+                         ("library_ms", lms), ("bound_ms", bms)):
             total[key] += uses * val
     emit({"phase": "vit_check", "case": "qmatmul per ViT forward", "ok": ok_all, **total})
+    return ok_all
+
+
+def vit_matmul_edges(captures):
+    """(args, kwargs, uses 0, label) of two qmatmul calls at the ViT's M
+    (12,608 rows, not a multiple of 128) that its forward does not make: K
+    = 72 and N = 16 with the forward's qkv output quantizer, and K = 1000,
+    N = 24 on float32 x with FP8 input quant and in-kernel FP8 weights."""
+    import torch
+    from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
+    from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
+    (x0, _, _, a_c, _, _), kw, _ = max(captures["qmatmul"].values(),
+                                       key=lambda r: r[0][0].shape[0] * r[0][1].shape[0])
+    inp = Inputs()
+    m = x0.shape[0]
+    edges = []
+    for k, n, quant_in in ((72, 16, False), (1000, 24, True)):
+        scale, shift = inp.uniform(n, 0.005, 0.015), inp.randn(n, scale=0.1)
+        if quant_in:
+            x = torch.relu(inp.randn(m, k)).contiguous()
+            w, w_c, wm = in_kernel_weights(inp, n, k)
+            a = fp8_consts(torch.tensor([0.8 * float(x.max())], device="cuda"), MBITS)
+            cfg = qm.FusedQuantMatmulConfig(weight_method=wm, act_method="fp8",
+                                            quantize_input=True)
+            label = "edge float32 x, input quant, in-kernel w"
+        else:
+            x = inp.norms(m, k)
+            w = inp.weight_norms(inp.randn(n, k, scale=0.05)).to(torch.bfloat16)
+            w_c, a = None, a_c
+            cfg = qm.FusedQuantMatmulConfig(weight_method="none", act_method="fp8",
+                                            emit_norm=kw["cfg"].emit_norm)
+            label = "edge bf16 x, baked w"
+        edges.append(((x, w, w_c, a, scale, shift), {"cfg": cfg}, 0, label))
+    return edges
+
+
+def phase_batch256():
+    """The two redesigned kernels at ResNet-18's shapes at batch 256:
+    qmatmul at the three downsamples and the fc (FP8, baked weights) and
+    qconv3x3_int8 at the seven 3x3 shapes (baked weights), each held
+    against its plain version as in phases 2 and 3 and timed warm and with
+    the L2 cache flushed (cold_ms), with sums per batch-256 forward."""
+    from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
+    table = kernel_table()
+    ok_all = True
+    for kname, cases, peak in (
+            ("qmatmul", matmul_cases(Inputs(), 256, edges=False), BF16_FLOPS_PER_S),
+            ("qconv3x3_int8", int8_conv_cases(Inputs(), 256, edges=False),
+             INT8_OPS_PER_S)):
+        wrapper, plain = table[kname][:2]
+        total = dict(ms=0.0, ms_cold=0.0, library_ms=0.0, bound_ms=0.0)
+        for name, args, cfg, flops, nbytes, uses, lib in cases:
+            out = wrapper(*args, cfg=cfg)
+            with no_tf32():
+                ref = plain(*args, cfg)
+            if kname == "qmatmul":
+                ok, err, exact = grid_check(out, ref, args[3], cfg.emit_norm,
+                                            method=cfg.act_method)
+            else:
+                ok, err, exact = int8_check(out, ref)
+            del out, ref
+            ms = kernel_ms(lambda: wrapper(*args, cfg=cfg))
+            cms = cold_ms(lambda: wrapper(*args, cfg=cfg))
+            lms = kernel_ms(lib)
+            bms = bound_ms(nbytes, flops, peak)
+            emit({"phase": "batch256", "case": name, "ok": ok, "max_abs_err": err,
+                  "exact": exact, "ms": ms, "ms_cold": cms, "library_ms": lms,
+                  "bound_ms": bms, "bound_by": bound_by(nbytes, flops, peak),
+                  "uses_per_forward": uses})
+            ok_all &= ok
+            for key, val in (("ms", ms), ("ms_cold", cms), ("library_ms", lms),
+                             ("bound_ms", bms)):
+                total[key] += uses * val
+        emit({"phase": "batch256", "case": f"{kname} per ResNet-18 forward at batch 256",
+              "ok": ok_all, **total})
     return ok_all
 
 
@@ -1353,12 +1603,12 @@ def phase_vit_check(results, captures):
         with no_tf32():
             ref = attention.flash_mha_plain(q, k, v, sm_scale=scale)
             ok, err, exact = flash_check(out, ref, q, k, v, scale)
-        ms = time_ms(lambda: attention.flash_mha(q, k, v, sm_scale=scale))
+        ms = kernel_ms(lambda: attention.flash_mha(q, k, v, sm_scale=scale))
         with no_tf32():
-            pms = time_ms(lambda: attention.flash_mha_plain(q, k, v, sm_scale=scale),
+            pms = kernel_ms(lambda: attention.flash_mha_plain(q, k, v, sm_scale=scale),
                           iters=2, warmup=1)
         ql, kl, vl = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
-        lms = time_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl))
+        lms = kernel_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl))
         nbytes = 3 * q.numel() * q.element_size() + q.numel() * 4
         flops = 4 * b * h * s * s * d
         bms = bound_ms(nbytes, flops)
@@ -1572,6 +1822,7 @@ def main():
 
     phases = [("check", lambda: phase_check_and_time(results)),
               ("int8_check", lambda: phase_int8_check(results)),
+              ("batch256", phase_batch256),
               ("slice", run_slice),
               ("int8_slice", run_int8_slice),
               ("throughput", lambda: phase_throughput(slice_out["fused"],

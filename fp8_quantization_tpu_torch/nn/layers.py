@@ -54,10 +54,12 @@ static conditions of JAX lines 976-987, without the measured gate).
 ``QuantConv.fused_state`` hands a MobileNetV2 block its stages' baked
 operands for ``ops/kernels/qblock`` (models/mobilenet_v2.py).
 
-A ``Factored`` input to a layer that quantizes its input in the qmatmul
-kernel is materialized and re-quantized by the layer's own input quantizer,
-as on the int8 datapath (the JAX ``pallas`` engine instead quantizes the
-norm with this layer's step, ROADMAP.md section C).
+A ``Factored`` input to a layer that quantizes its input
+(``quantize_input``) is materialized and re-quantized by the layer's own
+input quantizer on every engine, as the reference (``parity``) and the int8
+datapath do.  JAX's bf16 engine instead takes the ``Factored`` value
+unquantized (there lines 1001-1004, 1235-1238) and its ``pallas`` engine
+quantizes the norm with this layer's step (ROADMAP.md section C).
 
 Not ported, and rejected where they would be selected: cast fast paths, f8
 storage, space-to-depth stems, grouped convs other than depthwise, the int8
@@ -184,11 +186,14 @@ class QuantizedLayerBase(nn.Module):
     def _quant_in_engine(self, x, mode, quant_a):
         """(x', x_factor): input quantization under ``quantize_input``; the
         bf16 and fused engines take the normalized grid and its factor."""
-        if self.config.quantize_input and quant_a and self.config.quant_a:
+        if self._quantizes_input(quant_a):
             if self.config.engine in ("bf16", "fused"):
                 return self.act_q(x, mode=mode, out="factored")
             return self.act_q(x, mode=mode), None
         return x, None
+
+    def _quantizes_input(self, quant_a) -> bool:
+        return self.config.quantize_input and quant_a and self.config.quant_a
 
     def _quant_out(self, y, mode, quant_a, out):
         act = get_activation(self.activation)
@@ -427,12 +432,10 @@ class QuantizedLayerBase(nn.Module):
                       out):
         """The qmatmul kernel route (JAX ``_pallas_forward``) for an (M, K)
         input and its factor (None for a plain tensor).  Under
-        ``quantize_input`` the kernel quantizes the input, a ``Factored``
-        one materialized first (see the module docstring)."""
+        ``quantize_input`` the kernel quantizes the input, which forward
+        has materialized (see the module docstring)."""
         cfg = self.config
-        quant_in = cfg.quantize_input and quant_a and cfg.quant_a
-        if quant_in and x_factor is not None:
-            x2d, x_factor = factored.materialize(Factored(x2d, x_factor)), None
+        quant_in = self._quantizes_input(quant_a)
         w2d = self._kernel().reshape(features, -1)
         if quant_w and cfg.quant_w:
             wop, w_factor = w2d.detach().contiguous(), None  # factor in kernel
@@ -536,6 +539,8 @@ class QuantConv(QuantizedLayerBase):
         self._check_train_bn(train_bn)
         if self._int8_ok(mode, train_bn, quant_w, quant_a):
             return self._int8_conv(factored.materialize(x))
+        if self._quantizes_input(quant_a):
+            x = factored.materialize(x)     # re-quantized, as on parity
         x, x_factor = factored.split(x)
         k, s, p = self.kernel_size, self.stride, self.padding
         cin = x.shape[-1]
@@ -658,6 +663,8 @@ class QuantLinear(QuantizedLayerBase):
             x = factored.materialize(x)
             y = self._int8_matmul(x.reshape(-1, x.shape[-1]))
             return y.reshape(*x.shape[:-1], -1)
+        if self._quantizes_input(quant_a):
+            x = factored.materialize(x)     # re-quantized, as on parity
         x, x_factor = factored.split(x)
         if self._fused_ok(mode, train_bn):
             lead = x.shape[:-1]

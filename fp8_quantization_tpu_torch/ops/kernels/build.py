@@ -33,7 +33,7 @@ _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_floa
 SIGNATURES = {
     "qmatmul": ("qmatmul_launch",
                 [_P, _I, _P, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                 _I, _I, _P]),
+                 _I, _I, _I, _P]),
     "qconv": ("qconv3x3_launch",
               [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                _I, _P]),
@@ -44,7 +44,7 @@ SIGNATURES = {
                       _I, _P]),
     "qconv_int8": ("qconv3x3_int8_launch",
                    [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
-                    _I, _I, _I, _P]),
+                    _I, _I, _I, _I, _I, _I, _I, _P]),
     "qdwconv": ("qdwconv3x3_launch", [_P] * 6 + [_I] * 8 + [_P]),
     "qblock": ("qblock_launch", [_P] * 13 + [_I] * 12 + [_P]),
     "flash_mha": ("flash_mha_launch",

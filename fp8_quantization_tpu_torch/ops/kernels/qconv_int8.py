@@ -16,12 +16,15 @@ quant or ``w_prequant``, signed and unsigned weight grids, relu/relu6.
 the VMEM limit) do not carry over.
 
 On the card the kernel is bound by bytes at every ResNet-18 shape but the
-last (see the note in csrc/qconv_int8.cu).
+last (see the note in csrc/qconv_int8.cu).  Each of its CTAs owns a tile of
+output pixels of one image and of output channels (``conv_tile``) and
+quantizes the input patch under it once per 32-channel chunk.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -36,6 +39,54 @@ from fp8_quantization_tpu_torch.ops.kernels.qmatmul_int8 import (
     check_int8_config, check_scalars, epilogue, exact_total, weight_grid)
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qconv.py:278"
+TILE_MS = (128, 64)      # GEMM rows (output pixels) a CTA; csrc/qconv_int8.cu
+SMEM_LIMIT = 232448      # shared memory a block can have on the H100
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvTile:
+    """A CTA's share of the output: ``th x tw`` pixels of one image (``bm``
+    GEMM rows, ``th * tw <= bm``) times ``bn`` output channels."""
+    bm: int
+    th: int
+    tw: int
+    bn: int
+
+    def halo(self, stride: int) -> tuple[int, int]:
+        """(rows, columns) of the input patch the tile reads."""
+        return (self.th - 1) * stride + 3, (self.tw - 1) * stride + 3
+
+    def smem_bytes(self, stride: int) -> int:
+        """The kernel's dynamic shared memory (csrc/qconv_int8.cu, Plan):
+        the float32 patch of one 32-channel chunk, two s8 patches, two
+        weight chunks, the pixel, row and column sums."""
+        ph, pw = self.halo(stride)
+        p = ph * pw
+        patch = (32 * p + 127) // 128 * 128
+        return (128 * p + 2 * patch + 2 * 288 * self.bn
+                + (4 * p + 15) // 16 * 16 + 4 * self.bm + 4 * self.bn)
+
+
+@functools.lru_cache(maxsize=None)
+def conv_tile(ho: int, wo: int, stride: int, cout: int) -> ConvTile:
+    """The kernel's tile for an (ho, wo) output map: the (bm, th, tw) with
+    the least ``tiles * (bm + patch pixels)`` (products computed plus input
+    pixels staged, per image), the larger bm and the wider tile on a tie,
+    within the shared memory of a block; bn = 64 for up to 64 output
+    channels, else 128."""
+    best = None
+    for bm in TILE_MS:
+        for tw in range(1, min(wo, bm) + 1):
+            th = min(ho, bm // tw)
+            tile = ConvTile(bm, th, tw, 64 if cout <= 64 else 128)
+            if tile.smem_bytes(stride) > SMEM_LIMIT:
+                continue
+            ph, pw = tile.halo(stride)
+            cost = -(-ho // th) * -(-wo // tw) * (bm + ph * pw)
+            key = (cost, -bm, -tw)
+            if best is None or key < best[0]:
+                best = (key, tile)
+    return best[1]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,13 +158,15 @@ def fused_quant_conv3x3_int8(x: torch.Tensor, w: torch.Tensor,
     require(w, "w", (torch.int8, torch.float32), vector_loads=True)
     check_scalars(cout, *args)
     ho, wo = out_hw(h, wd, cfg.stride)
+    tile = conv_tile(ho, wo, cfg.stride, cout)
     out = torch.empty((n, ho, wo, cout), device=x.device, dtype=torch.float32)
     err = build.entry("qconv_int8")(
         x.data_ptr(), w.data_ptr(), int(w.dtype == torch.int8),
         w_delta.data_ptr(), w_scalars.data_ptr(), a_scalars.data_ptr(),
         scale.data_ptr(), shift.data_ptr(), out.data_ptr(), n, h, wd, cin,
         cout, cfg.stride, cfg.act_n_bits, cfg.n_bits,
-        ACTIVATION_CODES[cfg.activation], stream_ptr(x))
+        ACTIVATION_CODES[cfg.activation], tile.bm, tile.th, tile.tw, tile.bn,
+        stream_ptr(x))
     build.check(err, "qconv3x3_int8")
     fused_quant_conv3x3_int8.launches += 1
     return out

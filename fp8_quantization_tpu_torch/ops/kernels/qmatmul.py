@@ -18,17 +18,19 @@ parity debugging mode) is not ported, and the int8 body is
 ``ops/kernels/qmatmul_int8``.
 
 Differences from the JAX signature: ``w`` is ``(N, K)`` (torch's Linear
-layout, the kernel reads it as the column-major B operand) and the
+layout, which the kernel reads as wgmma's K-major B operand) and the
 quantizers arrive as ``(6, C)`` constants from ``ops/fp8.fp8_consts`` or
 ``ops/uniform.int_asym_consts`` / ``int_sym_consts``.
 
-On the card the kernel is bound by bytes and launch latency at ResNet-18's
-shapes (see the note in csrc/qmatmul.cu).
+On the card the kernel is bound by the products at the ViT's shapes and
+by bytes and launch latency at ResNet-18's and MobileNetV2's (see the note
+in csrc/qmatmul.cu).  Its block tile is 128 rows by ``tile_n(N)`` columns.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -40,6 +42,23 @@ from fp8_quantization_tpu_torch.ops.kernels.common import (
 from fp8_quantization_tpu_torch.nn.activations import get_activation
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qmatmul.py:145"
+TILE_M = 128                       # csrc/gemm_sm90.cuh: BM
+TILE_NS = (64, 32, 16)             # the wgmma widths the kernel is built for
+# a column tile costs its width plus this many columns' worth of re-reading
+# the A rows (every column tile reads all of x's tile rows again)
+TILE_READ_COST = 32
+
+
+@functools.lru_cache(maxsize=None)
+def tile_n(n: int) -> int:
+    """The kernel's column tile for N output channels: the width in
+    ``TILE_NS`` with the least ``ceil(N / BN) * (BN + TILE_READ_COST)``,
+    the wider on a tie, so that a small N keeps a full tile (16 -> 16,
+    24 -> 32, 144 -> 64) and a large one reads x few times.  No tile is
+    wider than 64: the epilogue's per-output quantization costs more than
+    the products (csrc/qmatmul.cu), and a narrow tile keeps each block's
+    share of it short, so more blocks overlap it with their products."""
+    return min(TILE_NS, key=lambda bn: (-(-n // bn) * (bn + TILE_READ_COST), -bn))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -83,6 +102,11 @@ def qmatmul_plain(x: torch.Tensor, w: torch.Tensor, w_consts, a_consts,
     return y.to(torch.bfloat16 if cfg.emit_norm else torch.float32)
 
 
+def _copyable(t: torch.Tensor) -> bool:
+    """Whether the kernel can copy bf16 rows of ``t`` by 16-byte cp.async."""
+    return t.shape[-1] % 8 == 0 and t.data_ptr() % 16 == 0
+
+
 def fused_quant_matmul(x: torch.Tensor, w: torch.Tensor,
                        w_consts: Optional[torch.Tensor],
                        a_consts: Optional[torch.Tensor],
@@ -121,6 +145,12 @@ def fused_quant_matmul(x: torch.Tensor, w: torch.Tensor,
     require(a_consts, "a_consts", (torch.float32,), (6, 1))
     require(scale, "scale", (torch.float32,), (N,))
     require(shift, "shift", (torch.float32,), (N,))
+    # the kernel copies bf16 operands as they are (16-byte rows of 8) and
+    # quantizes only float32 ones: anything else is converted here first
+    if x.dtype == torch.bfloat16 and (cfg.quantize_input or not _copyable(x)):
+        x = x.float()
+    if w.dtype == torch.bfloat16 and not _copyable(w):
+        w = w.float()
     out = torch.empty((M, N), device=x.device,
                       dtype=torch.bfloat16 if cfg.emit_norm else torch.float32)
     err = build.entry("qmatmul")(
@@ -129,7 +159,8 @@ def fused_quant_matmul(x: torch.Tensor, w: torch.Tensor,
         a_consts.data_ptr(), scale.data_ptr(), shift.data_ptr(),
         out.data_ptr(), M, N, K, QUANT_CODES[cfg.weight_method],
         QUANT_CODES[cfg.act_method], int(cfg.quantize_input),
-        ACTIVATION_CODES[cfg.activation], int(cfg.emit_norm), stream_ptr(x))
+        ACTIVATION_CODES[cfg.activation], int(cfg.emit_norm), tile_n(N),
+        stream_ptr(x))
     build.check(err, "qmatmul")
     fused_quant_matmul.launches += 1
     return out

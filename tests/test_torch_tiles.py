@@ -1,0 +1,158 @@
+"""Host-side tiling of the redesigned CUDA kernels (CPU; no JAX needed).
+
+The quant-matmul (csrc/qmatmul.cu) launches ``ceil(M / 128) x ceil(N / BN)``
+blocks with ``BN = tile_n(N)``; the int8 3x3 conv (csrc/qconv_int8.cu)
+gives each block a ``th x tw`` tile of one image's output pixels and
+``bn`` output channels (``conv_tile``).  These tests hold the choices to
+what the kernels assume at every shape of ResNet-18, MobileNetV2 and
+ViT-S/16 at batch 64 and at the edges the kernels mask: each output is
+covered exactly once, a tile fits its block's shared memory, and small N
+keeps a full tile.  The kernels themselves run only on the card
+(chip_smoke.py); their plain versions are tested elsewhere.  Last, the
+source variants that ops/kernels/variants.py times on the card still
+apply to the current sources.
+"""
+
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from fp8_quantization_tpu_torch.ops.kernels import qconv_int8 as qc
+from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
+from fp8_quantization_tpu_torch.ops.kernels import variants
+
+B = 64
+
+
+def _mnv2_matmuls():
+    """(M, K, N) of MobileNetV2's 1x1 convs and classifier under folded BN
+    (tonylins topology, 224x224 input)."""
+    shapes, cin, hw = [], 32, 112
+    for t, c, n, s in ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+                       (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)):
+        for i in range(n):
+            hidden = cin * t
+            if t != 1:
+                shapes.append((B * hw * hw, cin, hidden))           # expand
+            hw = hw // 2 if (i == 0 and s == 2) else hw
+            shapes.append((B * hw * hw, hidden, c))                 # project
+            cin = c
+    shapes += [(B * 7 * 7, 320, 1280), (B, 1280, 1000)]
+    return shapes
+
+
+RESNET_MATMULS = [(B * 28 * 28, 64, 128), (B * 14 * 14, 128, 256),
+                  (B * 7 * 7, 256, 512), (B, 512, 1000)]
+VIT_MATMULS = [(B * 197, 384, 1152), (B * 197, 384, 384), (B * 197, 1536, 384),
+               (B, 384, 1000)]
+EDGE_MATMULS = [(12608, 1000, 24), (64, 72, 16), (1000, 72, 24), (300, 1000, 144),
+                (777, 40, 1000), (1, 8, 1), (129, 8, 17)]
+MATMULS = sorted(set(RESNET_MATMULS + VIT_MATMULS + _mnv2_matmuls() + EDGE_MATMULS))
+
+
+@pytest.mark.parametrize("m,k,n", MATMULS)
+def test_qmatmul_tiles_cover_every_output_once(m, k, n):
+    """The kernel's launch grid, ceil(M / 128) x ceil(N / tile_n(N)),
+    covers each of the M x N outputs exactly once, with a width the kernel
+    is built for."""
+    bn = qm.tile_n(n)
+    rows, cols = -(-m // qm.TILE_M), -(-n // bn)
+    assert bn in qm.TILE_NS
+    count = np.zeros((m, n), np.int32) if m * n <= 4_000_000 else None
+    covered = 0
+    for i in range(rows):
+        for j in range(cols):
+            r0, c0 = i * qm.TILE_M, j * bn
+            r1, c1 = min(m, r0 + qm.TILE_M), min(n, c0 + bn)
+            assert r0 < r1 and c0 < c1          # no block without outputs
+            covered += (r1 - r0) * (c1 - c0)
+            if count is not None:
+                count[r0:r1, c0:c1] += 1
+    assert covered == m * n
+    if count is not None:
+        assert (count == 1).all()
+
+
+@pytest.mark.parametrize("n,want", [(1, 16), (8, 16), (16, 16), (24, 32), (32, 32),
+                                    (48, 64), (64, 64), (96, 64), (144, 64),
+                                    (160, 64), (384, 64), (1000, 64), (1152, 64)])
+def test_qmatmul_small_n_keeps_a_full_tile(n, want):
+    """MobileNetV2's 16-, 24- and 32-channel 1x1s keep a tile no wider
+    than they need; a wide N takes the widest tile, 64."""
+    assert qm.tile_n(n) == want
+    waste = math.ceil(n / want) * want / n
+    assert n < 16 or waste <= 4 / 3
+
+
+@pytest.mark.parametrize("k,offset,copyable", [(64, 0, True), (72, 0, True),
+                                               (1000, 0, True), (27, 0, False),
+                                               (64, 4, False)])
+def test_qmatmul_copies_only_aligned_bf16_rows(k, offset, copyable):
+    """bf16 operands go to the kernel's 16-byte cp.async copy only with
+    K % 8 == 0 and a 16-byte aligned base; others are converted first."""
+    buf = torch.zeros(4 * k + 64, dtype=torch.bfloat16)
+    base = (-buf.data_ptr() // 2) % 8          # elements to a 16-byte boundary
+    t = buf[base + offset: base + offset + 4 * k].view(4, k)
+    assert qm._copyable(t) is copyable
+
+
+RESNET_CONVS = [(56, 64, 64, 1), (56, 64, 128, 2), (28, 128, 128, 1), (28, 128, 256, 2),
+                (14, 256, 256, 1), (14, 256, 512, 2), (7, 512, 512, 1)]
+EDGE_CONVS = [(15, 64, 64, 2), (15, 16, 32, 1), (9, 16, 80, 2), (7, 512, 512, 1),
+              (8, 32, 32, 1), (1, 16, 16, 1), (2, 16, 16, 2), (224, 16, 16, 2),
+              (33, 16, 96, 1)]
+
+
+@pytest.mark.parametrize("h,cin,cout,stride", RESNET_CONVS + EDGE_CONVS)
+def test_conv_tiles_cover_every_output_pixel_once(h, cin, cout, stride):
+    """The kernel's blocks (image, tile, channel tile) cover each output
+    pixel and channel exactly once, as the kernel maps a block's GEMM row r
+    to pixel (oy0 + r // tw, ox0 + r % tw); each tile's patch holds its
+    3x3 windows and fits in shared memory."""
+    ho = wo = (h - 1) // stride + 1
+    tile = qc.conv_tile(ho, wo, stride, cout)
+    assert tile.bm in qc.TILE_MS and tile.bn in (64, 128)
+    assert 1 <= tile.th * tile.tw <= tile.bm
+    assert tile.smem_bytes(stride) <= qc.SMEM_LIMIT
+    ph, pw = tile.halo(stride)
+    assert (tile.th - 1) * stride + 2 < ph and (tile.tw - 1) * stride + 2 < pw
+    tiles_x, tiles_y = -(-wo // tile.tw), -(-ho // tile.th)
+    count = np.zeros((ho, wo), np.int32)
+    for t in range(tiles_y * tiles_x):
+        oy0, ox0 = (t // tiles_x) * tile.th, (t % tiles_x) * tile.tw
+        for r in range(tile.th * tile.tw):
+            oy, ox = oy0 + r // tile.tw, ox0 + r % tile.tw
+            if oy < ho and ox < wo:
+                count[oy, ox] += 1
+    assert (count == 1).all()
+    cols = np.zeros(cout, np.int32)
+    for j in range(-(-cout // tile.bn)):
+        cols[j * tile.bn:(j + 1) * tile.bn] += 1
+    assert (cols == 1).all()
+
+
+@pytest.mark.parametrize("h,cin,cout,stride", RESNET_CONVS)
+def test_conv_tiles_keep_the_gemm_rows_busy(h, cin, cout, stride):
+    """At ResNet-18's maps the chosen tiles fill at least 3/4 of their
+    GEMM rows and stage at most 2.5x the input pixels they cover."""
+    ho = (h - 1) // stride + 1
+    tile = qc.conv_tile(ho, ho, stride, cout)
+    tiles = -(-ho // tile.th) * -(-ho // tile.tw)
+    assert ho * ho / (tiles * tile.bm) >= 0.75
+    ph, pw = tile.halo(stride)
+    assert tiles * ph * pw <= 2.5 * (h * h)
+
+
+@pytest.mark.parametrize("name,index", [("qmatmul", i) for i in range(len(variants.QMATMUL))]
+                         + [("qconv_int8", i) for i in range(len(variants.QCONV))])
+def test_kernel_variant_patches_apply(name, index):
+    """Each source variant that ops/kernels/variants.py times on the card
+    (one phase of a kernel removed or changed) still patches the current
+    source, so the measurement behind the kernels' notes can be repeated."""
+    table = variants.QMATMUL if name == "qmatmul" else variants.QCONV
+    out = variants.patched_copy(name, index, table[index][1])
+    text = open(f"{out}/{name}.cu").read() + open(f"{out}/gemm_sm90.cuh").read()
+    for _, new in table[index][1]:
+        assert new in text
