@@ -96,7 +96,10 @@ without the final result line):
                 stencil's and the tensor cores' time, separate pipes), plus
                 two blocks as a --quant-setup dw_bf16_acts model calls them
                 (expand and dw without output quant; not counted as
-                launches of the main path).  library_ms: bf16 channels-last
+                launches of the main path) and two blocks at the edges of
+                qblock's tiling on synthetic operands (BLOCK_EDGES: 15x15
+                with a residual, 14x14 at stride 2 with hid 144 and Cout
+                24); qblock is also timed with the L2 flushed (cold_ms).  library_ms: bf16 channels-last
                 F.conv2d(groups=C), and for a block the three stages as
                 three calls (torch.matmul, F.conv2d(groups=C),
                 torch.matmul).
@@ -115,14 +118,15 @@ without the final result line):
                 shares of phase 4 are printed beside); throughput of fused
                 against bf16 at batch 64; a profile.  vit_check holds
                 the first fused forward's attention call (recorded, 12 uses)
-                and synthetic calls (64, 6, S, 64) for S in {50, 128, 256}
+                and synthetic calls (64, 6, S, 64) for S in {50, 128, 129,
+                256, 385} (one step, a ragged last step, three steps)
                 (strided float32 views as the model passes them) and one
                 on contiguous bf16 operands against
                 flash_mha_plain: >= 99% bit-equal and all within 2 bf16 ulps
                 at the larger of the two outputs and the attention-weighted
                 mean of |v| (where the weighted sum cancels, a p rounded to
                 its neighbouring bf16 value moves it by a step of the
-                terms); timed as in phase 6, the bound from the bytes the
+                terms); timed as in phase 6 and cold, the bound from the bytes the
                 kernel reads (float32 or bf16 q, k, v) and writes (float32)
                 and 4*B*H*S^2*D tensor-core operations; library_ms:
                 F.scaled_dot_product_attention on contiguous bf16
@@ -165,7 +169,12 @@ without the final result line):
                 quantizers in both bn modes as phase 8 (17 qblock + 2
                 qmatmul; 17 qdwconv3x3 + 35 qmatmul, each with a throughput
                 turn and a profile), and mnv2_int8_check on their recorded
-                depthwise and block calls.
+                depthwise and block calls, with the edge blocks on the
+                integer grids.
+11. batch256_block_attn - flash_mha on (256, 6, 197, 64) float32 views and
+                qblock on the FP8 fp32_after forward's recorded calls with
+                x repeated to N = 256, checked as in phases 8 and 9, timed
+                warm and cold, with sums per forward.
 
 Then a {"kernels": [...]} line (launches: the sum over the main-path runs
 of phases 4, 5, 8, 9 and 10; times: the FP8 forwards of phases 6, 8 and
@@ -308,7 +317,7 @@ def cold_ms(fn, iters=10):
 
 
 # the redesigned kernels, timed also with the L2 cache flushed (cold_ms)
-COLD_TIMED = ("qmatmul", "qconv3x3_int8")
+COLD_TIMED = ("qmatmul", "qconv3x3_int8", "qblock", "flash_mha")
 
 
 def bound_ms(bytes_moved, flops, peak=BF16_FLOPS_PER_S):
@@ -1273,6 +1282,63 @@ def mnv2_block_case(args, kw, uses, label=""):
             lambda: qb.qblock_plain(*args, xf, cfg), check, nbytes, op_s, uses, lib)
 
 
+def synthetic_block(inp, h, stride, cin, hid, cout, use_res, batch=BATCH):
+    """(args, kw) of a qblock call at a shape the main path does not give:
+    random bf16 input norms and per-channel normalized weights from
+    ``inp`` (FP8 or the integer grids), each stage's fold and output
+    quantizer set from the range of that stage's own output in the plain
+    arithmetic, so every stage quantizes real values; bf16 normalized
+    output."""
+    import torch
+    from fp8_quantization_tpu_torch.ops.kernels import qblock as qb
+    from fp8_quantization_tpu_torch.ops.kernels.common import quantize_prepared
+    from fp8_quantization_tpu_torch.ops.kernels.qdwconv import dw_taps_sum
+    method = inp.act_method
+    cfg = qb.FusedBlockConfig(expand=True, stride=stride, use_res=use_res,
+                              emit_norm=True, methods=(method,) * 4)
+    x = inp.norms(batch, h, h, cin)
+    w1 = inp.weight_norms(inp.randn(hid, cin)).t().contiguous()
+    wd = inp.weight_norms(inp.randn(hid, 9)).t().reshape(3, 3, hid).contiguous()
+    w2 = inp.weight_norms(inp.randn(cout, hid)).t().contiguous()
+
+    def fold(y, lo, hi):
+        y = y.reshape(-1, y.shape[-1])
+        return 3.0 / y.std(dim=0).clamp_min(1e-6), inp.uniform(y.shape[-1], lo, hi)
+
+    def norm(y, c):
+        return quantize_prepared(y, method, c, normalized=True).to(torch.bfloat16).float()
+
+    y1 = x.float() @ w1
+    s1, b1 = fold(y1, -0.5, 1.0)
+    h1 = torch.clamp(y1 * s1 + b1, 0.0, 6.0)
+    c_exp = inp.out_consts(h1)
+    yd = dw_taps_sum(norm(h1, c_exp), wd, stride)
+    sd, bd = fold(yd, -0.5, 1.0)
+    hd = torch.clamp(yd * sd + bd, 0.0, 6.0)
+    c_dw = inp.out_consts(hd)
+    y2 = norm(hd, c_dw).reshape(-1, hid) @ w2
+    s2, b2 = fold(y2, -0.3, 0.3)
+    s2 = s2 / 3.0
+    p = (y2 * s2 + b2).reshape(*hd.shape[:3], cout)
+    c_proj = inp.out_consts(p)
+    xf = None
+    c_blk = c_proj
+    if use_res:
+        xf = (p.std() / x.float().std().clamp_min(1e-6)).reshape(())
+        c_blk = inp.out_consts(quantize_prepared(p, method, c_proj) + x.float() * xf)
+    a_c = torch.cat([c_exp, c_dw, c_proj, c_blk], dim=1).contiguous()
+    args = (x, w1.to(torch.bfloat16), wd, w2.to(torch.bfloat16), a_c, s1, b1, sd, bd,
+            s2, b2)
+    return args, {"cfg": cfg, "x_factor": xf}
+
+
+# (H, stride, Cin, hid, Cout, residual) of qblock calls at the edges of its
+# tiling: a 15x15 map (whole-image tile, 225 pixels, ragged m16 rows) with
+# a residual, and a 14x14 map at stride 2 (a 7x7 output, hid split 4 ways
+# with a 16-byte-padded Cin)
+BLOCK_EDGES = [(15, 1, 24, 144, 24, True), (14, 2, 24, 144, 24, False)]
+
+
 def capture_dw_bf16_blocks():
     """The qblock calls of one fused forward of MobileNetV2 under
     --quant-setup dw_bf16_acts (bn mode fp32_after), calibrated on one batch
@@ -1294,12 +1360,14 @@ def capture_dw_bf16_blocks():
     return cap.calls.get("qblock", {})
 
 
-def phase_mnv2_check(results, captures, label="mnv2_check", dw_bf16=True):
+def phase_mnv2_check(results, captures, label="mnv2_check", dw_bf16=True, grid="fp8"):
     """Each MobileNetV2 kernel against its plain version on the operands the
-    main path gave it (recorded by the slice phases), timed as in phase 2:
-    17 depthwise calls in 10 shapes and 17 blocks in 12 configurations,
-    plus (``dw_bf16``) two blocks (56x56 residual, 14x14 without residual)
-    as a dw_bf16_acts model calls them (expand and dw rows "none")."""
+    main path gave it (recorded by the slice phases), timed as in phase 2
+    (qblock also with the L2 flushed, cold_ms): 17 depthwise calls in 10
+    shapes and 17 blocks in 12 configurations, plus (``dw_bf16``) two
+    blocks (56x56 residual, 14x14 without residual) as a dw_bf16_acts model
+    calls them (expand and dw rows "none"), plus the blocks at the edges of
+    qblock's tiling (BLOCK_EDGES) on synthetic operands of ``grid``."""
     from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
     cases = [("qdwconv3x3", mnv2_dw_case(a, kw, u))
              for a, kw, u in captures.get("qdwconv3x3", {}).values()]
@@ -1312,13 +1380,17 @@ def phase_mnv2_check(results, captures, label="mnv2_check", dw_bf16=True):
                 and (a[0].shape[1], cfg.use_res) in ((56, True), (14, False))):
             cases.append(("qblock", mnv2_block_case(
                 a, kw, 0, " dw_bf16_acts " + "/".join(cfg.methods))))
+    inp = Inputs(grid)
+    for edge in BLOCK_EDGES:
+        a, kw = synthetic_block(inp, *edge)
+        cases.append(("qblock", mnv2_block_case(a, kw, 0, f" edge {grid}")))
     want_cases = {"qdwconv3x3": 10, "qblock": 12}
     ok_all = (all(len(captures.get(k, {})) == n for k, n in want_cases.items())
-              and len(cases) == n_main + 2 * dw_bf16)
+              and len(cases) == n_main + 2 * dw_bf16 + len(BLOCK_EDGES))
     for kname, (name, call, plain, check, nbytes, op_s, uses, lib) in cases:
         agg = results.setdefault(kname, {})
         for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
-                  "bytes_s", "ops_s"):
+                  "bytes_s", "ops_s") + (("ms_cold",) if kname in COLD_TIMED else ()):
             agg.setdefault(k, 0.0)
         out = call()
         with no_tf32():
@@ -1327,19 +1399,21 @@ def phase_mnv2_check(results, captures, label="mnv2_check", dw_bf16=True):
         if kname == "qdwconv3x3":
             ok = ok and exact == 1.0                 # the same sums, in order
         ms = kernel_ms(call)
+        cold = {"ms_cold": cold_ms(call)} if kname in COLD_TIMED else {}
         with no_tf32():
             pms = kernel_ms(plain, iters=2, warmup=1)
         lms = kernel_ms(lib)
         bytes_s = nbytes / HBM_BYTES_PER_S
         bms = 1e3 * max(bytes_s, op_s)
         emit({"phase": label, "case": name, "ok": ok, "max_abs_err": err,
-              "exact": exact, "ms": ms, "plain_ms": pms, "library_ms": lms,
+              "exact": exact, "ms": ms, **cold, "plain_ms": pms, "library_ms": lms,
               "bound_ms": bms, "bound_by": "bytes" if bytes_s > op_s else "operations",
               "uses_per_forward": uses})
         ok_all &= ok
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
         for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
-                     ("bound_ms", bms), ("bytes_s", bytes_s), ("ops_s", op_s)):
+                     ("bound_ms", bms), ("bytes_s", bytes_s), ("ops_s", op_s),
+                     *cold.items()):
             agg[k] += uses * v
     return ok_all
 
@@ -1450,7 +1524,7 @@ def flash_synthetic_cases():
     import torch
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     cases = []
-    for s in (50, 128, 256):
+    for s in (50, 128, 129, 256, 385):
         qkv = torch.randn(BATCH, s, 3, 6, 64, generator=g, device="cuda") * 1.5
         cases.append((f"flash_mha ({BATCH},6,{s},64) f32 views",
                       *(qkv[:, :, i].transpose(1, 2) for i in range(3))))
@@ -1580,6 +1654,66 @@ def phase_batch256():
     return ok_all
 
 
+def phase_batch256_block_attn(captures):
+    """The redesigned flash_mha and qblock at batch 256: flash_mha on
+    (256, 6, 197, 64) float32 views of a qkv tensor (checked as in
+    vit_check, 12 uses per ViT forward), qblock on the MobileNetV2 FP8
+    fp32_after forward's recorded calls with x repeated to N = 256 (checked
+    as in mnv2_check); each timed warm and with the L2 cache flushed, with
+    sums per batch-256 forward."""
+    import torch
+    import torch.nn.functional as F
+    from fp8_quantization_tpu_torch.ops.kernels import attention
+    from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
+    n = 256
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    qkv = torch.randn(n, 197, 3, 6, 64, generator=g, device="cuda") * 1.5
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    scale = 0.125
+    out = attention.flash_mha(q, k, v, sm_scale=scale)
+    with no_tf32():
+        ref = attention.flash_mha_plain(q, k, v, sm_scale=scale)
+        ok_all, err, exact = flash_check(out, ref, q, k, v, scale)
+    del out, ref
+    ms = kernel_ms(lambda: attention.flash_mha(q, k, v, sm_scale=scale))
+    cms = cold_ms(lambda: attention.flash_mha(q, k, v, sm_scale=scale))
+    ql, kl, vl = (t.to(torch.bfloat16).contiguous() for t in (q, k, v))
+    lms = kernel_ms(lambda: F.scaled_dot_product_attention(ql, kl, vl))
+    nbytes, flops = 3 * q.numel() * 4 + q.numel() * 4, 4 * n * 6 * 197 * 197 * 64
+    uses = VIT_LAUNCHES["flash_mha"]
+    emit({"phase": "batch256_block_attn", "case": f"flash_mha ({n},6,197,64) f32 views",
+          "ok": ok_all, "max_abs_err": err, "exact": exact, "ms": ms, "ms_cold": cms,
+          "library_ms": lms, "bound_ms": bound_ms(nbytes, flops),
+          "bound_by": bound_by(nbytes, flops), "uses_per_forward": uses,
+          "per_vit_forward": {"ms": uses * ms, "ms_cold": uses * cms,
+                              "library_ms": uses * lms,
+                              "bound_ms": uses * bound_ms(nbytes, flops)}})
+    del qkv, q, k, v, ql, kl, vl
+    recorded = list(captures.get("qblock", {}).values())
+    ok_all &= len(recorded) == 12
+    total = dict(ms=0.0, ms_cold=0.0, library_ms=0.0, bound_ms=0.0)
+    for a, kw, uses in recorded:
+        args = (a[0].repeat(n // a[0].shape[0], 1, 1, 1), *a[1:])
+        name, call, plain, check, nbytes, op_s, uses, lib = mnv2_block_case(args, kw, uses)
+        out = call()
+        with no_tf32():
+            ref = plain()
+        ok, err, exact = check(out, ref)
+        del out, ref
+        ms, cms, lms = kernel_ms(call), cold_ms(call), kernel_ms(lib)
+        bms = 1e3 * max(nbytes / HBM_BYTES_PER_S, op_s)
+        emit({"phase": "batch256_block_attn", "case": name, "ok": ok, "max_abs_err": err,
+              "exact": exact, "ms": ms, "ms_cold": cms, "library_ms": lms,
+              "bound_ms": bms, "uses_per_forward": uses})
+        ok_all &= ok
+        for key, val in (("ms", ms), ("ms_cold", cms), ("library_ms", lms),
+                         ("bound_ms", bms)):
+            total[key] += uses * val
+    emit({"phase": "batch256_block_attn", "case": f"qblock per MobileNetV2 forward at batch {n}",
+          "ok": ok_all, **total})
+    return ok_all
+
+
 def phase_vit_check(results, captures):
     """flash_mha against flash_mha_plain on the first fused forward's
     attention call (12 uses) and the synthetic calls, timed as phase 6;
@@ -1594,7 +1728,8 @@ def phase_vit_check(results, captures):
     cases += [(*c, 0) for c in flash_synthetic_cases()]
     ok_all = len(recorded) == 1 and recorded[0][2] == VIT_LAUNCHES["flash_mha"]
     agg = results.setdefault("flash_mha", {})
-    for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms", "bytes", "flops"):
+    for k in ("max_abs_err", "ms", "ms_cold", "plain_ms", "library_ms", "bound_ms",
+              "bytes", "flops"):
         agg.setdefault(k, 0.0)
     for name, q, k, v, uses in cases:
         b, h, s, d = q.shape
@@ -1604,6 +1739,7 @@ def phase_vit_check(results, captures):
             ref = attention.flash_mha_plain(q, k, v, sm_scale=scale)
             ok, err, exact = flash_check(out, ref, q, k, v, scale)
         ms = kernel_ms(lambda: attention.flash_mha(q, k, v, sm_scale=scale))
+        cms = cold_ms(lambda: attention.flash_mha(q, k, v, sm_scale=scale))
         with no_tf32():
             pms = kernel_ms(lambda: attention.flash_mha_plain(q, k, v, sm_scale=scale),
                           iters=2, warmup=1)
@@ -1613,12 +1749,12 @@ def phase_vit_check(results, captures):
         flops = 4 * b * h * s * s * d
         bms = bound_ms(nbytes, flops)
         emit({"phase": "vit_check", "case": name, "ok": ok, "max_abs_err": err,
-              "exact": exact, "ms": ms, "plain_ms": pms, "library_ms": lms,
-              "bound_ms": bms, "bound_by": bound_by(nbytes, flops),
+              "exact": exact, "ms": ms, "ms_cold": cms, "plain_ms": pms,
+              "library_ms": lms, "bound_ms": bms, "bound_by": bound_by(nbytes, flops),
               "uses_per_forward": uses})
         ok_all &= ok
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
-        for key, val in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
+        for key, val in (("ms", ms), ("ms_cold", cms), ("plain_ms", pms), ("library_ms", lms),
                          ("bound_ms", bms), ("bytes", nbytes), ("flops", flops)):
             agg[key] += uses * val
     return vit_matmul_check(captures) and ok_all
@@ -1709,7 +1845,8 @@ def phase_profile(fused, label="profile", quant_w=False,
 def phase_mnv2_int8_check(int_results, int_captures):
     """mnv2_check on the MobileNetV2 INT8 slices' calls, then their sums
     per forward (qblock: fp32_after; qdwconv3x3: folded)."""
-    ok = phase_mnv2_check(int_results, int_captures, "mnv2_int8_check", dw_bf16=False)
+    ok = phase_mnv2_check(int_results, int_captures, "mnv2_int8_check", dw_bf16=False,
+                          grid="int")
     emit({"phase": "mnv2_int8_check", "case": "sums per forward", "ok": ok,
           **{k: int_results.get(k) for k in ("qblock", "qdwconv3x3")}})
     return ok
@@ -1835,6 +1972,7 @@ def main():
     phases += mnv2_phases + [("mnv2_check", lambda: phase_mnv2_check(results, captures))]
     phases += int_phases(results, slice_out)
     phases += vit_phases
+    phases += [("batch256_block_attn", lambda: phase_batch256_block_attn(captures))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

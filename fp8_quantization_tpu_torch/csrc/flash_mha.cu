@@ -14,267 +14,346 @@
 // stored as float32.  expf, not __expf, and the build's -fmad=false keep
 // every step a single rounding, as in the plain PyTorch version.
 //
-// Layout: q, k, v are read through (batch, head, row) strides with D
-// contiguous, as float32 or bf16 (rounded to bf16 while staged), so the
-// model passes views of its (B, S, 3, H, D) qkv output; the output is
-// written (B, S, H, D), the projection's (B*S, H*D) input.
+// Layout: q, k, v are read through (batch, head, row) strides with D = 64
+// contiguous, as float32 or bf16, so the model passes views of its
+// (B, S, 3, H, D) qkv output; the output is written (B, S, H, D), the
+// projection's (B*S, H*D) input.  Every row and base must be 16-byte
+// aligned (the wrapper checks it).
 //
 // Bound on the card: at ViT-S/16 (B = 64, H = 6, S = 197, D = 64) one call
-// does 3.8 GFLOP of tensor-core work (3.9 us at 989 TFLOP/s) and reads
-// 58 MB of float32 q/k/v and writes 19 MB (23 us at 3.35 TB/s): bytes bound
-// it.  Design: one block per (b, h, 64-query tile), four warps of 16 query
-// rows; the q tile stays in shared memory, each 128-key step stages K and V
-// in bf16 (rows past S zero-filled), the warp's 16x128 scores go through
-// bf16 wmma into shared memory, the row statistics run over a warp with
-// shuffles, p is stored as bf16 for the second wmma product, and the
-// accumulator stays in registers.  Simple first: K and V are re-read by each
-// query tile and staged without cp.async/TMA; wgmma and pipelining are later
-// work.
+// reads 58 MB of float32 q/k/v and writes 19 MB (23 us at 3.35 TB/s) and
+// does 3.8 GFLOP of tensor-core work (3.9 us at 989 TFLOP/s): bytes bound
+// it, with a 6x margin over the products.  So the design spends nothing on
+// wgmma and everything on moving each byte once, in wide transactions:
+//
+//   * a work item is one (b, h, query group) with one warp per 16 query
+//     rows and up to 13 warps (208 rows), so every query row of ViT-S/16's
+//     197 is in one item and each K/V byte of a (b, h) leaves device memory
+//     once;
+//   * q and the K and V of each 128-key step arrive by 16-byte cp.async
+//     into raw (input-type) buffers, zero-filled past S; one pass converts
+//     them to bf16 rows that ldmatrix reads;
+//   * one persistent block an SM walks the items, and the copies of the
+//     next step, or in the last step those of the next item's q and first
+//     step, run under the current step's products, so the block never
+//     waits on device memory between items;
+//   * each warp keeps its 16 x 128 scores in m16n8 accumulator fragments,
+//     reduces the row max and sum within the quad (two shuffles each),
+//     packs p to bf16 A fragments in registers (the C layout of two n8
+//     tiles is the A layout of a k16 step) for the p.v product, and keeps
+//     the step's p.v sum and the running accumulator in registers: no
+//     score or probability scratch in shared memory.
+//
+// Occupancy: a thread holds 64 score, 32 accumulator and 32 p.v registers
+// at most, so a 13-warp block takes all of an SM's registers (ptxas gives
+// it 128 a thread): one block of 13 warps an SM, against two blocks of 4
+// warps before; its 185 KB of shared memory (float32 input) would allow
+// one block too.  The overlap of copies and products, not more warps,
+// hides the load latency.
 #include <math.h>
 
-#include "fq_epilogue.cuh"
+#include <algorithm>
+#include <type_traits>
+
+#include "warp_mma.cuh"
 
 namespace {
 
-constexpr int BQ = 64;          // query rows per block: four warps of 16
-constexpr int BKV = 128;        // keys per step, the Pallas block_k
-constexpr int THREADS = 128;
-constexpr int LDS = BKV + 4;    // fp32 score / product scratch row
-constexpr int LDP = BKV + 8;    // bf16 probability row
-
-template <int D>
-struct Layout {
-  static constexpr int LD = D + 8;                    // bf16 q / k / v row
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(__nv_bfloat16) * BQ * LD;
-  static constexpr size_t v = k + sizeof(__nv_bfloat16) * BKV * LD;
-  static constexpr size_t s = v + sizeof(__nv_bfloat16) * BKV * LD;
-  static constexpr size_t p = s + sizeof(float) * BQ * LDS;
-  static constexpr size_t stats = p + sizeof(__nv_bfloat16) * BQ * LDP;
-  static constexpr size_t bytes = stats + sizeof(float) * 4 * BQ;
-};
+constexpr int D = 64;          // head width (ViT-S/16, ViT-B, ViT-L)
+constexpr int BKV = 128;       // keys per step, the Pallas block_k
+constexpr int MAX_WARPS = 13;  // query rows per block: 16 per warp
+constexpr int LD = D + 8;      // bf16 smem row (144 B: ldmatrix without
+                               // bank conflicts)
 
 struct Strides {
   long long qb, qh, qs, kb, kh, ks, vb, vh, vs;
 };
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
+template <typename T>
+struct Stage {
+  static constexpr int VEC = 16 / sizeof(T);   // elements per 16 bytes
+  static constexpr int SEGS = D / VEC;         // 16-byte pieces per row
+  static constexpr size_t raw_kv = sizeof(T) * 2 * BKV * D;   // K, V raw
+  static size_t bytes(int nw) {                // + q raw, K, V and q bf16
+    return raw_kv + sizeof(T) * 16 * nw * D +
+           sizeof(__nv_bfloat16) * (2 * BKV + 16 * nw) * LD;
+  }
+};
 
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = __fadd_rn(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
+// 16 bytes of input (four float32 or eight bf16 values) -> bf16 in shared
+// memory.
+__device__ __forceinline__ void to_bf16(__nv_bfloat16* dst, const float4& f) {
+  *reinterpret_cast<uint2*>(dst) =
+      make_uint2(wm::pack_bf16(f.x, f.y), wm::pack_bf16(f.z, f.w));
 }
+__device__ __forceinline__ void to_bf16(__nv_bfloat16* dst, const uint4& b) {
+  *reinterpret_cast<uint4*>(dst) = b;
+}
+template <typename T>
+using Vec = typename std::conditional<sizeof(T) == 4, float4, uint4>::type;
 
-// rows row0 .. row0+nrows-1 of one (b, h) slice into bf16 shared memory,
-// zero past S
-template <typename T, int D>
-__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const T* src,
-                                           long long row_stride, int row0,
-                                           int nrows, int S) {
-  for (int i = threadIdx.x; i < nrows * D; i += THREADS) {
-    const int r = i / D, c = i % D, row = row0 + r;
-    const float x = row < S ? fq::to_float(src[row * row_stride + c]) : 0.0f;
-    dst[r * Layout<D>::LD + c] = __float2bfloat16_rn(x);
+// Rows r0 .. r0+n-1 of one (b, h) slice into a raw buffer (D contiguous),
+// zero past S, by 16-byte cp.async.
+template <typename T>
+__device__ __forceinline__ void stage_rows(T* raw, const T* src, long long rs,
+                                           int r0, int n, int S, int nthreads) {
+  using St = Stage<T>;
+  for (int i = threadIdx.x; i < n * St::SEGS; i += nthreads) {
+    const int r = i / St::SEGS, c = (i % St::SEGS) * St::VEC;
+    const bool valid = r0 + r < S;
+    wm::cp_async16(raw + r * D + c, src + (valid ? (r0 + r) * rs : 0) + c, valid);
   }
 }
 
-template <typename T, int D>
-__global__ void __launch_bounds__(THREADS)
+// raw rows -> bf16 rows of LD
+template <typename T>
+__device__ __forceinline__ void convert_rows(__nv_bfloat16* dst, const T* raw,
+                                             int n, int nthreads) {
+  using St = Stage<T>;
+  for (int i = threadIdx.x; i < n * St::SEGS; i += nthreads) {
+    const int r = i / St::SEGS, c = (i % St::SEGS) * St::VEC;
+    to_bf16(dst + r * LD + c, *reinterpret_cast<const Vec<T>*>(raw + r * D + c));
+  }
+}
+
+// One (b, h, query group) of the launch: its q, k, v slices and rows.
+template <typename T>
+struct Item {
+  const T *q, *k, *v;
+  int b, h, q0;
+  __device__ Item(const T* q_, const T* k_, const T* v_, const Strides& st,
+                  int item, int groups, int H, int nrows) {
+    const int grp = item % groups, bh = item / groups;
+    h = bh % H;
+    b = bh / H;
+    q0 = grp * nrows;
+    q = q_ + b * st.qb + h * st.qh;
+    k = k_ + b * st.kb + h * st.kh;
+    v = v_ + b * st.vb + h * st.vh;
+  }
+};
+
+// Persistent: each block walks the items blockIdx.x, + gridDim.x, ...; the
+// copies of the next step (or of the next item's q and first step) run
+// under the current step's products.
+template <typename T>
+__global__ void __launch_bounds__(MAX_WARPS * 32, 1)
 flash_mha_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, Strides st, float* __restrict__ out,
-                 int H, int S, float sm_scale) {
-  using namespace nvcuda;
-  using L = Layout<D>;
-  constexpr int LD = L::LD, NC = D / 32;
+                 int H, int S, int groups, int items, float sm_scale) {
+  using St = Stage<T>;
   extern __shared__ __align__(128) unsigned char smem[];
-  __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem + L::q);
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(smem + L::k);
-  __nv_bfloat16* vs = reinterpret_cast<__nv_bfloat16*>(smem + L::v);
-  float* sc = reinterpret_cast<float*>(smem + L::s);
-  __nv_bfloat16* ps = reinterpret_cast<__nv_bfloat16*>(smem + L::p);
-  float* m_s = reinterpret_cast<float*>(smem + L::stats);
-  float* l_s = m_s + BQ;
-  float* corr_s = l_s + BQ;
-  float* inv_s = corr_s + BQ;
+  T* raw_kv = reinterpret_cast<T*>(smem);
+  T* raw_q = reinterpret_cast<T*>(smem + St::raw_kv);
+  const int nthreads = blockDim.x, nrows = nthreads / 2;   // 16 per warp
+  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(
+      smem + St::raw_kv + sizeof(T) * nrows * D);
+  __nv_bfloat16* vs = ks + BKV * LD;
+  __nv_bfloat16* qs = vs + BKV * LD;
 
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int q0 = blockIdx.x * BQ, h = blockIdx.y, b = blockIdx.z;
-  const int wr = warp * 16;               // the warp's first row of the tile
-  const bool single = S <= BKV;           // the Pallas single-step variant
-  q += b * st.qb + h * st.qh;
-  k += b * st.kb + h * st.kh;
-  v += b * st.vb + h * st.vh;
+  const int g = lane >> 2, q4 = lane & 3;
+  const int wr = warp * 16;              // the warp's first row in qs
+  const bool single = S <= BKV;          // the Pallas single-step variant
+  const int steps = (S + BKV - 1) / BKV;
 
-  stage_rows<T, D>(qs, q, st.qs, q0, BQ, S);
-  if (tid < BQ) {
-    m_s[tid] = -INFINITY;
-    l_s[tid] = 0.0f;
+  if (blockIdx.x < items) {              // the first item's q and step
+    const Item<T> it(q, k, v, st, blockIdx.x, groups, H, nrows);
+    stage_rows<T>(raw_q, it.q, st.qs, it.q0, nrows, S, nthreads);
+    stage_rows<T>(raw_kv, it.k, st.ks, 0, BKV, S, nthreads);
+    stage_rows<T>(raw_kv + BKV * D, it.v, st.vs, 0, BKV, S, nthreads);
+    wm::cp_async_commit();
   }
-  // the warp's 16 x D accumulator: row r, column lane + 32 * i
-  float acc[16][NC];
+  for (int item = blockIdx.x; item < items; item += gridDim.x) {
+    const Item<T> it(q, k, v, st, item, groups, H, nrows);
+    const bool active = it.q0 + wr < S;    // the warp has a real query row
+    float m_row[2] = {-INFINITY, -INFINITY}, l_row[2] = {0.0f, 0.0f};
+    // the warp's 16 x 64 accumulator: n8 tile t, rows g / g + 8
+    float acc[D / 8][4];
 #pragma unroll
-  for (int r = 0; r < 16; ++r)
+    for (int t = 0; t < D / 8; ++t)
 #pragma unroll
-    for (int i = 0; i < NC; ++i) acc[r][i] = 0.0f;
+      for (int e = 0; e < 4; ++e) acc[t][e] = 0.0f;
 
-  for (int k0 = 0; k0 < S; k0 += BKV) {
-    __syncthreads();                      // the last step is done with k, v
-    stage_rows<T, D>(ks, k, st.ks, k0, BKV, S);
-    stage_rows<T, D>(vs, v, st.vs, k0, BKV, S);
-    __syncthreads();
+    for (int step = 0; step < steps; ++step) {
+      const int k0 = step * BKV;
+      const bool full = k0 + BKV <= S;     // no key of the step is masked
+      wm::cp_async_wait<0>();
+      __syncthreads();                     // the raw buffers hold this step;
+                                           // the last step is done with ks,
+                                           // vs (and qs)
+      if (step == 0) convert_rows<T>(qs, raw_q, nrows, nthreads);
+      convert_rows<T>(ks, raw_kv, 2 * BKV, nthreads);     // V rows follow K
+      __syncthreads();
+      if (step + 1 < steps) {              // the next step under this one
+        stage_rows<T>(raw_kv, it.k, st.ks, k0 + BKV, BKV, S, nthreads);
+        stage_rows<T>(raw_kv + BKV * D, it.v, st.vs, k0 + BKV, BKV, S, nthreads);
+        wm::cp_async_commit();
+      } else if (item + gridDim.x < items) {   // or the next item's first
+        const Item<T> nx(q, k, v, st, item + gridDim.x, groups, H, nrows);
+        stage_rows<T>(raw_q, nx.q, st.qs, nx.q0, nrows, S, nthreads);
+        stage_rows<T>(raw_kv, nx.k, st.ks, 0, BKV, S, nthreads);
+        stage_rows<T>(raw_kv + BKV * D, nx.v, st.vs, 0, BKV, S, nthreads);
+        wm::cp_async_commit();
+      }
+      if (!active) continue;
 
-    {  // s = q k^T for the warp's 16 rows and the step's 128 keys
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> c[BKV / 16];
+      // s = q k^T: 16 n8 tiles of the warp's 16 rows x 128 keys
+      float s[BKV / 8][4];
 #pragma unroll
-      for (int j = 0; j < BKV / 16; ++j) wmma::fill_fragment(c[j], 0.0f);
+      for (int t = 0; t < BKV / 8; ++t)
 #pragma unroll
-      for (int kd = 0; kd < D; kd += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, qs + wr * LD + kd, LD);
+        for (int e = 0; e < 4; ++e) s[t][e] = 0.0f;
 #pragma unroll
-        for (int j = 0; j < BKV / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::col_major> bt;
-          wmma::load_matrix_sync(bt, ks + 16 * j * LD + kd, LD);
-          wmma::mma_sync(c[j], a, bt, c[j]);
+      for (int kc = 0; kc < D / 16; ++kc) {
+        uint32_t a[4];
+        wm::ldsm_x4(a, qs + (wr + (lane & 15)) * LD + kc * 16 + (lane >> 4) * 8);
+#pragma unroll
+        for (int np = 0; np < BKV / 16; ++np) {
+          uint32_t bk[4];
+          wm::ldsm_x4(bk, ks + (np * 16 + (lane & 7) + ((lane >> 4) << 3)) * LD +
+                              kc * 16 + ((lane >> 3) & 1) * 8);
+          wm::mma_bf16(s[2 * np], a, bk[0], bk[1]);
+          wm::mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);
+        }
+      }
+
+      // row statistics within the quad; p = exp(s - m_next)
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int t = 0; t < BKV / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s[t][e] = __fmul_rn(s[t][e], sm_scale);
+          if (full || k0 + 8 * t + 2 * q4 + (e & 1) < S)
+            mx[e >> 1] = fmaxf(mx[e >> 1], s[t][e]);
+        }
+      float m_next[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
+        mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
+        m_next[r] = fmaxf(m_row[r], mx[r]);
+      }
+#pragma unroll
+      for (int t = 0; t < BKV / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = (full || k0 + 8 * t + 2 * q4 + (e & 1) < S)
+                              ? expf(__fsub_rn(s[t][e], m_next[e >> 1]))
+                              : 0.0f;
+          s[t][e] = p;
+          sum[e >> 1] = __fadd_rn(sum[e >> 1], p);
+        }
+      float corr[2], inv[2];
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 1));
+        sum[r] = __fadd_rn(sum[r], __shfl_xor_sync(0xffffffffu, sum[r], 2));
+        const float l_corr = __fmul_rn(expf(__fsub_rn(m_row[r], m_next[r])), l_row[r]);
+        const float l_next = __fadd_rn(sum[r], l_corr);
+        inv[r] = l_next == 0.0f ? 1.0f : __fdiv_rn(1.0f, l_next);
+        corr[r] = __fmul_rn(l_corr, inv[r]);
+        m_row[r] = m_next[r];
+        l_row[r] = l_next;
+      }
+
+      // p as bf16 A fragments (normalized first in the single-step variant)
+      uint32_t pa[BKV / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          float* c = s[2 * kk + hf];
+          if (single) {
+            c[0] = __fdiv_rn(c[0], sum[0]);
+            c[1] = __fdiv_rn(c[1], sum[0]);
+            c[2] = __fdiv_rn(c[2], sum[1]);
+            c[3] = __fdiv_rn(c[3], sum[1]);
+          }
+          pa[kk][2 * hf] = wm::pack_bf16(c[0], c[1]);
+          pa[kk][2 * hf + 1] = wm::pack_bf16(c[2], c[3]);
+        }
+
+      // o = p v over the step's 128 keys
+      float o[D / 8][4];
+#pragma unroll
+      for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[t][e] = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < BKV / 16; ++kk) {
+#pragma unroll
+        for (int dp = 0; dp < D / 16; ++dp) {
+          uint32_t bv[4];
+          wm::ldsm_x4_t(bv, vs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * LD +
+                                dp * 16 + (lane >> 4) * 8);
+          wm::mma_bf16(o[2 * dp], pa[kk], bv[0], bv[1]);
+          wm::mma_bf16(o[2 * dp + 1], pa[kk], bv[2], bv[3]);
         }
       }
 #pragma unroll
-      for (int j = 0; j < BKV / 16; ++j)
-        wmma::store_matrix_sync(sc + wr * LDS + 16 * j, c[j], LDS,
-                                wmma::mem_row_major);
+      for (int t = 0; t < D / 8; ++t)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[t][e] = single ? o[t][e]
+                             : __fadd_rn(__fmul_rn(acc[t][e], corr[e >> 1]),
+                                         __fmul_rn(o[t][e], inv[e >> 1]));
     }
-    __syncwarp();
 
-    // row statistics and p (bf16), one row at a time over the warp
-    for (int r = wr; r < wr + 16; ++r) {
-      float pv[BKV / 32];
-      float m_cur = -INFINITY;
+    if (!active) continue;
 #pragma unroll
-      for (int i = 0; i < BKV / 32; ++i) {
-        const int c = lane + 32 * i;
-        pv[i] = __fmul_rn(sc[r * LDS + c], sm_scale);
-        if (k0 + c < S) m_cur = fmaxf(m_cur, pv[i]);
-      }
-      const float m_prev = m_s[r];
-      const float m_next = fmaxf(m_prev, warp_max(m_cur));
-      float sum = 0.0f;
+    for (int r = 0; r < 2; ++r) {
+      const int row = it.q0 + wr + g + 8 * r;
+      if (row >= S) continue;
+      float* dst =
+          out + ((static_cast<long long>(it.b) * S + row) * H + it.h) * D + 2 * q4;
 #pragma unroll
-      for (int i = 0; i < BKV / 32; ++i) {
-        pv[i] = k0 + lane + 32 * i < S ? expf(__fsub_rn(pv[i], m_next)) : 0.0f;
-        sum = __fadd_rn(sum, pv[i]);
-      }
-      sum = warp_sum(sum);
-      if (single) {
-#pragma unroll
-        for (int i = 0; i < BKV / 32; ++i)
-          ps[r * LDP + lane + 32 * i] = __float2bfloat16_rn(__fdiv_rn(pv[i], sum));
-      } else {
-        const float l_corr = __fmul_rn(expf(__fsub_rn(m_prev, m_next)), l_s[r]);
-        const float l_next = __fadd_rn(sum, l_corr);
-        const float inv = l_next == 0.0f ? 1.0f : __fdiv_rn(1.0f, l_next);
-#pragma unroll
-        for (int i = 0; i < BKV / 32; ++i)
-          ps[r * LDP + lane + 32 * i] = __float2bfloat16_rn(pv[i]);
-        __syncwarp();                     // every lane has read m_s, l_s
-        if (lane == 0) {
-          m_s[r] = m_next;
-          l_s[r] = l_next;
-          corr_s[r] = __fmul_rn(l_corr, inv);
-          inv_s[r] = inv;
-        }
-      }
+      for (int t = 0; t < D / 8; ++t)
+        *reinterpret_cast<float2*>(dst + 8 * t) = make_float2(
+            __bfloat162float(__float2bfloat16_rn(acc[t][2 * r])),
+            __bfloat162float(__float2bfloat16_rn(acc[t][2 * r + 1])));
     }
-    __syncwarp();
-
-    {  // o = p v into the warp's rows of the score scratch
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> o[D / 16];
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j) wmma::fill_fragment(o[j], 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < BKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                       wmma::row_major> a;
-        wmma::load_matrix_sync(a, ps + wr * LDP + kk, LDP);
-#pragma unroll
-        for (int j = 0; j < D / 16; ++j) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                         wmma::row_major> bv;
-          wmma::load_matrix_sync(bv, vs + kk * LD + 16 * j, LD);
-          wmma::mma_sync(o[j], a, bv, o[j]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < D / 16; ++j)
-        wmma::store_matrix_sync(sc + wr * LDS + 16 * j, o[j], LDS,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
-
-#pragma unroll
-    for (int r = 0; r < 16; ++r) {
-      const float* orow = sc + (wr + r) * LDS;
-      if (single) {
-#pragma unroll
-        for (int i = 0; i < NC; ++i) acc[r][i] = orow[lane + 32 * i];
-      } else {
-        const float corr = corr_s[wr + r], inv = inv_s[wr + r];
-#pragma unroll
-        for (int i = 0; i < NC; ++i)
-          acc[r][i] = __fadd_rn(__fmul_rn(acc[r][i], corr),
-                                __fmul_rn(orow[lane + 32 * i], inv));
-      }
-    }
-    __syncwarp();                         // the scratch is read before reuse
-  }
-
-#pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    const int row = q0 + wr + r;
-    if (row >= S) continue;
-    float* dst = out + ((static_cast<long long>(b) * S + row) * H + h) * D;
-#pragma unroll
-    for (int i = 0; i < NC; ++i)
-      dst[lane + 32 * i] = __bfloat162float(__float2bfloat16_rn(acc[r][i]));
   }
 }
 
-template <typename T, int D>
+template <typename T>
 int launch(const void* q, const void* k, const void* v, const Strides& st,
-           float* out, int B, int H, int S, float sm_scale,
-           cudaStream_t stream) {
-  auto kernel = flash_mha_kernel<T, D>;
-  constexpr size_t smem = Layout<D>::bytes;
+           float* out, int B, int H, int S, int groups, int warps,
+           float sm_scale, cudaStream_t stream) {
+  auto kernel = flash_mha_kernel<T>;
+  const size_t smem = Stage<T>::bytes(warps);
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((S + BQ - 1) / BQ, H, B);
-  kernel<<<grid, THREADS, smem, stream>>>(
+  int device = 0, sms = 0;
+  err = cudaGetDevice(&device);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int items = groups * H * B;      // one block an SM walks them
+  kernel<<<std::min(items, sms), warps * 32, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), st, out, H, S, sm_scale);
+      static_cast<const T*>(v), st, out, H, S, groups, items, sm_scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int HEAD_DIM = 64;            // ViT-S/16 (and ViT-B, ViT-L)
-
 }  // namespace
 
+// groups x warps: the query grid of ops/kernels/attention.flash_grid, each
+// group of 16 * warps rows one block.
 extern "C" int flash_mha_launch(const void* q, const void* k, const void* v,
                                 int in_bf16, long long qb, long long qh,
                                 long long qs, long long kb, long long kh,
                                 long long ks, long long vb, long long vh,
                                 long long vs, float* out, int B, int H, int S,
-                                int D, float sm_scale, void* stream) {
+                                int Dh, int groups, int warps, float sm_scale,
+                                void* stream) {
   const Strides st{qb, qh, qs, kb, kh, ks, vb, vh, vs};
   auto s = static_cast<cudaStream_t>(stream);
-  if (D != HEAD_DIM) return static_cast<int>(cudaErrorInvalidValue);
+  if (Dh != D || warps < 1 || warps > MAX_WARPS || groups * warps * 16 < S)
+    return static_cast<int>(cudaErrorInvalidValue);
   if (in_bf16)
-    return launch<__nv_bfloat16, HEAD_DIM>(q, k, v, st, out, B, H, S, sm_scale, s);
-  return launch<float, HEAD_DIM>(q, k, v, st, out, B, H, S, sm_scale, s);
+    return launch<__nv_bfloat16>(q, k, v, st, out, B, H, S, groups, warps, sm_scale, s);
+  return launch<float>(q, k, v, st, out, B, H, S, groups, warps, sm_scale, s);
 }

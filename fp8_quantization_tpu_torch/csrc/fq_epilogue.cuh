@@ -98,6 +98,78 @@ __device__ __forceinline__ float quantize(float x, int method,
   return x;
 }
 
+// A quantizer with the reciprocal of its divisor computed once: the FP8
+// grid divides x by factor * 2^p, the integer grids by delta.  Dividing by
+// 2^p is an exact scaling, and RN(a / d) comes from inv = RN(1 / d) by one
+// Newton step, q = RN(a * inv), r = a - q * d (exact, fused), RN(q + r *
+// inv) (Markstein's theorem: correctly rounded when inv is, barring
+// overflow and underflow), so quantize_inv returns quantize()'s values
+// without an IEEE division per value.  Used by the block kernel, where the
+// quantizers of the expanded and filtered tensors run on every
+// intermediate value (qblock.cu).
+struct InvQuant {
+  QuantConsts k;
+  float inv;
+  int method;
+  int bias_int, g;      // FP8: rows 2 and 4, integers, as ints
+};
+
+__device__ __forceinline__ InvQuant make_inv_quant(int method,
+                                                   const QuantConsts& k) {
+  InvQuant q{k, 1.0f, method, static_cast<int>(k.r[2]),
+             static_cast<int>(k.r[4])};
+  if (method == kQuantFp8) q.inv = __fdiv_rn(1.0f, k.factor());
+  if (method == kQuantIntAsym || method == kQuantIntSym)
+    q.inv = __fdiv_rn(1.0f, k.r[0]);
+  return q;
+}
+
+// RN(a / d), given inv = RN(1 / d)
+__device__ __forceinline__ float div_inv(float a, float d, float inv) {
+  const float q = __fmul_rn(a, inv);
+  return __fmaf_rn(__fmaf_rn(-q, d, a), inv, q);
+}
+
+// quantize_inv for a method known at compile time (M = kQuantIntAsym
+// serves both integer methods): straight-line code that the compiler can
+// interleave across values.
+template <int M>
+__device__ __forceinline__ float quantize_inv_m(float x, const InvQuant& q,
+                                                bool normalized) {
+  const QuantConsts& k = q.k;
+  if constexpr (M == kQuantFp8) {
+    // fq_quantize's bin in integers (bias_int and g are whole numbers)
+    const float xc = fminf(fmaxf(x, k.r[0]), k.r[1]);
+    const float y = __fmul_rn(fabsf(xc), k.r[3]);
+    const int e = ((__float_as_int(y) >> 23) & 0xFF) - 127;
+    const int pi = min(max(max(e + q.bias_int, 1) + q.g, -126), 127);
+    const float pow2 = __int_as_float((pi + 127) << 23);
+    const float scale = __fmul_rn(pow2, k.factor());
+    // xc / 2^p, exact (2^-p is normal up to p = 126; at p = 127 a second
+    // halving can round only where |xc / scale| is far below 1/2)
+    float t = __fmul_rn(xc, __int_as_float((127 - min(pi, 126)) << 23));
+    if (pi == 127) t = __fmul_rn(t, 0.5f);
+    const float m = rintf(div_inv(t, k.factor(), q.inv));
+    return normalized ? __fmul_rn(m, pow2) : __fmul_rn(m, scale);
+  } else if constexpr (M == kQuantIntAsym) {
+    const float delta = k.r[0], zp = k.r[1];
+    const float xi = fminf(fmaxf(__fadd_rn(rintf(div_inv(x, delta, q.inv)), zp),
+                                 k.r[2]), k.r[3]);
+    const float v = __fsub_rn(xi, zp);
+    return normalized ? v : __fmul_rn(v, delta);
+  } else {
+    return x;
+  }
+}
+
+__device__ __forceinline__ float quantize_inv(float x, const InvQuant& q,
+                                              bool normalized) {
+  if (q.method == kQuantFp8) return quantize_inv_m<kQuantFp8>(x, q, normalized);
+  if (q.method == kQuantIntAsym || q.method == kQuantIntSym)
+    return quantize_inv_m<kQuantIntAsym>(x, q, normalized);
+  return x;
+}
+
 __device__ __forceinline__ float apply_act(float y, int activation) {
   if (activation == kActRelu) return fmaxf(y, 0.0f);
   if (activation == kActRelu6) return fminf(fmaxf(y, 0.0f), 6.0f);

@@ -3,10 +3,13 @@
 Mirrors ``flash_mha`` of ``fp8_quantization_tpu/ops/pallas/attention.py``
 (line 43), which wraps jax.experimental's Pallas TPU flash-attention kernel
 (``jax/experimental/pallas/ops/tpu/flash_attention.py``).  The kernel is
-``csrc/flash_mha.cu``: one block per (batch, head, 64-query tile), the keys
-in steps of 128 as the Pallas kernel takes them, both products on the
-tensor cores in bf16 with fp32 sums, the softmax statistics in fp32.  It is
-bound by bytes at ViT-S/16's shapes (see the note in the source).
+``csrc/flash_mha.cu``: one block per (batch, head, query group) of up to 13
+warps of 16 query rows (``flash_grid``), so each (b, h)'s K and V of
+ViT-S/16 are read once; the keys in steps of 128 as the Pallas kernel
+takes them, both products on the tensor cores (``mma.sync``, bf16, fp32
+sums), the scores, p and the accumulator in registers, the softmax
+statistics in fp32.  It is bound by bytes at ViT-S/16's shapes (see the
+note in the source).
 
 The public layout is JAX's: ``(B, H, S, D)`` in, float32 ``(B, H, S, D)``
 out.  The plain version follows the Pallas kernel's arithmetic, not the
@@ -25,7 +28,8 @@ textbook formula:
 * the output is rounded to bf16 and returned as float32.
 
 The wrapper reads q, k and v through their strides (the last one must be
-1), so the model hands it views of the qkv output without copies; on the
+1, the others and the data 16-byte aligned for the kernel's vector loads),
+so the model hands it views of the qkv output without copies; on the
 card the result is a ``(B, H, S, D)`` view of a ``(B, S, H, D)`` buffer,
 which the projection after it reads as ``(B*S, H*D)`` without a copy.
 """
@@ -41,11 +45,24 @@ REPLACES = "fp8_quantization_tpu/ops/pallas/attention.py:43"
 BLOCK_K = 128                   # keys per step, the Pallas kernel's block_k
 HEAD_DIM = 64                   # the head width the CUDA kernel is built for
                                 # (ViT-S/B/L alike)
+ROWS_PER_WARP = 16              # query rows of one warp (an m16 tile)
+MAX_WARPS = 13                  # warps of one block (csrc/flash_mha.cu)
 
 
 def padded_len(s: int) -> int:
     """The sequence length the Pallas wrapper pads to."""
     return max(BLOCK_K, -(-s // BLOCK_K) * BLOCK_K)
+
+
+def flash_grid(s: int) -> tuple[int, int, int]:
+    """(query groups, warps per group, key steps) of the kernel at sequence
+    length ``s``: the fewest groups of at most ``MAX_WARPS`` warps of 16
+    rows that hold the ``s`` query rows, the warps spread evenly over them
+    (one group up to 208 rows: K and V read once per (b, h)); the keys in
+    ``padded_len(s) / 128`` steps."""
+    tiles = -(-s // ROWS_PER_WARP)
+    groups = -(-tiles // MAX_WARPS)
+    return groups, -(-tiles // groups), padded_len(s) // BLOCK_K
 
 
 def _bf16(t: torch.Tensor) -> torch.Tensor:
@@ -98,12 +115,19 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise TypeError("q, k, v must all be float32 or all bfloat16")
     if any(t.stride(-1) != 1 for t in (q, k, v)):
         raise ValueError("q, k, v must be contiguous along D")
+    vec = 16 // q.element_size()        # elements of one 16-byte load
+    if any(t.data_ptr() % 16 or any(st % vec for st in t.stride()[:3])
+           for t in (q, k, v)):
+        raise ValueError("flash_mha on the card reads 16-byte vectors: q, k, "
+                         "v data and their (B, H, S) strides must be 16-byte "
+                         "aligned")
+    groups, warps, _ = flash_grid(s)
     out = torch.empty((b, s, h, d), dtype=torch.float32, device=q.device)
     err = build.entry("flash_mha")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(),
         int(q.dtype == torch.bfloat16), *q.stride()[:3], *k.stride()[:3],
-        *v.stride()[:3], out.data_ptr(), b, h, s, d, float(sm_scale),
-        stream_ptr(q))
+        *v.stride()[:3], out.data_ptr(), b, h, s, d, groups, warps,
+        float(sm_scale), stream_ptr(q))
     build.check(err, "flash_mha")
     flash_mha.launches += 1
     return out.permute(0, 2, 1, 3)

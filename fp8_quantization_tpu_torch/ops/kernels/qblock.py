@@ -7,11 +7,14 @@ Mirrors ``fused_inverted_residual`` of ``fp8_quantization_tpu/ops/pallas/
 qblock.py`` (Pallas body ``_ir_block_kernel``, line 82; ``pallas_call`` at
 line 267).  The Pallas kernel holds a group of whole images, expanded, in
 VMEM; an SM's shared memory cannot.  The kernel, ``csrc/qblock.cu``, gives
-each block one image's tile of output pixels and walks the hidden channels
-in chunks: it expands the tile's input pixels plus their one-pixel halo for
-the chunk (bf16 tensor cores, fp32 sums), runs the depthwise stencil on the
-chunk and adds the chunk's project product into an fp32 accumulator in
-shared memory.  The expanded tensor never leaves the SM.
+a cluster of ``cs`` blocks one image's tile of output pixels, each block a
+slice of the hidden channels walked in chunks (``block_tile`` chooses the
+tile, the split and the chunk): it expands the tile's input pixels plus
+their one-pixel halo for the chunk (bf16 tensor cores, fp32 sums), runs the
+depthwise stencil on the chunk and adds the chunk's project product into
+fp32 accumulators in registers; the cluster adds its blocks' partial sums
+through distributed shared memory.  The expanded tensor never leaves the
+SM.
 
 Numerics are the Pallas body's, stage by stage (``qblock_plain``):
 
@@ -41,6 +44,7 @@ over.
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -53,6 +57,131 @@ from fp8_quantization_tpu_torch.ops.kernels.qdwconv import dw_taps_sum, out_hw
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qblock.py:82"
 ROW_EXPAND, ROW_DW, ROW_PROJECT, ROW_BLOCK = 0, 1, 2, 3
+
+# csrc/qblock.cu's launches: (warps a block, (16 x 8) project tiles a warp
+# keeps in registers at most) -> the shared memory that lets its blocks a
+# SM fit (three, two, one): partial-image tiles take 8 warps, whole images 16
+LAUNCHES = {(8, 4): 75 * 1024, (8, 8): 113 * 1024, (16, 10): 232448}
+SMEM_LIMIT = 232448             # the H100's shared memory a block
+MAX_TILE_ROWS = 256             # output pixels of a partial-image tile
+CHUNKS = (64, 48, 32, 16)       # hidden channels per chunk
+
+
+def _align128(v: int) -> int:
+    return -(-v // 128) * 128
+
+
+def _round16(v: int) -> int:
+    return -(-v // 16) * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class BlockTile:
+    """One launch's tiling: ``th x tw`` output pixels of one image a
+    cluster of ``cs`` blocks, each block ``hid / cs`` hidden channels (in
+    units of 16) in chunks of ``hc``, ``warps`` warps a block, each at most
+    ``maxt`` project tiles in registers."""
+    th: int
+    tw: int
+    cs: int
+    hc: int
+    warps: int
+    maxt: int
+
+    def halo(self, stride: int) -> Tuple[int, int]:
+        """Input pixels (rows, columns) a tile expands: its outputs' 3x3
+        windows."""
+        return (self.th - 1) * stride + 3, (self.tw - 1) * stride + 3
+
+    def tiles(self, ho: int, wo: int) -> int:
+        return -(-ho // self.th) * -(-wo // self.tw)
+
+    def slices(self, hid: int):
+        """[lo, hi) hidden channels of each rank of the cluster."""
+        units = -(-hid // 16)
+        return [(16 * (r * units // self.cs),
+                 min(16 * ((r + 1) * units // self.cs), hid))
+                for r in range(self.cs)]
+
+    def smem_bytes(self, stride: int, cin: int, cout: int,
+                   expand: bool) -> int:
+        """Shared memory of one block, as csrc/qblock.cu's make_geometry
+        lays it out: the input tile, a two-stage ring of the chunk's
+        weights (w1, w2, 9 tap rows and 4 folded vectors), the expanded
+        chunk and the dw output; the fp32 partial sums alias the ring."""
+        ph, pw = self.halo(stride)
+        pp, kp, rp = _round16(ph * pw), _round16(cin), _round16(self.th * self.tw)
+        ring = _align128(pp * (kp + 8) * 2)
+        w2 = kp * (self.hc + 8) * 2 if expand else 0
+        stage = _align128(w2 + self.hc * (cout + 8) * 2 + 13 * self.hc * 4)
+        hs = _align128(pp * (self.hc + 8) * 2) if expand else 0
+        end = ring + 2 * stage + hs + _align128(rp * (self.hc + 8) * 2)
+        return max(end, ring + rp * (cout + 4) * 4)
+
+    def warp_tiles(self, cout: int) -> int:
+        """Project tiles (16 pixels x 8 channels) of the busiest warp."""
+        return -(-(_round16(self.th * self.tw) // 16) * (cout // 8) // self.warps)
+
+
+@functools.lru_cache(maxsize=None)
+def block_tile(h: int, w: int, stride: int, cin: int, hid: int, cout: int,
+               expand: bool) -> BlockTile:
+    """The kernel's tiling of one block shape.
+
+    Maps of at most 16 x 16 output pixels whose accumulators fit sixteen
+    warps (every MobileNetV2 map from 14x14 down) take whole images, and
+    split hid over a cluster of 2 blocks: each stages half the weights
+    once per image, the expansion is recomputed on no inner halo, and
+    batch 64 launches 128 blocks of one SM each, a single wave (splitting
+    4 ways gives 256 blocks in two waves, and each block pays its fixed
+    cost twice as often: 1.6x slower on the card, PERF.md).  Larger maps
+    take the tile of at most 256 pixels that computes the fewest expanded
+    pixels (its halo and the ragged edge included), the fewer tiles on a
+    tie, then the wider, on eight warps with 4 project tiles each where
+    they fit (three blocks an SM), else 8 (two); where no chunk lets two
+    blocks share an SM, one block of sixteen warps takes the tile.  The
+    chunk is the one of ``CHUNKS`` that fits the launch's blocks an SM
+    with the fewest chunks a slice, then the least padding, then the
+    widest."""
+    ho, wo = (h - 1) // stride + 1, (w - 1) // stride + 1
+    units = -(-hid // 16)
+
+    def tile(th, tw, warps, maxt, cs=1, hc=16):
+        return BlockTile(th, tw, cs, hc, warps, maxt)
+
+    def fits(th, tw, warps, maxt):
+        return tile(th, tw, warps, maxt).warp_tiles(cout) <= maxt
+
+    if ho * wo <= 256 and ho <= 16 and wo <= 16 and fits(ho, wo, 16, 10):
+        th, tw, cs, warps, maxt = ho, wo, min(2, units), 16, 10
+    else:
+        best = None
+        for th in range(1, min(ho, MAX_TILE_ROWS) + 1):
+            for tw in range(1, min(wo, MAX_TILE_ROWS // th) + 1):
+                cand = tile(th, tw, 8, 8)
+                if (not fits(th, tw, 8, 8)
+                        or cand.smem_bytes(stride, cin, cout, expand) > SMEM_LIMIT):
+                    continue
+                ph, pw = cand.halo(stride)
+                key = (cand.tiles(ho, wo) * ph * pw, cand.tiles(ho, wo), th)
+                if best is None or key < best[0]:
+                    best = (key, th, tw)
+        _, th, tw = best
+        cs, warps, maxt = 1, 8, (4 if fits(th, tw, 8, 4) else 8)
+    slice_ch = 16 * -(-units // cs)
+
+    def fitting(warps, maxt, limit):
+        return [hc for hc in CHUNKS if tile(th, tw, warps, maxt, cs, hc).smem_bytes(
+            stride, cin, cout, expand) <= limit]
+    chunks = fitting(warps, maxt, LAUNCHES[warps, maxt])
+    if not chunks and warps == 8:       # one block an SM: make it sixteen warps
+        warps, maxt = 16, 10
+        chunks = fitting(warps, maxt, SMEM_LIMIT)
+    if not chunks:
+        raise ValueError(f"qblock: no tiling of {h}x{w} {cin}->{hid}->{cout} "
+                         f"s{stride} fits the card's shared memory")
+    hc = min(chunks, key=lambda c: (-(-slice_ch // c), -(-slice_ch // c) * c, -c))
+    return BlockTile(th, tw, cs, hc, warps, maxt)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -182,6 +311,16 @@ def fused_inverted_residual(x: torch.Tensor, w1: Optional[torch.Tensor],
         _vec(scale1, hid, "scale1")
         _vec(shift1, hid, "shift1")
     x_factor = x_factor.contiguous()
+    if cin % 8 or hid % 8 or cout % 8:
+        raise ValueError(f"qblock on the card copies 16-byte rows: Cin, hid "
+                         f"and Cout must be multiples of 8, got {cin}, {hid}, "
+                         f"{cout}")
+    for t, nm in ((x, "x"), (w1, "w1"), (wd, "wd"), (w2, "w2"),
+                  (scale1, "scale1"), (shift1, "shift1"), (scale_d, "scale_d"),
+                  (shift_d, "shift_d"), (scale2, "scale2"), (shift2, "shift2")):
+        if t is not None and t.data_ptr() % 16:
+            raise ValueError(f"qblock on the card: {nm} must be 16-byte aligned")
+    tile = block_tile(h, w, cfg.stride, cin, hid, cout, cfg.expand)
     ho, wo = out_hw(h, w, cfg.stride)
     out = torch.empty((n, ho, wo, cout), device=x.device,
                       dtype=torch.bfloat16 if cfg.out_bf16 else torch.float32)
@@ -194,7 +333,8 @@ def fused_inverted_residual(x: torch.Tensor, w1: Optional[torch.Tensor],
         shift_d.data_ptr(), scale2.data_ptr(), shift2.data_ptr(),
         x_factor.data_ptr(), out.data_ptr(), n, h, w, cin, hid, cout,
         cfg.stride, int(cfg.expand), int(cfg.use_res), methods,
-        int(cfg.emit_norm), int(cfg.out_bf16), stream_ptr(x))
+        int(cfg.emit_norm), int(cfg.out_bf16), tile.th, tile.tw, tile.cs,
+        tile.hc, tile.warps, tile.maxt, stream_ptr(x))
     build.check(err, "qblock")
     fused_inverted_residual.launches += 1
     return out

@@ -1,8 +1,8 @@
-"""Timing of source variants of the two redesigned kernels (no JAX
-counterpart): which phase of ``csrc/qmatmul.cu`` and ``csrc/qconv_int8.cu``
-holds each back on the card.
+"""Timing of source variants of the redesigned kernels (no JAX
+counterpart): which phase of ``csrc/qmatmul.cu``, ``csrc/qconv_int8.cu``,
+``csrc/flash_mha.cu`` and ``csrc/qblock.cu`` holds each back on the card.
 
-    python -m fp8_quantization_tpu_torch.ops.kernels.variants [--dry]
+    python -m fp8_quantization_tpu_torch.ops.kernels.variants [--dry] [kernel ...]
 
 Builds, with the flags of ``build.py``, patched copies of ``csrc/`` under
 ``build/variants/<kernel>_<n>/``, each with one phase removed or changed,
@@ -11,13 +11,19 @@ kernel alone (CUDA events; the calls are enqueued while the card spins, so
 no host time counts).  A variant that removes a phase computes wrong
 outputs by design: it only shows what that phase costs.  The kernels as
 committed are checked against their plain versions by ``chip_smoke.py``.
-``--dry`` applies the patches and exits (no card, no nvcc).
+``--dry`` applies the patches and exits (no card, no nvcc); kernel names
+(qmatmul, qconv_int8, flash_mha, qblock) restrict the run to those.
 
 Shapes: the main path's qmatmul calls (bf16 x on the grid, baked bf16 w,
 FP8 output quant, bf16 normalized output) at the ViT's qkv, proj and mlp2,
 ResNet-18's first downsample and MobileNetV2's first expansion at batch
 64, each at its ``tile_n`` width; qconv3x3_int8 at ResNet-18's seven 3x3
-shapes at batch 64 with baked int8 weights, each at its ``conv_tile``.
+shapes at batch 64 with baked int8 weights, each at its ``conv_tile``;
+flash_mha on ViT-S/16's (64, 6, 197, 64) float32 views of a qkv tensor;
+qblock (FP8 stages, bf16 output) at five MobileNetV2 blocks at batch 64
+(112x112 stride 2, 56x56 residual, 28x28 stride 2, 14x14 residual, 7x7
+160->960->320), each
+at its ``block_tile``.
 """
 
 from __future__ import annotations
@@ -33,6 +39,8 @@ import torch
 
 from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
 from fp8_quantization_tpu_torch.ops.kernels import build
+from fp8_quantization_tpu_torch.ops.kernels.attention import flash_grid
+from fp8_quantization_tpu_torch.ops.kernels.qblock import block_tile
 from fp8_quantization_tpu_torch.ops.kernels.qconv_int8 import conv_tile
 from fp8_quantization_tpu_torch.ops.kernels.qmatmul import tile_n
 
@@ -71,10 +79,51 @@ QCONV = [
                               dw[e], sc[e], sh[e], activation);""",
         """          y[e] = static_cast<float>(acc[i][j][2 * h + e] + s_rowsum[r] + cs[e]);""")]),
 ]
+FLASH = [
+    ("as committed", []),
+    ("no products", [(
+        """wm::mma_bf16(s[2 * np], a, bk[0], bk[1]);""",
+        """s[2 * np][0] += __uint_as_float(a[0] ^ bk[0]);"""), (
+        """wm::mma_bf16(s[2 * np + 1], a, bk[2], bk[3]);""",
+        """s[2 * np + 1][0] += __uint_as_float(a[1] ^ bk[2]);"""), (
+        """wm::mma_bf16(o[2 * dp], pa[kk], bv[0], bv[1]);""",
+        """o[2 * dp][0] += __uint_as_float(pa[kk][0] ^ bv[0]);"""), (
+        """wm::mma_bf16(o[2 * dp + 1], pa[kk], bv[2], bv[3]);""",
+        """o[2 * dp + 1][0] += __uint_as_float(pa[kk][1] ^ bv[2]);""")]),
+    ("no softmax (p = s)", [(
+        """? expf(__fsub_rn(s[t][e], m_next[e >> 1]))""", """? s[t][e]""")]),
+    ("no bf16 conversion pass", [(
+        "    to_bf16(dst + r * LD + c, *reinterpret_cast<const Vec<T>*>(raw + r * D + c));",
+        "    (void)dst;")]),
+    ("q/K/V staging removed", [(
+        "    wm::cp_async16(raw + r * D + c, src + (valid ? (r0 + r) * rs : 0) + c, valid);",
+        "    (void)valid;")]),
+]
+QBLOCK = [
+    ("as committed", []),
+    ("no expand", [("    if (a.expand) {\n      const fq::InvQuant q_exp",
+                    "    if (false) {\n      const fq::InvQuant q_exp")]),
+    ("no stencil", [("  for (int o = o0; o0 < ostep && o < g.R; o += ostep) {",
+                     "  for (int o = o0; false; o += ostep) {")]),
+    ("no project", [("            wm::mma_bf16(acc[t], af, bf[0], bf[1]);",
+                     "            acc[t][0] += __uint_as_float(af[0] ^ bf[0]);")]),
+    ("stage quantizers off", [("  return fq::quantize_inv_m<M>(y, q, true);", "  return y;")]),
+    ("first chunk only", [(
+        "  const int nchunks = c_hi > c_lo ? (c_hi - c_lo + g.hc - 1) / g.hc : 0;",
+        "  const int nchunks = c_hi > c_lo ? 1 : 0;")]),
+    ("weights not restaged per chunk", [(
+        "    if (ch + 1 < nchunks) {              // the next chunk under this one",
+        "    if (false) {")]),
+]
+KERNEL_VARIANTS = {"qmatmul": QMATMUL, "qconv_int8": QCONV, "flash_mha": FLASH,
+                   "qblock": QBLOCK}
 MATMUL_SHAPES = [(64 * 197, 384, 1152), (64 * 197, 384, 384), (64 * 197, 1536, 384),
                  (64 * 28 * 28, 64, 128), (64 * 112 * 112, 16, 96)]
 CONV_SHAPES = [(56, 64, 64, 1), (56, 64, 128, 2), (28, 128, 128, 1), (28, 128, 256, 2),
                (14, 256, 256, 1), (14, 256, 512, 2), (7, 512, 512, 1)]
+# (H, stride, Cin, hid, Cout, residual)
+BLOCK_SHAPES = [(112, 2, 16, 96, 24, False), (56, 1, 24, 144, 24, True), (28, 2, 32, 192, 64, False),
+                (14, 1, 96, 576, 96, True), (7, 1, 160, 960, 320, False)]
 
 
 def patched_copy(name: str, index: int, patches) -> str:
@@ -172,18 +221,59 @@ def conv_calls(g):
         yield [h, cin, cout, s], (lambda fn, a=args: fn(*a))
 
 
+def flash_calls(g):
+    """(shape, call(fn)) of the ViT's attention call."""
+    stream = torch.cuda.current_stream().cuda_stream
+    b, s, h, d = 64, 197, 6, 64
+    qkv = torch.randn(b, s, 3, h, d, generator=g, device="cuda")
+    q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+    out = torch.empty(b, s, h, d, device="cuda")
+    groups, warps, _ = flash_grid(s)
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), 0, *q.stride()[:3],
+            *k.stride()[:3], *v.stride()[:3], out.data_ptr(), b, h, s, d, groups,
+            warps, d ** -0.5, stream)
+    yield [b, h, s, d], (lambda fn, a=args, keep=qkv: fn(*a))
+
+
+def block_calls(g):
+    """(shape, call(fn)) of four MobileNetV2 blocks, FP8 stages."""
+    stream = torch.cuda.current_stream().cuda_stream
+    a_c = fp8_consts(torch.full((4,), 4.0, device="cuda"), 4).contiguous()
+    for hgt, s, cin, hid, cout, res in BLOCK_SHAPES:
+        x = torch.randn(64, hgt, hgt, cin, generator=g, device="cuda").to(torch.bfloat16)
+        w1 = (torch.randn(cin, hid, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        wd = torch.randn(3, 3, hid, generator=g, device="cuda").to(torch.bfloat16).float()
+        w2 = (torch.randn(hid, cout, generator=g, device="cuda") * 0.1).to(torch.bfloat16)
+        vec = [torch.full((n,), v, device="cuda") for n, v in
+               ((hid, 0.5), (hid, 0.1), (hid, 0.3), (hid, 0.1), (cout, 0.2), (cout, 0.0))]
+        xf = torch.ones((), device="cuda")
+        ho = (hgt - 1) // s + 1
+        out = torch.empty(64, ho, ho, cout, device="cuda", dtype=torch.bfloat16)
+        t = block_tile(hgt, hgt, s, cin, hid, cout, True)
+        keep = (x, w1, wd, w2, vec, xf, out, a_c)
+        args = (x.data_ptr(), w1.data_ptr(), wd.data_ptr(), w2.data_ptr(), a_c.data_ptr(),
+                *(v.data_ptr() for v in vec), xf.data_ptr(), out.data_ptr(), 64, hgt, hgt,
+                cin, hid, cout, s, 1, int(res), 0b01010101, 1, 1, t.th, t.tw, t.cs, t.hc,
+                t.warps, t.maxt, stream)
+        yield [hgt, s, cin, hid, cout, res], (lambda fn, a=args, k=keep: fn(*a))
+
+
 def main(argv) -> int:
     dry = "--dry" in argv
+    only = [a for a in argv if not a.startswith("--")] or list(KERNEL_VARIANTS)
     if not dry and not torch.cuda.is_available():
         print("variants: needs a CUDA card (or --dry)", file=sys.stderr)
         return 2
     built = {name: build_variants(name, variants, dry)
-             for name, variants in (("qmatmul", QMATMUL), ("qconv_int8", QCONV))}
+             for name, variants in KERNEL_VARIANTS.items() if name in only}
     if dry:
         print("variants: every patch applies")
         return 0
     g = torch.Generator(device="cuda").manual_seed(0)
-    for name, calls in (("qmatmul", matmul_calls(g)), ("qconv_int8", conv_calls(g))):
+    for name, calls in (("qmatmul", matmul_calls(g)), ("qconv_int8", conv_calls(g)),
+                        ("flash_mha", flash_calls(g)), ("qblock", block_calls(g))):
+        if name not in only:
+            continue
         for shape, call in calls:
             for label, fn in built[name]:
                 print(json.dumps({"kernel": name, "shape": shape, "variant": label,

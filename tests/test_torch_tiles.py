@@ -1,5 +1,10 @@
 """Host-side tiling of the redesigned CUDA kernels (CPU; no JAX needed).
 
+The fused inverted-residual block (csrc/qblock.cu) gives a cluster of
+``cs`` blocks one image's ``th x tw`` output tile and each block a slice
+of the hidden channels (``block_tile``); flash attention (csrc/
+flash_mha.cu) gives each block a group of query rows (``flash_grid``).
+
 The quant-matmul (csrc/qmatmul.cu) launches ``ceil(M / 128) x ceil(N / BN)``
 blocks with ``BN = tile_n(N)``; the int8 3x3 conv (csrc/qconv_int8.cu)
 gives each block a ``th x tw`` tile of one image's output pixels and
@@ -14,11 +19,14 @@ apply to the current sources.
 """
 
 import math
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from fp8_quantization_tpu_torch.ops.kernels import attention as at
+from fp8_quantization_tpu_torch.ops.kernels import qblock as qb
 from fp8_quantization_tpu_torch.ops.kernels import qconv_int8 as qc
 from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
 from fp8_quantization_tpu_torch.ops.kernels import variants
@@ -145,14 +153,134 @@ def test_conv_tiles_keep_the_gemm_rows_busy(h, cin, cout, stride):
     assert tiles * ph * pw <= 2.5 * (h * h)
 
 
-@pytest.mark.parametrize("name,index", [("qmatmul", i) for i in range(len(variants.QMATMUL))]
-                         + [("qconv_int8", i) for i in range(len(variants.QCONV))])
+@pytest.mark.parametrize("name,index", [(name, i) for name, table in
+                                        variants.KERNEL_VARIANTS.items()
+                                        for i in range(len(table))])
 def test_kernel_variant_patches_apply(name, index):
     """Each source variant that ops/kernels/variants.py times on the card
     (one phase of a kernel removed or changed) still patches the current
     source, so the measurement behind the kernels' notes can be repeated."""
-    table = variants.QMATMUL if name == "qmatmul" else variants.QCONV
+    table = variants.KERNEL_VARIANTS[name]
     out = variants.patched_copy(name, index, table[index][1])
-    text = open(f"{out}/{name}.cu").read() + open(f"{out}/gemm_sm90.cuh").read()
+    text = "".join(p.read_text() for p in sorted(Path(out).iterdir()))
     for _, new in table[index][1]:
         assert new in text
+
+
+def _mnv2_blocks():
+    """(H, stride, Cin, hid, Cout, expand) of MobileNetV2's 17 blocks
+    (tonylins topology, 224x224 input), with their uses per forward."""
+    blocks, cin, hw = [], 32, 112
+    for t, c, n, s in ((1, 16, 1, 1), (6, 24, 2, 2), (6, 32, 3, 2), (6, 64, 4, 2),
+                       (6, 96, 3, 1), (6, 160, 3, 2), (6, 320, 1, 1)):
+        for i in range(n):
+            stride = s if i == 0 else 1
+            blocks.append((hw, stride, cin, cin * t, c, t != 1))
+            hw //= stride
+            cin = c
+    return blocks
+
+
+MNV2_BLOCKS = _mnv2_blocks()
+# the edges the kernel masks: a 15x15 map at stride 1 (ragged m16 rows of a
+# whole-image tile), a 14x14 map at stride 2 with hid 144 and Cout 24
+EDGE_BLOCKS = [(15, 1, 24, 144, 24, True), (14, 2, 24, 144, 24, True)]
+BLOCKS = sorted(set(MNV2_BLOCKS)) + EDGE_BLOCKS
+
+
+def _old_tile(ho):
+    """The tile before block_tile: 8x8 output pixels, 4x4 below 8."""
+    return 8 if ho >= 8 else 4
+
+
+def _weight_bytes(cin, hid, cout, expand):
+    return 2 * (cin * hid * expand + hid * cout)
+
+
+@pytest.mark.parametrize("h,stride,cin,hid,cout,expand", BLOCKS)
+def test_qblock_tiles_cover_every_output_and_channel_once(h, stride, cin, hid, cout,
+                                                          expand):
+    """The kernel's clusters (image, tile) cover each output pixel once, as
+    the kernel maps a tile's project row r to pixel (oy0 + r // tw, ox0 +
+    r % tw); the ranks' hid slices cover each hidden channel once and the
+    ranks' epilogue rows each pixel of the tile once; a block's shared
+    memory fits and its warps' project tiles fit their registers."""
+    tile = qb.block_tile(h, h, stride, cin, hid, cout, expand)
+    ho = wo = (h - 1) // stride + 1
+    tiles_x = -(-wo // tile.tw)
+    count = np.zeros((ho, wo), np.int32)
+    for t in range(tile.tiles(ho, wo)):
+        oy0, ox0 = (t // tiles_x) * tile.th, (t % tiles_x) * tile.tw
+        assert oy0 < ho and ox0 < wo                  # no empty cluster
+        for r in range(tile.th * tile.tw):
+            oy, ox = oy0 + r // tile.tw, ox0 + r % tile.tw
+            if oy < ho and ox < wo:
+                count[oy, ox] += 1
+    assert (count == 1).all()
+    chans = np.zeros(hid, np.int32)
+    rows = np.zeros(tile.th * tile.tw, np.int32)
+    r_all = tile.th * tile.tw
+    for rank, (lo, hi) in enumerate(tile.slices(hid)):
+        assert lo < hi and lo % 16 == 0                  # every rank has work
+        chans[lo:hi] += 1
+        rows[rank * r_all // tile.cs:(rank + 1) * r_all // tile.cs] += 1
+    assert (chans == 1).all() and (rows == 1).all()
+    assert tile.cs in (1, 2, 4) and tile.hc in qb.CHUNKS
+    assert (tile.warps, tile.maxt) in qb.LAUNCHES and tile.warp_tiles(cout) <= tile.maxt
+    assert tile.smem_bytes(stride, cin, cout, expand) <= qb.SMEM_LIMIT
+
+
+@pytest.mark.parametrize("h,stride,cin,hid,cout,expand", BLOCKS)
+def test_qblock_tiles_cut_halo_and_weight_bytes(h, stride, cin, hid, cout, expand):
+    """At batch 64 every block shape launches at least 128 blocks (the
+    whole-image tiles one wave of one block on 128 of the 132 SMs, which
+    on the card beats two waves of 256), expands no more input pixels
+    (halo and ragged edge included) than the 8x8 / 4x4 tiles did, and from
+    14x14 down stages fewer weight bytes per call (blocks x each block's
+    slice) than the old tiles, which restaged all of w1 and w2 for every
+    16-64 pixels."""
+    tile = qb.block_tile(h, h, stride, cin, hid, cout, expand)
+    ho = (h - 1) // stride + 1
+    old = _old_tile(ho)
+    old_tiles = (-(-ho // old)) ** 2
+    old_halo = old_tiles * ((old - 1) * stride + 3) ** 2
+    ph, pw = tile.halo(stride)
+    assert B * tile.tiles(ho, ho) * tile.cs >= 128
+    assert tile.tiles(ho, ho) * ph * pw <= old_halo
+    if ho <= 14:
+        staged = B * tile.tiles(ho, ho) * sum(
+            _weight_bytes(cin, hi - lo, cout, expand) for lo, hi in tile.slices(hid))
+        assert staged < B * old_tiles * _weight_bytes(cin, hid, cout, expand)
+
+
+def test_qblock_weight_bytes_per_forward():
+    """Over MobileNetV2's 17 blocks at batch 64 the weights staged per
+    forward fall from about 1.0 GB (8x8 / 4x4 tiles) to under 0.3 GB."""
+    old = new = 0
+    for h, stride, cin, hid, cout, expand in MNV2_BLOCKS:
+        ho = (h - 1) // stride + 1
+        tile = qb.block_tile(h, h, stride, cin, hid, cout, expand)
+        w = _weight_bytes(cin, hid, cout, expand)
+        old += B * (-(-ho // _old_tile(ho))) ** 2 * w
+        new += B * tile.tiles(ho, ho) * w
+    assert 0.95e9 < old < 1.05e9
+    assert new < 0.3e9
+
+
+@pytest.mark.parametrize("s", [1, 50, 128, 129, 197, 256, 385])
+def test_flash_grid_writes_every_query_row_once(s):
+    """The kernel's blocks (groups of 16-row warps) write each query row of
+    a (b, h) once and none past S; up to 208 rows (ViT-S/16's 197) one
+    block holds them all, so K and V are read once per (b, h); the keys go
+    in padded_len(S) / 128 steps of 128."""
+    groups, warps, steps = at.flash_grid(s)
+    assert 1 <= warps <= at.MAX_WARPS
+    rows = np.zeros(s, np.int32)
+    for grp in range(groups):
+        for w in range(warps):
+            r0 = (grp * warps + w) * at.ROWS_PER_WARP
+            assert r0 < s or w > 0                      # no empty block
+            rows[r0:min(s, r0 + at.ROWS_PER_WARP)] += 1
+    assert (rows == 1).all()
+    assert groups == -(-s // (at.ROWS_PER_WARP * at.MAX_WARPS))
+    assert steps == at.padded_len(s) // at.BLOCK_K == -(-s // at.BLOCK_K)
