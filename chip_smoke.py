@@ -20,24 +20,34 @@ without the final result line):
                 case, and at the edges of its 128 x BN x 64 tiling (M =
                 1,000 and 12,608, K = 72 and 1,000, N = 16 and 24, float32
                 and bf16 x); qconv3x3 at ResNet-18's seven 3x3 shapes plus one
-                residual case; qstem at (64, 224, 224, 3).  Holds if >= 99%
+                residual case and the edges of its tiling (CONV_EDGES: Cin 8,
+                16, 24 and 72, whose 64-wide K chunks straddle taps, odd H
+                at stride 2, 1x1 and 2x2 maps, M not a multiple of 128,
+                Cout 8 and 24, float32 and bf16 residuals, float32
+                outputs, relu6 and no activation); qstem at (64, 224, 224,
+                3).  Holds if >= 99%
                 of elements are exact and the rest within one FP8 grid step
                 (the kernel sums in another order than cuDNN/cuBLAS in fp32).
 3. int8_check - each int8 kernel against its plain version (exact integer
                 sums in float64): qmatmul_int8 at the three downsample shapes
                 and the fc with baked int8 weights, plus one in-kernel-weight
-                and one unsigned-grid case; qconv3x3_int8 at the seven 3x3
+                and one unsigned-grid case and the edges of its tiling
+                (INT8_MATMUL_EDGES: M 1, 64 and 1,000, K 72 and 100, N 24
+                and 1,000, unsigned and in-kernel weights, a 4-bit input
+                grid, K split over a cluster); qconv3x3_int8 at the seven 3x3
                 shapes, baked, plus in-kernel and unsigned weights and the
                 edges of its tiling (H = 15 at stride 2, 7x7 with in-kernel
                 unsigned weights, Cin = 16, Cout = 80).  Holds if >= 99% of
                 elements are exact and all within rtol = atol = 2e-5.
                 library_ms times torch._int_mm on the s8 operands (for the
                 conv, on a prebuilt s8 im2col matrix: PyTorch has no int8
-                convolution on CUDA, so it times the product alone).
-   batch256   - qmatmul (downsamples and fc) and qconv3x3_int8 (the seven
-                3x3 shapes) at ResNet-18's shapes at batch 256, checked as
-                in phases 2 and 3, timed warm and cold, with sums per
-                forward.
+                convolution on CUDA, so it times the product alone; none
+                where _int_mm does not take the shape).
+   batch256   - qmatmul (downsamples and fc), qconv3x3_int8 and qconv3x3
+                (FP8, then int_asym output quant; the seven 3x3 shapes) and
+                qmatmul_int8 (downsamples and fc) at ResNet-18's shapes at
+                batch 256, checked as in phases 2, 3 and 10, timed warm and
+                cold, with sums per forward.
 4. slice      - the FP8 main path as a user runs it: validate-quantized
                 through the CLI's entry point (cli/image_net.
                 validate_quantized) on ResNet-18 at full width with random
@@ -65,9 +75,9 @@ without the final result line):
                 channels-last F.conv2d, torch.matmul, F.conv2d +
                 max_pool2d, torch._int_mm) and the bound max(bytes / 3.35
                 TB/s, operations / peak: 989 TFLOP/s bf16, 1,979 TOP/s
-                int8); for qmatmul and qconv3x3_int8 also ms_cold, with
-                the L2 cache flushed by a 64 MB write before each call
-                (cold_ms); images/s of FP8 'fused' against 'bf16' at batch 64
+                int8); for the redesigned kernels (COLD_TIMED) also
+                ms_cold, with the L2 cache flushed by a 64 MB write before
+                each call (cold_ms); images/s of FP8 'fused' against 'bf16' at batch 64
                 and 256, timed in turns (fused, bf16, bf16, fused, ...),
                 each turn's ms listed and images/s from their median; and
                 images/s of INT8 'fused' at batch 64 and 256.
@@ -317,7 +327,8 @@ def cold_ms(fn, iters=10):
 
 
 # the redesigned kernels, timed also with the L2 cache flushed (cold_ms)
-COLD_TIMED = ("qmatmul", "qconv3x3_int8", "qblock", "flash_mha")
+COLD_TIMED = ("qmatmul", "qconv3x3_int8", "qblock", "flash_mha", "qconv3x3",
+              "qmatmul_int8")
 
 
 def bound_ms(bytes_moved, flops, peak=BF16_FLOPS_PER_S):
@@ -546,33 +557,64 @@ def qi_matmul_cases(inp):
     return cases
 
 
-def conv_cases(inp):
+# (batch, H, Cin, Cout, stride, residual dtype, emit_norm, activation) of
+# qconv3x3 calls at the edges of its tiling that the main path does not
+# reach: Cin 8, 16, 24 and 72 (a 64-wide K chunk straddles taps), odd H at
+# stride 2, 1x1 and 2x2 maps, M not a multiple of 128, Cout 8 and 24, a
+# float32 and a bf16 residual (the wrapper casts it to bf16 under
+# emit_norm, to float32 otherwise), float32 outputs, relu6 and no
+# activation; each on the FP8 and the integer grids
+CONV_EDGES = [(3, 9, 8, 8, 1, None, True, "relu6"),
+              (5, 15, 16, 24, 2, None, True, None),
+              (4, 7, 24, 32, 1, "float32", False, "relu"),
+              (2, 10, 72, 64, 2, "bfloat16", True, "relu6"),
+              (3, 12, 72, 24, 1, "bfloat16", False, None),
+              (7, 1, 64, 64, 1, None, True, "relu"),
+              (6, 2, 32, 16, 2, None, False, None),
+              (5, 2, 64, 128, 1, "float32", True, "relu"),
+              (3, 28, 128, 128, 1, None, True, "relu6")]
+
+
+def conv_cases(inp, batch=BATCH, edges=True):
+    """(name, args, cfg, flops, bytes, uses, library fn) per qconv3x3 case:
+    ResNet-18's seven 3x3 shapes (relu, output quant, bf16 norms out), one
+    residual case, then (``edges``) CONV_EDGES."""
     import torch
     import torch.nn.functional as F
     from fp8_quantization_tpu_torch.ops.kernels import qconv as qc
+    shapes = [(batch, H, cin, cout, s, None, True, "relu", uses)
+              for H, cin, cout, s, uses in CONV_SHAPES]
+    if edges:
+        shapes += [(batch, 28, 128, 128, 1, "float32", True, "relu", 0)]
+        shapes += [edge + (0,) for edge in CONV_EDGES]
     cases = []
-    for H, cin, cout, s, uses in CONV_SHAPES + [(28, 128, 128, 1, 0)]:
-        residual = uses == 0
-        x = inp.norms(BATCH, H, H, cin)
+    for n, H, cin, cout, s, res_dtype, emit, act, uses in shapes:
+        residual = res_dtype is not None
+        x = inp.norms(n, H, H, cin)
         w4 = inp.weight_norms(inp.randn(cout, cin, 3, 3, scale=0.05))
         w = qc.weight_matrix(w4)
         scale, shift = inp.uniform(cout, 0.005, 0.015), inp.randn(cout, scale=0.1)
         if inp.grid == "int":
             scale = scale * 0.05
         ho = (H - 1) // s + 1
-        res = inp.norms(BATCH, ho, ho, cout).float() if residual else None
+        # residual values exact in bf16, so the wrapper's cast loses nothing
+        res = (inp.norms(n, ho, ho, cout).to(getattr(torch, res_dtype))
+               if residual else None)
         y0 = qc.qconv3x3_plain(x, w, None, scale, shift, res,
                                qc.FusedConvConfig(stride=s, residual=residual))
-        cfg = qc.FusedConvConfig(act_method=inp.act_method, activation="relu",
-                                 residual=residual, emit_norm=True, stride=s)
+        cfg = qc.FusedConvConfig(act_method=inp.act_method, activation=act,
+                                 residual=residual, emit_norm=emit, stride=s)
         args = (x, w, inp.out_consts(y0), scale, shift, res)
-        flops = 2 * BATCH * ho * ho * 9 * cin * cout
-        nbytes = x.numel() * 2 + w.numel() * 2 + BATCH * ho * ho * cout * 2
+        flops = 2 * n * ho * ho * 9 * cin * cout
+        nbytes = x.numel() * 2 + w.numel() * 2 + n * ho * ho * cout * (2 if emit else 4)
         if residual:
-            nbytes += res.numel() * res.element_size()
+            nbytes += res.numel() * (2 if emit else 4)
         xl = x.permute(0, 3, 1, 2)                  # NCHW view, channels-last
         wl = w4.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-        name = f"qconv3x3 {H}x{H}x{cin}->{cout} s{s}" + (" residual" if residual else "")
+        name = f"qconv3x3 {H}x{H}x{cin}->{cout} s{s}"
+        if uses == 0:
+            name += (f" edge batch {n} {res_dtype or 'no'} residual "
+                     f"{'norm' if emit else 'value'} {act}")
         cases.append((name, args, cfg, flops, nbytes, uses,
                       lambda xl=xl, wl=wl, s=s: F.conv2d(xl, wl, stride=s, padding=1)))
     return cases
@@ -703,10 +745,11 @@ def phase_int_check(int_results):
 
 # ---- the int8 kernels --------------------------------------------------------
 
-def int8_operands(inp, x, w, signed=True, prequant=True):
-    """(args, s8 x, s8 w, zp) of an int8 kernel call: the asymmetric input
-    grid from x's range, per-channel symmetric weights (dim 0), a folded BN;
-    x and w on the s8 grid and the zero point, for the library call."""
+def int8_operands(inp, x, w, signed=True, prequant=True, a_bits=8):
+    """(args, s8 x, s8 w, zp) of an int8 kernel call: the asymmetric
+    ``a_bits`` input grid from x's range, per-channel symmetric 8-bit
+    weights (dim 0), a folded BN; x and w on the s8 grid and the zero
+    point, for the library call."""
     import torch
     from fp8_quantization_tpu_torch.ops import int8 as i8
     from fp8_quantization_tpu_torch.ops import uniform
@@ -714,7 +757,7 @@ def int8_operands(inp, x, w, signed=True, prequant=True):
         w = w.abs()
     w2 = w.reshape(w.shape[0], -1)
     delta, sgn = uniform.symmetric_set_quant_range(w2.amin(dim=1), w2.amax(dim=1), 8)
-    a_delta, a_zero = uniform.asymmetric_set_quant_range(x.min(), x.max(), 8)
+    a_delta, a_zero = uniform.asymmetric_set_quant_range(x.min(), x.max(), a_bits)
     sgn = sgn.to(torch.float32)
     grid = i8.int8_shifted_grid(w, delta.reshape(-1, *[1] * (w.dim() - 1)), sgn, 8)
     w_s8 = grid.to(torch.int8).contiguous()
@@ -723,24 +766,44 @@ def int8_operands(inp, x, w, signed=True, prequant=True):
             torch.stack([torch.zeros_like(sgn), sgn]),
             torch.stack([a_delta, a_zero, torch.zeros_like(a_delta)]),
             inp.uniform(n, 0.5, 1.5), inp.randn(n, scale=0.1))
-    dx, zp = i8.act_int_params(a_delta, a_zero, 8)
-    x_s8 = i8.quantize_act(x, dx, zp, 8).to(torch.int8)
+    dx, zp = i8.act_int_params(a_delta, a_zero, a_bits)
+    x_s8 = i8.quantize_act(x, dx, zp, a_bits).to(torch.int8)
     return args, x_s8, w_s8, zp
 
 
-def int8_matmul_cases(inp):
-    """(name, args, cfg, ops, bytes, uses, library fn) per qmatmul_int8 case."""
+# (M, K, N, label, baked, signed, input bits) of qmatmul_int8 calls at the
+# edges of its tiling that the main path does not reach: M 1, 64 and 1000,
+# K 72 and 100 (not a multiple of the 32-wide chunk nor of 16, so the
+# weights are staged without cp.async), N 24 and 1000, unsigned and
+# in-kernel float32 weights, a 4-bit input grid; M = 64 and 1 split K over
+# a cluster (the last chunk ragged)
+INT8_MATMUL_EDGES = [(1, 100, 1000, "edge baked", True, True, 8),
+                     (BATCH, 72, 24, "edge in-kernel w", False, True, 8),
+                     (1000, 100, 24, "edge baked unsigned", True, False, 8),
+                     (1000, 72, 1000, "edge in-kernel w unsigned 4-bit x", False, False, 4),
+                     (BATCH, 100, 1000, "edge baked 4-bit x", True, True, 4),
+                     (1, 72, 24, "edge in-kernel w", False, True, 8)]
+
+
+def int8_matmul_cases(inp, batch=BATCH, edges=True):
+    """(name, args, cfg, ops, bytes, uses, library fn) per qmatmul_int8
+    case: the three downsamples and the fc with baked weights, then
+    (``edges``) in-kernel and unsigned weights and INT8_MATMUL_EDGES.  The
+    library call is torch._int_mm where it takes the shape (M > 16, K and
+    N multiples of 8), else none."""
     import torch
     from fp8_quantization_tpu_torch.ops.kernels import qmatmul_int8 as qm
     cases = []
-    shapes = [(M, K, N, "baked", True, True) for M, K, N, _ in MATMUL_SHAPES]
-    shapes += [(BATCH, 512, 1000, "in-kernel w", False, True),
-               (BATCH * 14 * 14, 128, 256, "baked unsigned", True, False)]
-    for M, K, N, label, prequant, signed in shapes:
+    shapes = [(M, K, N, "baked", True, True, 8) for M, K, N, _ in matmul_shapes(batch)]
+    if edges:
+        shapes += [(batch, 512, 1000, "in-kernel w", False, True, 8),
+                   (batch * 14 * 14, 128, 256, "baked unsigned", True, False, 8)]
+        shapes += INT8_MATMUL_EDGES
+    for M, K, N, label, prequant, signed, a_bits in shapes:
         x = torch.relu(inp.randn(M, K))          # a block output: relu'd
         args, x_s8, w_s8, _ = int8_operands(inp, x, inp.randn(N, K, scale=0.05),
-                                            signed, prequant)
-        cfg = qm.Int8MatmulConfig(activation=None)
+                                            signed, prequant, a_bits)
+        cfg = qm.Int8MatmulConfig(activation=None, act_n_bits=a_bits)
         w_t = w_s8.t()
 
         def lib(x_s8=x_s8, w_t=w_t):
@@ -748,7 +811,7 @@ def int8_matmul_cases(inp):
         nbytes = M * K * 4 + N * K * args[1].element_size() + M * N * 4 + 8 * N
         uses = 1 if label == "baked" else 0
         cases.append((f"qmatmul_int8 {M}x{K}x{N} {label}", args, cfg, 2 * M * N * K,
-                      nbytes, uses, lib))
+                      nbytes, uses, lib if M > 16 and K % 8 == 0 and N % 8 == 0 else None))
     return cases
 
 
@@ -834,7 +897,7 @@ def phase_int8_check(results):
             cold = {"ms_cold": cold_ms(lambda: wrapper(*args, cfg=cfg))} \
                 if kname in COLD_TIMED else {}
             pms = kernel_ms(lambda: plain(*args, cfg), iters=3)
-            lms = kernel_ms(lib)
+            lms = kernel_ms(lib) if lib is not None else None
             bms = bound_ms(nbytes, ops, INT8_OPS_PER_S)
             emit({"phase": "int8_check", "case": name, "ok": ok, "max_abs_err": err,
                   "exact": exact, "ms": ms, **cold, "plain_ms": pms, "library_ms": lms,
@@ -846,7 +909,8 @@ def phase_int8_check(results):
             if uses:
                 for k, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms),
                              ("bound_ms", bms), *cold.items()):
-                    agg[k] = agg.get(k, 0.0) + uses * v
+                    if v is not None:
+                        agg[k] = agg.get(k, 0.0) + uses * v
                 agg["bytes"] = agg.get("bytes", 0) + uses * nbytes
                 agg["flops"] = agg.get("flops", 0) + uses * ops
     return ok_all
@@ -1613,17 +1677,26 @@ def vit_matmul_edges(captures):
 
 
 def phase_batch256():
-    """The two redesigned kernels at ResNet-18's shapes at batch 256:
-    qmatmul at the three downsamples and the fc (FP8, baked weights) and
-    qconv3x3_int8 at the seven 3x3 shapes (baked weights), each held
-    against its plain version as in phases 2 and 3 and timed warm and with
-    the L2 cache flushed (cold_ms), with sums per batch-256 forward."""
+    """The redesigned kernels on ResNet-18's path at its shapes at batch
+    256: qmatmul at the three downsamples and the fc (FP8, baked weights),
+    qconv3x3_int8 at the seven 3x3 shapes (baked weights), qconv3x3 at the
+    seven 3x3 shapes (FP8, then int_asym output quant) and qmatmul_int8 at
+    the downsamples and the fc (baked weights), each held against its plain
+    version as in phases 2, 3 and 10 and timed warm and with the L2 cache
+    flushed (cold_ms), with sums per batch-256 forward."""
     from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
     table = kernel_table()
     ok_all = True
-    for kname, cases, peak in (
-            ("qmatmul", matmul_cases(Inputs(), 256, edges=False), BF16_FLOPS_PER_S),
-            ("qconv3x3_int8", int8_conv_cases(Inputs(), 256, edges=False),
+    for kname, label, cases, peak in (
+            ("qmatmul", "qmatmul", matmul_cases(Inputs(), 256, edges=False),
+             BF16_FLOPS_PER_S),
+            ("qconv3x3_int8", "qconv3x3_int8", int8_conv_cases(Inputs(), 256, edges=False),
+             INT8_OPS_PER_S),
+            ("qconv3x3", "qconv3x3", conv_cases(Inputs(), 256, edges=False),
+             BF16_FLOPS_PER_S),
+            ("qconv3x3", "qconv3x3 int_asym", conv_cases(Inputs("int"), 256, edges=False),
+             BF16_FLOPS_PER_S),
+            ("qmatmul_int8", "qmatmul_int8", int8_matmul_cases(Inputs(), 256, edges=False),
              INT8_OPS_PER_S)):
         wrapper, plain = table[kname][:2]
         total = dict(ms=0.0, ms_cold=0.0, library_ms=0.0, bound_ms=0.0)
@@ -1631,9 +1704,9 @@ def phase_batch256():
             out = wrapper(*args, cfg=cfg)
             with no_tf32():
                 ref = plain(*args, cfg)
-            if kname == "qmatmul":
-                ok, err, exact = grid_check(out, ref, args[3], cfg.emit_norm,
-                                            method=cfg.act_method)
+            if kname in ("qmatmul", "qconv3x3"):
+                ok, err, exact = grid_check(out, ref, args[3 if kname == "qmatmul" else 2],
+                                            cfg.emit_norm, method=cfg.act_method)
             else:
                 ok, err, exact = int8_check(out, ref)
             del out, ref
@@ -1649,7 +1722,7 @@ def phase_batch256():
             for key, val in (("ms", ms), ("ms_cold", cms), ("library_ms", lms),
                              ("bound_ms", bms)):
                 total[key] += uses * val
-        emit({"phase": "batch256", "case": f"{kname} per ResNet-18 forward at batch 256",
+        emit({"phase": "batch256", "case": f"{label} per ResNet-18 forward at batch 256",
               "ok": ok_all, **total})
     return ok_all
 

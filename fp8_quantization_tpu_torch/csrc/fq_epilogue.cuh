@@ -1,5 +1,5 @@
 // Shared device code of the port's Hopper kernels: the FP8 and integer tile
-// quantizers, the fused epilogue and the bf16 tensor-core tile product.
+// quantizers and the fused epilogue.
 //
 // Replaces the shared Pallas tile functions of
 // fp8_quantization_tpu/ops/pallas/qmatmul.py (_fp8_quantize_tile,
@@ -30,7 +30,6 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 
 namespace fq {
 
@@ -204,65 +203,6 @@ __device__ __forceinline__ float to_float<float>(float v) { return v; }
 template <>
 __device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
   return __bfloat162float(v);
-}
-
-// ---------------------------------------------------------------------------
-// 64x64 output tile, K in chunks of 32, four warps each owning a 32x32
-// quarter as 2x2 wmma 16x16x16 bf16 fragments with fp32 accumulators.
-// The caller stages one chunk of A (BM x BK, row-major) and B (BK x BN,
-// row-major) into shared memory, syncs, calls mma_chunk, syncs again.
-constexpr int BM = 64, BN = 64, BK = 32, THREADS = 128;
-constexpr int LDA = BK + 8, LDB = BN + 8, LDC = BN + 4;
-
-struct __align__(128) GemmSmem {
-  __nv_bfloat16 a[BM * LDA];
-  __nv_bfloat16 b[BK * LDB];
-  float c[BM * LDC];
-};
-
-using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
-                                       float>;
-
-__device__ __forceinline__ void zero_acc(AccFrag (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0.0f);
-}
-
-__device__ __forceinline__ void mma_chunk(const GemmSmem& s,
-                                          AccFrag (&acc)[2][2], int warp) {
-  using namespace nvcuda;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-#pragma unroll
-  for (int kk = 0; kk < BK; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        a[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major>
-        b[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(a[i], s.a + (wm + 16 * i) * LDA + kk, LDA);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(b[j], s.b + kk * LDB + wn + 16 * j, LDB);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j) wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void store_acc(GemmSmem& s, AccFrag (&acc)[2][2],
-                                          int warp) {
-  using namespace nvcuda;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(s.c + (wm + 16 * i) * LDC + wn + 16 * j,
-                              acc[i][j], LDC, wmma::mem_row_major);
 }
 
 }  // namespace fq

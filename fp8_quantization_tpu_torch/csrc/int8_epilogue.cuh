@@ -1,7 +1,6 @@
 // Shared device code of the port's int8 Hopper kernels: the asymmetric
 // input quant and the symmetric weight quant done while a tile is staged,
-// the s8 x s8 -> s32 tensor-core tile product, and the exact-integer
-// correction epilogue of the recentred identity
+// the exact-integer correction epilogue of the recentred identity
 //
 //   sum (xint - zp) * wint = dot(xs, wsg) + S_w * rowsum(xs)
 //                          + (128 - zp) * colsum(wsg) + K * (128 - zp) * S_w
@@ -16,11 +15,11 @@
 // (dx * max(dw, 1e-8)), scale and shift and the activation in that order.
 // That is the plain versions' order (ops/kernels/qmatmul_int8.py and
 // qconv_int8.py), so a kernel equals its plain version exactly.  Built with
-// -fmad=false and _rn intrinsics, as the FP8 kernels are.
+// -fmad=false and _rn intrinsics, as the FP8 kernels are.  Last, the
+// cp.async / ldmatrix / mma.sync s8 pieces both kernels' products use.
 #pragma once
 
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 namespace i8 {
@@ -90,193 +89,52 @@ __device__ __forceinline__ float epilogue(int acc, int rowsum, int colsum,
 }
 
 // ---------------------------------------------------------------------------
-// 64x64 output tile, K in chunks of 64, 128 threads.  Shared memory holds
-// each operand chunk as four planes of 16 k (plane[kk/16][row][16]), so
-// that every wmma fragment starts on a 32-byte boundary with a leading
-// dimension of 16 bytes.  Thread t stages row (or column) t / 2, k from
-// 32 * (t % 2): two runs of 16 values, one per plane.  Each of the four
-// warps owns a 32x32 quarter as 2x2 wmma 16x16x16 s8 fragments with int32
-// accumulators.
-constexpr int BM = 64, BN = 64, BK = 64, THREADS = 128, RUN = 16;
-constexpr int PLANES = BK / RUN, LDC = BN + 4;
+// Warp-level pieces of the s8 kernels (qconv_int8.cu, qmatmul_int8.cu):
+// 16-byte cp.async, ldmatrix and mma.sync.m16n8k32 s8 x s8 -> s32.  An s8
+// operand chunk of 32 k sits in shared memory as two planes of 16 bytes
+// ([plane][row][16]), so that eight rows of a plane are 128 contiguous
+// bytes and ldmatrix.x4 reads a 16 x 32 A fragment (lanes 0-15: rows
+// 0-15 of plane 0, lanes 16-31: of plane 1) or two 8-column B fragments
+// without bank conflicts.
 
-struct __align__(128) Smem {
-  int8_t a[PLANES][BM][RUN];
-  int8_t b[PLANES][BN][RUN];
-  int c[BM * LDC];
-  int rowsum[BM];
-  int colsum[BN];
-};
-
-// Store one run of 16 int8 values (in registers as ints) into a plane.
-__device__ __forceinline__ void put_run(int8_t* dst, const int (&v)[RUN]) {
-  uint32_t w[4];
-#pragma unroll
-  for (int q = 0; q < 4; ++q)
-    w[q] = (static_cast<uint32_t>(v[4 * q] & 0xFF)) |
-           (static_cast<uint32_t>(v[4 * q + 1] & 0xFF) << 8) |
-           (static_cast<uint32_t>(v[4 * q + 2] & 0xFF) << 16) |
-           (static_cast<uint32_t>(v[4 * q + 3] & 0xFF) << 24);
-  *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+__device__ __forceinline__ uint32_t saddr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
-
-// One run of 16 weights of row n (w is (N, K) row-major, int8 grid or
-// float32 quantized here), k from k; zeros beyond K or N.  Returns the
-// run's sum (the colsum share).
-template <typename WT>
-__device__ __forceinline__ int load_w_run(const WT* __restrict__ w, int N,
-                                          int K, int n, int k, float dw,
-                                          const Params& p, int (&v)[RUN]);
-
-template <>
-__device__ __forceinline__ int load_w_run<int8_t>(
-    const int8_t* __restrict__ w, int N, int K, int n, int k, float,
-    const Params&, int (&v)[RUN]) {
-  int s = 0;
-  const int8_t* row = w + static_cast<long long>(n) * K;
-  if (n < N && k + RUN <= K && (K % RUN) == 0) {
-    const uint4 q = *reinterpret_cast<const uint4*>(row + k);
-    const uint32_t u[4] = {q.x, q.y, q.z, q.w};
-#pragma unroll
-    for (int e = 0; e < RUN; ++e) {
-      v[e] = static_cast<int8_t>((u[e >> 2] >> (8 * (e & 3))) & 0xFF);
-      s += v[e];
-    }
-    return s;
-  }
-#pragma unroll
-  for (int e = 0; e < RUN; ++e) {
-    v[e] = (n < N && k + e < K) ? static_cast<int>(row[k + e]) : 0;
-    s += v[e];
-  }
-  return s;
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
-
-template <>
-__device__ __forceinline__ int load_w_run<float>(
-    const float* __restrict__ w, int N, int K, int n, int k, float dw,
-    const Params& p, int (&v)[RUN]) {
-  int s = 0;
-  const float* row = w + static_cast<long long>(n) * K;
-  if (n < N && k + RUN <= K && (K % 4) == 0) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 f = *reinterpret_cast<const float4*>(row + k + 4 * q);
-      v[4 * q] = quant_w(f.x, dw, p);
-      v[4 * q + 1] = quant_w(f.y, dw, p);
-      v[4 * q + 2] = quant_w(f.z, dw, p);
-      v[4 * q + 3] = quant_w(f.w, dw, p);
-    }
-  } else {
-#pragma unroll
-    for (int e = 0; e < RUN; ++e)
-      v[e] = (n < N && k + e < K) ? quant_w(row[k + e], dw, p) : 0;
-  }
-#pragma unroll
-  for (int e = 0; e < RUN; ++e) s += v[e];
-  return s;
+// The same through L1 (.ca): for a small operand that every block on an SM
+// reads again, such as the quant-matmul's baked weights.
+__device__ __forceinline__ void cp_async16_ca(uint32_t dst, const void* src,
+                                              bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
 }
-
-// 16 consecutive float32 activations from x (or zero-point padding when
-// !inside, zeros when !used), quantized; returns their sum.
-__device__ __forceinline__ int quant_x_run(const float* __restrict__ src,
-                                           bool used, bool inside, bool vec,
-                                           int avail, const Params& p,
-                                           int (&v)[RUN]) {
-  int s = 0;
-  if (used && inside && vec && avail >= RUN) {
-#pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      const float4 f = *reinterpret_cast<const float4*>(src + 4 * q);
-      v[4 * q] = quant_x(f.x, p);
-      v[4 * q + 1] = quant_x(f.y, p);
-      v[4 * q + 2] = quant_x(f.z, p);
-      v[4 * q + 3] = quant_x(f.w, p);
-    }
-  } else {
-    const int pad = p.zp - 128;
-#pragma unroll
-    for (int e = 0; e < RUN; ++e)
-      v[e] = !used || e >= avail ? 0 : (inside ? quant_x(src[e], p) : pad);
-  }
-#pragma unroll
-  for (int e = 0; e < RUN; ++e) s += v[e];
-  return s;
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
 }
-
-using AccFrag = nvcuda::wmma::fragment<nvcuda::wmma::accumulator, 16, 16, 16,
-                                       int>;
-
-__device__ __forceinline__ void zero_acc(AccFrag (&acc)[2][2]) {
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j) nvcuda::wmma::fill_fragment(acc[i][j], 0);
+// c (16 x 8 s32) += a (16 x 32 s8) * b (32 x 8 s8): c0, c1 are row l/4,
+// columns 2(l%4) and + 1; c2, c3 the same columns of row l/4 + 8.
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
+                                       uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
-
-__device__ __forceinline__ void mma_chunk(const Smem& s, AccFrag (&acc)[2][2],
-                                          int warp) {
-  using namespace nvcuda;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-#pragma unroll
-  for (int pl = 0; pl < PLANES; ++pl) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, signed char, wmma::row_major>
-        a[2];
-    wmma::fragment<wmma::matrix_b, 16, 16, 16, signed char, wmma::col_major>
-        b[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-      wmma::load_matrix_sync(
-          a[i], reinterpret_cast<const signed char*>(&s.a[pl][wm + 16 * i][0]),
-          RUN);
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::load_matrix_sync(
-          b[j], reinterpret_cast<const signed char*>(&s.b[pl][wn + 16 * j][0]),
-          RUN);
-#pragma unroll
-    for (int i = 0; i < 2; ++i)
-#pragma unroll
-      for (int j = 0; j < 2; ++j)
-        wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
-  }
-}
-
-// Accumulators and the two sums into shared memory; thread t owns row (and
-// column) t / 2 of the sums with its neighbour t ^ 1.
-__device__ __forceinline__ void finish_tile(Smem& s, AccFrag (&acc)[2][2],
-                                            int warp, int tid, int rs,
-                                            int cs) {
-  using namespace nvcuda;
-  const int wm = (warp >> 1) * 32, wn = (warp & 1) * 32;
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 2; ++j)
-      wmma::store_matrix_sync(s.c + (wm + 16 * i) * LDC + wn + 16 * j,
-                              acc[i][j], LDC, wmma::mem_row_major);
-  rs += __shfl_xor_sync(0xffffffffu, rs, 1);
-  cs += __shfl_xor_sync(0xffffffffu, cs, 1);
-  if ((tid & 1) == 0) {
-    s.rowsum[tid >> 1] = rs;
-    s.colsum[tid >> 1] = cs;
-  }
-}
-
-// The epilogue over the tile: y (M, N) float32, row-major.
-__device__ __forceinline__ void store_tile(
-    const Smem& s, float* __restrict__ out, long long m0, int n0, long long M,
-    int N, int K, const Params& p, const float* __restrict__ w_delta,
-    const float* __restrict__ scale, const float* __restrict__ shift,
-    int activation, int tid) {
-  for (int i = tid; i < BM * BN; i += THREADS) {
-    const int r = i / BN, c = i % BN, n = n0 + c;
-    const long long m = m0 + r;
-    if (m >= M || n >= N) continue;
-    out[m * N + n] = epilogue(s.c[r * LDC + c], s.rowsum[r], s.colsum[c], K,
-                              p, fmaxf(w_delta[n], 1e-8f), scale[n], shift[n],
-                              activation);
-  }
+__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
+  return (static_cast<uint32_t>(a) & 0xFF) |
+         ((static_cast<uint32_t>(b) & 0xFF) << 8) |
+         ((static_cast<uint32_t>(c) & 0xFF) << 16) |
+         (static_cast<uint32_t>(d) << 24);
 }
 
 }  // namespace i8

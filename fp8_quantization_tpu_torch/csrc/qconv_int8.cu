@@ -75,35 +75,11 @@ struct Plan {
   }
 };
 
-__device__ __forceinline__ uint32_t saddr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(valid ? 16 : 0)
-               : "memory");
-}
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-__device__ __forceinline__ uint32_t pack4(int a, int b, int c, int d) {
-  return (static_cast<uint32_t>(a) & 0xFF) |
-         ((static_cast<uint32_t>(b) & 0xFF) << 8) |
-         ((static_cast<uint32_t>(c) & 0xFF) << 16) |
-         (static_cast<uint32_t>(d) << 24);
-}
+using i8::cp_async16;
+using i8::ldmatrix_x4;
+using i8::mma_s8;
+using i8::pack4;
+using i8::saddr;
 
 // The float32 patch of chunk c0 by 16-byte cp.async, eight per pixel
 // (four channels each); pixels outside the image and channels past Cin

@@ -155,13 +155,10 @@ __global__ void __launch_bounds__(sm90::THREADS, 2)
 qmatmul_kernel(const Args args) {
   using namespace sm90;
   using P = Plan<BN>;
-  constexpr int S = P::STAGES;
   extern __shared__ uint8_t smem_raw[];
-  const uint32_t raw = smem_addr(smem_raw);
-  uint8_t* smem_al = smem_raw + ((1024 - (raw & 1023)) & 1023);
+  uint8_t* smem_al = align1024(smem_raw);
   float* s_wc = reinterpret_cast<float*>(smem_al);
   uint8_t* smem = smem_al + P::STAGES_OFFSET;
-  const uint32_t sbase = smem_addr(smem);
 
   const int tid = threadIdx.x, wg = tid >> 7;
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
@@ -183,39 +180,8 @@ qmatmul_kernel(const Args args) {
   b.R = N; b.K = K; b.r0 = n0; b.tid = tid;
   setup(b, args.w, args.w_vec, args.w_method, ac, wq ? s_wc : nullptr);
 
-  const int KT = (K + BK - 1) / BK;
-#pragma unroll
-  for (int s = 0; s < S - 1; ++s) {
-    if (s < KT) {
-      a.stage(s * BK, smem + s * P::STAGE_BYTES);
-      b.stage(s * BK, smem + s * P::STAGE_BYTES + P::A_BYTES);
-    }
-    cp_async_commit();
-  }
-
   float d[BN / 2];
-#pragma unroll
-  for (int i = 0; i < BN / 2; ++i) d[i] = 0.0f;
-
-  for (int kt = 0; kt < KT; ++kt) {
-    cp_async_wait<S - 2>();   // this thread's copies of chunk kt landed
-    fence_proxy_async();
-    __syncthreads();          // every thread's part of chunk kt is in place,
-                              // and stage (kt - 1) % S is free again
-    const uint32_t st = sbase + (kt % S) * P::STAGE_BYTES;
-    fence_acc(d);
-    mma_stage<BN>(d, st, st + P::A_BYTES, wg);
-    const int nk = kt + S - 1;
-    if (nk < KT) {            // under the products of chunk kt
-      uint8_t* ns = smem + (nk % S) * P::STAGE_BYTES;
-      a.stage(nk * BK, ns);
-      b.stage(nk * BK, ns + P::A_BYTES);
-    }
-    cp_async_commit();
-    wgmma_wait<0>();
-    fence_acc(d);
-  }
-  cp_async_wait<0>();
+  mainloop<BN>(a, b, d, smem, K, wg);
 
   // Epilogue from the accumulators: rows r and r + 8, column pairs.
   Epilogue e;

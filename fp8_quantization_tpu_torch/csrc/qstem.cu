@@ -20,6 +20,8 @@
 // Bound on the card: at (64, 224, 224, 3) the conv is 15.1 GFLOP against
 // 19 MB of input and 26 MB of bf16 output, so operations bound it; the
 // halo recomputation costs (9*17)/(8*16) = 1.2x the conv work.
+#include <mma.h>
+
 #include "fq_epilogue.cuh"
 
 namespace {

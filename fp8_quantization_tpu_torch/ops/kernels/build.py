@@ -36,12 +36,12 @@ SIGNATURES = {
                  _I, _I, _I, _P]),
     "qconv": ("qconv3x3_launch",
               [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
-               _I, _P]),
+               _I, _I, _P]),
     "qstem": ("qstem_launch",
               [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
     "qmatmul_int8": ("qmatmul_int8_launch",
                      [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _P]),
+                      _I, _I, _I, _I, _P]),
     "qconv_int8": ("qconv3x3_int8_launch",
                    [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _I, _P]),

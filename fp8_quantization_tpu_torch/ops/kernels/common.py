@@ -12,6 +12,8 @@ from fp8_quantization_tpu_torch.ops.uniform import (
     _scale_from_delta, int_asym_consts, int_quantize_prepared)
 
 ACTIVATION_CODES = {None: 0, "relu": 1, "relu6": 2}   # csrc/fq_epilogue.cuh
+SMEM_LIMIT = 232448      # shared memory a block can have on the H100
+SMS = 132                # its streaming multiprocessors
 # quantizer codes of the kernels (csrc/fq_epilogue.cuh, enum QuantMethod)
 QUANT_CODES = {"none": 0, "fp8": 1, "int_asym": 2, "int_sym": 3}
 

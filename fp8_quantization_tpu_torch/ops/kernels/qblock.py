@@ -51,8 +51,8 @@ import torch
 
 from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import (
-    QUANT_CODES, check_methods, on_card, quantize_prepared, require,
-    stream_ptr)
+    QUANT_CODES, SMEM_LIMIT, check_methods, on_card, quantize_prepared,
+    require, stream_ptr)
 from fp8_quantization_tpu_torch.ops.kernels.qdwconv import dw_taps_sum, out_hw
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qblock.py:82"
@@ -62,7 +62,6 @@ ROW_EXPAND, ROW_DW, ROW_PROJECT, ROW_BLOCK = 0, 1, 2, 3
 # keeps in registers at most) -> the shared memory that lets its blocks a
 # SM fit (three, two, one): partial-image tiles take 8 warps, whole images 16
 LAUNCHES = {(8, 4): 75 * 1024, (8, 8): 113 * 1024, (16, 10): 232448}
-SMEM_LIMIT = 232448             # the H100's shared memory a block
 MAX_TILE_ROWS = 256             # output pixels of a partial-image tile
 CHUNKS = (64, 48, 32, 16)       # hidden channels per chunk
 

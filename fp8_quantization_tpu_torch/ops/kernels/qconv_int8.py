@@ -33,14 +33,13 @@ import torch.nn.functional as F
 from fp8_quantization_tpu_torch.ops.int8 import act_int_params, quantize_act
 from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import (
-    ACTIVATION_CODES, on_card, require, stream_ptr)
+    ACTIVATION_CODES, SMEM_LIMIT, on_card, require, stream_ptr)
 from fp8_quantization_tpu_torch.ops.kernels.qconv import out_hw
 from fp8_quantization_tpu_torch.ops.kernels.qmatmul_int8 import (
     check_int8_config, check_scalars, epilogue, exact_total, weight_grid)
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qconv.py:278"
 TILE_MS = (128, 64)      # GEMM rows (output pixels) a CTA; csrc/qconv_int8.cu
-SMEM_LIMIT = 232448      # shared memory a block can have on the H100
 
 
 @dataclasses.dataclass(frozen=True)

@@ -21,12 +21,14 @@ padding of the Pallas wrapper do not carry over: ragged M, N and K are
 masked in the kernel.
 
 On the card the kernel is bound by bytes (float32 in and out, see the note
-in csrc/qmatmul_int8.cu).
+in csrc/qmatmul_int8.cu).  Each block owns a ``bm x bn`` output tile and
+``1 / splits`` of K (``int8_tile``).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -39,6 +41,49 @@ from fp8_quantization_tpu_torch.ops.kernels.common import (
     ACTIVATION_CODES, on_card, require, stream_ptr)
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qmatmul.py:212"
+CHUNK_K = 32                # csrc/qmatmul_int8.cu: BK
+MIN_BLOCKS = 128            # a launch with fewer splits K (one wave of 132 SMs)
+MAX_SPLITS = 8              # ranks of a portable cluster
+# (bm, bn) the kernel is built for; split K only with (64, 64)
+TILES = ((64, 64), (64, 128), (64, 256), (32, 128), (32, 256))
+
+
+@dataclasses.dataclass(frozen=True)
+class Int8Tile:
+    """A block's share: ``bm x bn`` outputs and the K chunks
+    ``[z * nch // splits, (z + 1) * nch // splits)`` of its rank z."""
+    bm: int
+    bn: int
+    splits: int = 1
+
+    def blocks(self, m: int, n: int) -> int:
+        return -(-m // self.bm) * -(-n // self.bn) * self.splits
+
+    def chunks(self, k: int, z: int) -> range:
+        nch = -(-k // CHUNK_K)
+        return range(z * nch // self.splits, (z + 1) * nch // self.splits)
+
+
+@functools.lru_cache(maxsize=None)
+def int8_tile(m: int, n: int, k: int) -> Int8Tile:
+    """The kernel's tile for an (M, K) x (N, K) product: bn the least of
+    64, 128, 256 that covers N (256 above), so that x is read and quantized
+    once per column tile (N <= 256) or twice (N = 512); bm 64, or 32 where
+    64 leaves fewer than MIN_BLOCKS blocks; where even that does (the fc,
+    M = batch), a 64 x 64 tile with K split over up to 8 cluster ranks (at
+    most one a chunk of 32), the fewest that reach MIN_BLOCKS."""
+    bn = next((w for w in (64, 128, 256) if n <= w), 256)
+    tile = Int8Tile(64, bn)
+    if tile.blocks(m, n) < MIN_BLOCKS and bn >= 128:
+        tile = Int8Tile(32, bn)
+    if tile.blocks(m, n) >= MIN_BLOCKS:
+        return tile
+    nch = -(-k // CHUNK_K)
+    splits = 1
+    while (Int8Tile(64, 64, splits).blocks(m, n) < MIN_BLOCKS
+           and 2 * splits <= min(MAX_SPLITS, nch)):
+        splits *= 2
+    return Int8Tile(64, 64, splits) if splits > 1 else tile
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,12 +178,13 @@ def fused_quant_matmul_int8(x: torch.Tensor, w: torch.Tensor,
     require(w, "w", (torch.int8, torch.float32), vector_loads=True)
     check_scalars(N, *args)
     out = torch.empty((M, N), device=x.device, dtype=torch.float32)
+    tile = int8_tile(M, N, K)
     err = build.entry("qmatmul_int8")(
         x.data_ptr(), w.data_ptr(), int(w.dtype == torch.int8),
         w_delta.data_ptr(), w_scalars.data_ptr(), a_scalars.data_ptr(),
         scale.data_ptr(), shift.data_ptr(), out.data_ptr(), M, N, K,
         cfg.act_n_bits, cfg.n_bits, ACTIVATION_CODES[cfg.activation],
-        stream_ptr(x))
+        tile.bm, tile.bn, tile.splits, stream_ptr(x))
     build.check(err, "qmatmul_int8")
     fused_quant_matmul_int8.launches += 1
     return out

@@ -1,6 +1,7 @@
 """Timing of source variants of the redesigned kernels (no JAX
 counterpart): which phase of ``csrc/qmatmul.cu``, ``csrc/qconv_int8.cu``,
-``csrc/flash_mha.cu`` and ``csrc/qblock.cu`` holds each back on the card.
+``csrc/flash_mha.cu``, ``csrc/qblock.cu``, ``csrc/qconv.cu`` and
+``csrc/qmatmul_int8.cu`` holds each back on the card.
 
     python -m fp8_quantization_tpu_torch.ops.kernels.variants [--dry] [kernel ...]
 
@@ -12,7 +13,8 @@ no host time counts).  A variant that removes a phase computes wrong
 outputs by design: it only shows what that phase costs.  The kernels as
 committed are checked against their plain versions by ``chip_smoke.py``.
 ``--dry`` applies the patches and exits (no card, no nvcc); kernel names
-(qmatmul, qconv_int8, flash_mha, qblock) restrict the run to those.
+(qmatmul, qconv_int8, flash_mha, qblock, qconv, qmatmul_int8) restrict the
+run to those.
 
 Shapes: the main path's qmatmul calls (bf16 x on the grid, baked bf16 w,
 FP8 output quant, bf16 normalized output) at the ViT's qkv, proj and mlp2,
@@ -23,7 +25,10 @@ flash_mha on ViT-S/16's (64, 6, 197, 64) float32 views of a qkv tensor;
 qblock (FP8 stages, bf16 output) at five MobileNetV2 blocks at batch 64
 (112x112 stride 2, 56x56 residual, 28x28 stride 2, 14x14 residual, 7x7
 160->960->320), each
-at its ``block_tile``.
+at its ``block_tile``; qconv3x3 (FP8 output quant, bf16 norms in and out)
+at ResNet-18's seven 3x3 shapes at batch 64, each at its ``conv_tile``
+width; qmatmul_int8 (baked int8 weights) at ResNet-18's three downsamples
+and the fc at batch 64, each at its ``int8_tile``.
 """
 
 from __future__ import annotations
@@ -41,8 +46,10 @@ from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
 from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.attention import flash_grid
 from fp8_quantization_tpu_torch.ops.kernels.qblock import block_tile
+from fp8_quantization_tpu_torch.ops.kernels.qconv import conv_tile as qconv_tile
 from fp8_quantization_tpu_torch.ops.kernels.qconv_int8 import conv_tile
 from fp8_quantization_tpu_torch.ops.kernels.qmatmul import tile_n
+from fp8_quantization_tpu_torch.ops.kernels.qmatmul_int8 import int8_tile
 
 VARIANTS_ROOT = build.BUILD_ROOT.parent / "variants"
 
@@ -115,10 +122,83 @@ QBLOCK = [
         "    if (ch + 1 < nchunks) {              // the next chunk under this one",
         "    if (false) {")]),
 ]
+# wgmma_wait<1>: chunk kt's products run while chunk kt + 1 is waited for
+INFLIGHT = [
+    ("  for (int s = 0; s < S - 1; ++s) {", "  for (int s = 0; s < S - 2; ++s) {"),
+    ("    cp_async_wait<S - 2>();   // this thread's copies of chunk kt landed",
+     "    cp_async_wait<S - 3>();"),
+    ("    const int nk = kt + S - 1;", "    const int nk = kt + S - 2;"),
+    ("    wgmma_wait<0>();\n    fence_acc(d);\n  }\n  cp_async_wait<0>();",
+     "    wgmma_wait<1>();\n    fence_acc(d);\n  }\n  wgmma_wait<0>();\n  fence_acc(d);\n"
+     "  cp_async_wait<0>();")]
+QCONV3X3 = [
+    ("as committed", []),
+    ("no output quant", [
+        (f"  y{i} = fq::quantize_inv_m<METHOD>(fq::apply_act(y{i}, a.activation), q, "
+         "a.emit_norm);", f"  y{i} = fq::apply_act(y{i}, a.activation);") for i in (0, 1)]),
+    ("IEEE-division output quant (fq::quantize)", [
+        (f"  y{i} = fq::quantize_inv_m<METHOD>(fq::apply_act(y{i}, a.activation), q, "
+         "a.emit_norm);",
+         f"  y{i} = fq::quantize(fq::apply_act(y{i}, a.activation), METHOD, q.k, a.emit_norm);")
+        for i in (0, 1)]),
+    ("no A gather (stale smem)", [(
+        "      cp_async16(base + swizzled((tid >> 3) + 32 * i, piece), src, ok);",
+        "      (void)src;")]),
+    ("no copies (stale smem)", [(
+        "      cp_async16(base + swizzled((tid >> 3) + 32 * i, piece), src, ok);",
+        "      (void)src;"), (
+        """      cp_async16(base + swizzled(row, ch),
+                 ok ? src + static_cast<long long>(r) * K + k : src, ok);""",
+        "      (void)ok;")]),
+    ("no products", [("    mma_stage<BN>(d, st, st + P::A_BYTES, wg);",
+                      "    d[0] += 1.0f;")]),
+    ("no output stores", [("    if (m < M && n < Cout)\n", "    if (m < 0)\n")]),
+    ("launch width 64", [("  switch (bn) {\n    case 16: return dispatch<16>(a, a_method, st);",
+                          "  switch (64) {\n    case 16: return dispatch<16>(a, a_method, st);")]),
+    ("launch width 128", [("  switch (bn) {\n    case 16: return dispatch<16>(a, a_method, st);",
+                           "  switch (128) {\n    case 16: return dispatch<16>(a, a_method, st);")]),
+    ("4 stages", [("  static constexpr int STAGES = 3;",
+                   "  static constexpr int STAGES = 4;")]),
+    ("4 stages, 2 product groups in flight", INFLIGHT + [(
+        "  static constexpr int STAGES = 3;", "  static constexpr int STAGES = 4;")]),
+    ("A copies through L1 (.ca)", [(
+        "      cp_async16(base + swizzled((tid >> 3) + 32 * i, piece), src, ok);",
+        "      asm volatile(\"cp.async.ca.shared.global [%0], [%1], 16, %2;\\n\" ::\"r\"(base + swizzled((tid >> 3) + 32 * i, piece)), \"l\"(src), \"r\"(ok ? 16 : 0) : \"memory\");")]),
+]
+QMATMUL_INT8 = [
+    ("as committed", []),
+    ("no x quantizer: inputs cast", [
+        (f"i8::quant_x(xr[i].{c}, p)", f"static_cast<int>(xr[i].{c})") for c in "xyzw"]),
+    ("no weight copies (stale smem)", [
+        (f"          i8::{fn}(i8::saddr(&ws[buf][u * 16]), src, ok);", "          (void)src;")
+        for fn in ("cp_async16_ca", "cp_async16")]),
+    ("no products", [(
+        """          i8::mma_s8(acc[i][2 * jp], af[i], b[0], b[1]);
+          i8::mma_s8(acc[i][2 * jp + 1], af[i], b[2], b[3]);""",
+        """          acc[i][2 * jp][0] += af[i][0] ^ b[0];
+          acc[i][2 * jp + 1][0] += af[i][1] ^ b[2];""")]),
+    ("no split-K reduction", [("      for (int k = 0; k < ranks; ++k) {\n",
+                               "      for (int k = rank; k <= rank; ++k) {\n")]),
+    ("no epilogue: the raw sums stored", [(
+        """            y[e] = i8::epilogue(acc[i][j][2 * h + e], s_rowsum[rl], col[e], K, p,
+                                dw[e], sc[e], sh[e], a.activation);""",
+        """            y[e] = static_cast<float>(acc[i][j][2 * h + e]);""")]),
+    ("no output stores", [("""          if (two && pairs) {
+            *reinterpret_cast<float2*>(o) = make_float2(y[0], y[1]);
+          } else {
+            o[0] = y[0];
+            if (two) o[1] = y[1];
+          }""", "          if (y[0] == 1234.5f) o[0] = y[1];")]),
+    ("w copies through L2 only (.cg)", [("        if (a.w_l1)\n", "        if (false)\n")]),
+    ("division-free x quantizer", [("  const float q = x == 0.0f ? 0.0f : __fdiv_rn(x, p.dx);",
+                                      "  const float r = __frcp_rn(p.dx), q0 = __fmul_rn(x, r);\n  const float q = __fmaf_rn(__fmaf_rn(-q0, p.dx, x), r, q0);")]),
+]
 KERNEL_VARIANTS = {"qmatmul": QMATMUL, "qconv_int8": QCONV, "flash_mha": FLASH,
-                   "qblock": QBLOCK}
+                   "qblock": QBLOCK, "qconv": QCONV3X3, "qmatmul_int8": QMATMUL_INT8}
 MATMUL_SHAPES = [(64 * 197, 384, 1152), (64 * 197, 384, 384), (64 * 197, 1536, 384),
                  (64 * 28 * 28, 64, 128), (64 * 112 * 112, 16, 96)]
+INT8_MATMUL_SHAPES = [(64 * 28 * 28, 64, 128), (64 * 14 * 14, 128, 256),
+                      (64 * 7 * 7, 256, 512), (64, 512, 1000)]
 CONV_SHAPES = [(56, 64, 64, 1), (56, 64, 128, 2), (28, 128, 128, 1), (28, 128, 256, 2),
                (14, 256, 256, 1), (14, 256, 512, 2), (7, 512, 512, 1)]
 # (H, stride, Cin, hid, Cout, residual)
@@ -221,6 +301,46 @@ def conv_calls(g):
         yield [h, cin, cout, s], (lambda fn, a=args: fn(*a))
 
 
+def qconv_calls(g):
+    """(shape, call(fn)) of ResNet-18's 3x3 convs on the FP8 datapath: bf16
+    norms in, baked bf16 weights, relu, FP8 output quant, bf16 norms out."""
+    stream = torch.cuda.current_stream().cuda_stream
+    a_c = fp8_consts(torch.tensor([4.0], device="cuda"), 4)
+    for h, cin, cout, s in CONV_SHAPES:
+        x = torch.randn(64, h, h, cin, generator=g, device="cuda").to(torch.bfloat16)
+        w = (torch.randn(cout, 9 * cin, generator=g, device="cuda") * 0.05).to(torch.bfloat16)
+        scale = torch.full((cout,), 0.01, device="cuda")
+        shift = torch.zeros(cout, device="cuda")
+        ho = (h - 1) // s + 1
+        out = torch.empty(64, ho, ho, cout, device="cuda", dtype=torch.bfloat16)
+        bn = qconv_tile(64 * ho * ho, cout).bn
+        keep = (x, w, scale, shift, out)
+        args = (x.data_ptr(), w.data_ptr(), a_c.data_ptr(), scale.data_ptr(),
+                shift.data_ptr(), None, 0, out.data_ptr(), 64, h, h, cin, cout, s, 1, 1,
+                1, bn, stream)
+        yield [h, cin, cout, s, bn], (lambda fn, a=args, k=keep: fn(*a))
+
+
+def int8_matmul_calls(g):
+    """(shape, call(fn)) of ResNet-18's qmatmul_int8 calls (the 1x1/2
+    downsamples and the fc), float32 x, baked int8 weights."""
+    stream = torch.cuda.current_stream().cuda_stream
+    w_scalars = torch.tensor([0.0, 1.0], device="cuda")
+    a_scalars = torch.tensor([0.02, 3.0, 0.0], device="cuda")
+    for m, k, n in INT8_MATMUL_SHAPES:
+        x = torch.relu(torch.randn(m, k, generator=g, device="cuda"))
+        w = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        w_delta = torch.full((n,), 0.01, device="cuda")
+        scale, shift = torch.ones(n, device="cuda"), torch.zeros(n, device="cuda")
+        out = torch.empty(m, n, device="cuda")
+        t = int8_tile(m, n, k)
+        keep = (x, w, w_delta, scale, shift, out)
+        args = (x.data_ptr(), w.data_ptr(), 1, w_delta.data_ptr(), w_scalars.data_ptr(),
+                a_scalars.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
+                m, n, k, 8, 8, 0, t.bm, t.bn, t.splits, stream)
+        yield [m, k, n, t.bm, t.bn, t.splits], (lambda fn, a=args, kp=keep: fn(*a))
+
+
 def flash_calls(g):
     """(shape, call(fn)) of the ViT's attention call."""
     stream = torch.cuda.current_stream().cuda_stream
@@ -271,7 +391,9 @@ def main(argv) -> int:
         return 0
     g = torch.Generator(device="cuda").manual_seed(0)
     for name, calls in (("qmatmul", matmul_calls(g)), ("qconv_int8", conv_calls(g)),
-                        ("flash_mha", flash_calls(g)), ("qblock", block_calls(g))):
+                        ("flash_mha", flash_calls(g)), ("qblock", block_calls(g)),
+                        ("qconv", qconv_calls(g)),
+                        ("qmatmul_int8", int8_matmul_calls(g))):
         if name not in only:
             continue
         for shape, call in calls:

@@ -8,7 +8,10 @@ flash_mha.cu) gives each block a group of query rows (``flash_grid``).
 The quant-matmul (csrc/qmatmul.cu) launches ``ceil(M / 128) x ceil(N / BN)``
 blocks with ``BN = tile_n(N)``; the int8 3x3 conv (csrc/qconv_int8.cu)
 gives each block a ``th x tw`` tile of one image's output pixels and
-``bn`` output channels (``conv_tile``).  These tests hold the choices to
+``bn`` output channels (``conv_tile``); the 3x3 conv (csrc/qconv.cu) 128
+output pixels by ``bn`` channels (``qconv.conv_tile``), gathering K =
+9*Cin in chunks of 64; the int8 quant-matmul (csrc/qmatmul_int8.cu) a
+``bm x bn`` tile and a share of K (``int8_tile``).  These tests hold the choices to
 what the kernels assume at every shape of ResNet-18, MobileNetV2 and
 ViT-S/16 at batch 64 and at the edges the kernels mask: each output is
 covered exactly once, a tile fits its block's shared memory, and small N
@@ -27,9 +30,12 @@ import torch
 
 from fp8_quantization_tpu_torch.ops.kernels import attention as at
 from fp8_quantization_tpu_torch.ops.kernels import qblock as qb
+from fp8_quantization_tpu_torch.ops.kernels import qconv as q3
 from fp8_quantization_tpu_torch.ops.kernels import qconv_int8 as qc
 from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
+from fp8_quantization_tpu_torch.ops.kernels import qmatmul_int8 as q8
 from fp8_quantization_tpu_torch.ops.kernels import variants
+from fp8_quantization_tpu_torch.ops.kernels.common import SMEM_LIMIT
 
 B = 64
 
@@ -284,3 +290,143 @@ def test_flash_grid_writes_every_query_row_once(s):
     assert (rows == 1).all()
     assert groups == -(-s // (at.ROWS_PER_WARP * at.MAX_WARPS))
     assert steps == at.padded_len(s) // at.BLOCK_K == -(-s // at.BLOCK_K)
+
+
+# (batch, H, Cin, Cout, stride) of the 3x3 conv kernel: ResNet-18's seven
+# shapes at batch 64 and 256, and the edges chip_smoke.py runs on the card
+# (Cin 8, 16, 24, 72 straddle taps in a 64-wide chunk; odd H at stride 2;
+# 1x1 and 2x2 maps; M not a multiple of 128; Cout 8 and 24)
+QCONV_SHAPES = ([(b, h, cin, cout, s) for b in (B, 256) for h, cin, cout, s in RESNET_CONVS]
+                + [(3, 9, 8, 8, 1), (5, 15, 16, 24, 2), (4, 7, 24, 32, 1),
+                   (2, 10, 72, 64, 2), (3, 12, 72, 24, 1), (7, 1, 64, 64, 1),
+                   (6, 2, 32, 16, 2), (5, 2, 64, 128, 1), (3, 28, 128, 128, 1),
+                   (1, 15, 8, 1000, 2)])
+
+
+@pytest.mark.parametrize("n,h,cin,cout,stride", QCONV_SHAPES)
+def test_qconv3x3_tiles_cover_every_output_once(n, h, cin, cout, stride):
+    """The kernel's grid, ceil(M / 128) x ceil(Cout / bn) blocks, covers
+    each output pixel and channel exactly once with a width it is built
+    for, no wider than Cout needs, and its shared memory fits a block."""
+    ho = (h - 1) // stride + 1
+    m = n * ho * ho
+    tile = q3.conv_tile(m, cout)
+    assert tile.bn in q3.TILE_NS
+    assert tile.bn <= max(16, 1 << (cout - 1).bit_length())
+    assert tile.smem_bytes(cin) <= SMEM_LIMIT
+    rows = np.zeros(m, np.int32)
+    for i in range(-(-m // q3.TILE_M)):
+        assert i * q3.TILE_M < m                    # no block without outputs
+        rows[i * q3.TILE_M:(i + 1) * q3.TILE_M] += 1
+    cols = np.zeros(cout, np.int32)
+    for j in range(-(-cout // tile.bn)):
+        assert j * tile.bn < cout
+        cols[j * tile.bn:(j + 1) * tile.bn] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+    assert tile.bn <= 64 or tile.blocks(m, cout) <= 2 * q3.SMS
+
+
+@pytest.mark.parametrize("shape,want", zip(RESNET_CONVS, [64, 64, 64, 128, 128, 128, 128]))
+def test_qconv3x3_tile_widths_at_resnet18(shape, want):
+    """At batch 64 the maps down to 28x28 (392 or more blocks at 128) take
+    the 64-wide tile, three blocks an SM; from 28x28 / 2 down the 128-wide
+    one (196 or 100 blocks), which gathers each input row for twice the
+    channels: on the card the 7x7x512 conv is faster at 128 with 100
+    blocks than at 64 with 200 (PERF.md section 6)."""
+    h, cin, cout, stride = shape
+    ho = (h - 1) // stride + 1
+    assert q3.conv_tile(B * ho * ho, cout).bn == want
+
+
+@pytest.mark.parametrize("cin", [8, 16, 24, 32, 40, 64, 72, 128, 256, 512])
+def test_qconv3x3_chunks_gather_every_tap_channel_once(cin):
+    """The implicit-im2col producer (sm90::ConvOperand) gathers K = 9*Cin
+    in chunks of 64 columns, a 16-byte piece of 8 channels a thread: piece
+    p of chunk k0 is column k = k0 + 8p, tap (dy, dx) = divmod(k // Cin, 3),
+    channels k % Cin .. + 7.  Every (tap, channel) is gathered exactly once,
+    no piece straddles two taps (Cin % 8 == 0), pieces past K are zero
+    filled, and at Cin % 64 == 0 a chunk is one tap."""
+    k_total = 9 * cin
+    seen = np.zeros((9, cin), np.int32)
+    for k0 in range(0, -(-k_total // 64) * 64, 64):
+        taps = set()
+        for piece in range(8):
+            k = k0 + 8 * piece
+            if k >= k_total:
+                continue                            # zero filled
+            tap, ci = divmod(k, cin)
+            dy, dx = divmod(tap, 3)
+            assert 0 <= dy < 3 and 0 <= dx < 3 and ci + 8 <= cin
+            seen[tap, ci:ci + 8] += 1
+            taps.add(tap)
+        if cin % 64 == 0:
+            assert len(taps) == 1
+    assert (seen == 1).all()
+
+
+@pytest.mark.parametrize("h,stride", [(56, 1), (56, 2), (15, 2), (7, 1), (2, 2), (1, 1)])
+def test_qconv3x3_gather_reads_the_same_window(h, stride):
+    """The producer reads output pixel (oh, ow)'s tap (dy, dx) at input
+    (oh*s + dy - 1, ow*s + dx - 1) and zero fills outside the image: the
+    3x3 SAME window of the convolution, at odd sizes and stride 2 too
+    (checked against an unfold of the zero-padded input)."""
+    x = torch.arange(h * h, dtype=torch.float32).reshape(1, 1, h, h) + 1
+    ho = (h - 1) // stride + 1
+    ref = torch.nn.functional.unfold(x, 3, padding=1, stride=stride)   # (9, ho*ho)
+    got = torch.zeros(9, ho * ho)
+    for m in range(ho * ho):
+        oh, ow = divmod(m, ho)
+        for tap in range(9):
+            dy, dx = divmod(tap, 3)
+            ih, iw = oh * stride + dy - 1, ow * stride + dx - 1
+            if 0 <= ih < h and 0 <= iw < h:
+                got[tap, m] = x[0, 0, ih, iw]
+    assert torch.equal(got, ref[0])
+
+
+RESNET_INT8_MATMULS = [(b * 28 * 28, 64, 128) for b in (B, 256)] + [
+    (b * 14 * 14, 128, 256) for b in (B, 256)] + [
+    (b * 7 * 7, 256, 512) for b in (B, 256)] + [(B, 512, 1000), (256, 512, 1000)]
+EDGE_INT8_MATMULS = [(1, 100, 1000), (B, 72, 24), (1000, 100, 24), (1000, 72, 1000),
+                     (B, 100, 1000), (1, 72, 24), (1, 8, 1), (129, 40, 17), (3, 1000, 8)]
+
+
+@pytest.mark.parametrize("m,k,n", RESNET_INT8_MATMULS + EDGE_INT8_MATMULS)
+def test_qmatmul_int8_tiles_cover_every_product_once(m, k, n):
+    """The kernel's grid, ceil(M / bm) x ceil(N / bn) x splits blocks, gives
+    every (m, n, k) of the product to exactly one block's split (rank z
+    sums chunks [z * nch // splits, (z + 1) * nch // splits) of 32), no rank
+    without a chunk, with a tile the kernel is built for: K split only over
+    a cluster of at most 8 ranks of 64 x 64 tiles."""
+    tile = q8.int8_tile(m, n, k)
+    assert (tile.bm, tile.bn) in q8.TILES
+    assert 1 <= tile.splits <= q8.MAX_SPLITS
+    assert tile.splits == 1 or (tile.bm, tile.bn) == (64, 64)
+    ks = np.zeros(k, np.int32)
+    for z in range(tile.splits):
+        chunks = tile.chunks(k, z)
+        assert len(chunks) >= 1
+        for c in chunks:
+            ks[c * q8.CHUNK_K:(c + 1) * q8.CHUNK_K] += 1
+    assert (ks == 1).all()
+    rows = np.zeros(m, np.int32)
+    for i in range(-(-m // tile.bm)):
+        rows[i * tile.bm:(i + 1) * tile.bm] += 1
+    cols = np.zeros(n, np.int32)
+    for j in range(-(-n // tile.bn)):
+        cols[j * tile.bn:(j + 1) * tile.bn] += 1
+    assert (rows == 1).all() and (cols == 1).all()
+
+
+@pytest.mark.parametrize("m,k,n", RESNET_INT8_MATMULS)
+def test_qmatmul_int8_tiles_read_x_at_most_twice_and_fill_the_card(m, k, n):
+    """At ResNet-18's shapes (batch 64 and 256) x is read and quantized
+    once per column tile: once at N <= 256, at most twice at 512 (the fc's
+    small x aside); every launch has at least 128 blocks, the fc at batch
+    64 by splitting K 8 ways."""
+    tile = q8.int8_tile(m, n, k)
+    assert tile.blocks(m, n) >= q8.MIN_BLOCKS
+    if n <= 512:
+        assert -(-n // tile.bn) <= (1 if n <= 256 else 2)
+    if (m, k, n) == (B, 512, 1000):
+        assert tile.splits == 8 and tile.blocks(m, n) == 128
