@@ -25,7 +25,8 @@ without the final result line):
                 at stride 2, 1x1 and 2x2 maps, M not a multiple of 128,
                 Cout 8 and 24, float32 and bf16 residuals, float32
                 outputs, relu6 and no activation); qstem at (64, 224, 224,
-                3).  Holds if >= 99%
+                3) and at the edges of its tiling (STEM_EDGES: S = 32 and
+                40, cin 1 and 4, bf16 images, float32 outputs).  Holds if >= 99%
                 of elements are exact and the rest within one FP8 grid step
                 (the kernel sums in another order than cuDNN/cuBLAS in fp32).
 3. int8_check - each int8 kernel against its plain version (exact integer
@@ -44,10 +45,11 @@ without the final result line):
                 convolution on CUDA, so it times the product alone; none
                 where _int_mm does not take the shape).
    batch256   - qmatmul (downsamples and fc), qconv3x3_int8 and qconv3x3
-                (FP8, then int_asym output quant; the seven 3x3 shapes) and
-                qmatmul_int8 (downsamples and fc) at ResNet-18's shapes at
-                batch 256, checked as in phases 2, 3 and 10, timed warm and
-                cold, with sums per forward.
+                (FP8, then int_asym output quant; the seven 3x3 shapes),
+                qmatmul_int8 (downsamples and fc) and qstem (FP8, then
+                int_asym) at ResNet-18's shapes at batch 256, checked as in
+                phases 2, 3 and 10, timed warm and cold, with sums per
+                forward.
 4. slice      - the FP8 main path as a user runs it: validate-quantized
                 through the CLI's entry point (cli/image_net.
                 validate_quantized) on ResNet-18 at full width with random
@@ -109,7 +111,8 @@ without the final result line):
                 launches of the main path) and two blocks at the edges of
                 qblock's tiling on synthetic operands (BLOCK_EDGES: 15x15
                 with a residual, 14x14 at stride 2 with hid 144 and Cout
-                24); qblock is also timed with the L2 flushed (cold_ms).  library_ms: bf16 channels-last
+                24); qblock and qdwconv3x3 are also timed with the L2
+                flushed (cold_ms).  library_ms: bf16 channels-last
                 F.conv2d(groups=C), and for a block the three stages as
                 three calls (torch.matmul, F.conv2d(groups=C),
                 torch.matmul).
@@ -181,10 +184,12 @@ without the final result line):
                 turn and a profile), and mnv2_int8_check on their recorded
                 depthwise and block calls, with the edge blocks on the
                 integer grids.
-11. batch256_block_attn - flash_mha on (256, 6, 197, 64) float32 views and
+11. batch256_block_attn - flash_mha on (256, 6, 197, 64) float32 views,
                 qblock on the FP8 fp32_after forward's recorded calls with
-                x repeated to N = 256, checked as in phases 8 and 9, timed
-                warm and cold, with sums per forward.
+                x repeated to N = 256 and qdwconv3x3 at MobileNetV2's ten
+                depthwise shapes at batch 256 (FP8, then integer grids),
+                checked as in phases 8 and 9, timed warm and cold, with
+                sums per forward.
 
 Then a {"kernels": [...]} line (launches: the sum over the main-path runs
 of phases 4, 5, 8, 9 and 10; times: the FP8 forwards of phases 6, 8 and
@@ -328,7 +333,7 @@ def cold_ms(fn, iters=10):
 
 # the redesigned kernels, timed also with the L2 cache flushed (cold_ms)
 COLD_TIMED = ("qmatmul", "qconv3x3_int8", "qblock", "flash_mha", "qconv3x3",
-              "qmatmul_int8")
+              "qmatmul_int8", "qdwconv3x3", "qstem")
 
 
 def bound_ms(bytes_moved, flops, peak=BF16_FLOPS_PER_S):
@@ -620,25 +625,44 @@ def conv_cases(inp, batch=BATCH, edges=True):
     return cases
 
 
-def stem_cases(inp):
+# (batch, S, cin, x dtype, out) of qstem calls the main path does not make:
+# small maps (one 8x8 tile; 2x2 tiles with a ragged edge), cin 1 and 4
+# (runs of 7 and 28 taps), bf16 images and float32 outputs
+STEM_EDGES = [(3, 32, 3, "float32", "value"), (2, 40, 1, "bfloat16", "norm"),
+              (2, 40, 4, "float32", "norm"), (1, 64, 3, "bfloat16", "value")]
+
+
+def stem_cases(inp, batch=BATCH, edges=True):
+    """(name, args, cfg, flops, bytes, uses, library fn) per qstem case:
+    ResNet-18's stem, (batch, 224, 224, 3) float32 images, bf16 norms out,
+    then (``edges``) STEM_EDGES."""
     import torch
     import torch.nn.functional as F
     from fp8_quantization_tpu_torch.ops.kernels import qstem as qs
-    x = inp.randn(BATCH, 224, 224, 3).contiguous()
-    w4 = inp.weight_norms(inp.randn(64, 3, 7, 7, scale=0.05))
-    w = qs.weight_matrix(w4)
-    scale, shift = inp.uniform(64, 0.5, 1.5), inp.randn(64, scale=0.1)
-    if inp.grid == "int":
-        scale = scale * 0.02
-    y0 = qs.qstem_plain(x, w, None, scale, shift, qs.FusedStemConfig(act_method="none"))
-    cfg = qs.FusedStemConfig(act_method=inp.act_method, emit_norm=True)
-    args = (x, w, inp.out_consts(y0), scale, shift)
-    flops = 2 * BATCH * 112 * 112 * 147 * 64
-    nbytes = x.numel() * 4 + w.numel() * 2 + BATCH * 56 * 56 * 64 * 2
-    xl = x.to(torch.bfloat16).permute(0, 3, 1, 2)
-    wl = w4.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
-    lib = lambda: F.max_pool2d(F.conv2d(xl, wl, stride=2, padding=3), 3, 2, 1)  # noqa: E731
-    return [("qstem 224x224x3->64", args, cfg, flops, nbytes, 1, lib)]
+    cases = []
+    for n, S, cin, xdt, out in [(batch, 224, 3, "float32", "norm")] + (STEM_EDGES if edges else []):
+        x = inp.randn(n, S, S, cin).to(getattr(torch, xdt)).contiguous()
+        w4 = inp.weight_norms(inp.randn(64, cin, 7, 7, scale=0.05))
+        w = qs.weight_matrix(w4)
+        scale, shift = inp.uniform(64, 0.5, 1.5), inp.randn(64, scale=0.1)
+        if inp.grid == "int":
+            scale = scale * 0.02
+        y0 = qs.qstem_plain(x, w, None, scale, shift, qs.FusedStemConfig(act_method="none"))
+        cfg = qs.FusedStemConfig(act_method=inp.act_method, emit_norm=out == "norm")
+        args = (x, w, inp.out_consts(y0), scale, shift)
+        conv, p = (S - 1) // 2 + 1, qs.stem_out_size(S)
+        flops = 2 * n * conv * conv * 49 * cin * 64
+        nbytes = (x.numel() * x.element_size() + w.numel() * 2
+                  + n * p * p * 64 * (2 if out == "norm" else 4))
+        xl = x.to(torch.bfloat16).permute(0, 3, 1, 2)
+        wl = w4.to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+        name = f"qstem {S}x{S}x{cin}->64"
+        if S != 224:
+            name += f" edge batch {n} {xdt} x {out}"
+        cases.append((name, args, cfg, flops, nbytes, 1 if S == 224 else 0,
+                      lambda xl=xl, wl=wl: F.max_pool2d(
+                          F.conv2d(xl, wl, stride=2, padding=3), 3, 2, 1)))
+    return cases
 
 
 def kernel_table():
@@ -1264,7 +1288,7 @@ def input_share(logits):
     return float((centred.pow(2).mean() / (logits - logits.mean()).pow(2).mean()).sqrt())
 
 
-def mnv2_dw_case(args, kw, uses):
+def mnv2_dw_case(args, kw, uses, label=""):
     """(name, call, plain call, check(out, ref), bytes, op seconds, uses,
     library fn) of one recorded qdwconv3x3 call."""
     import torch
@@ -1280,13 +1304,49 @@ def mnv2_dw_case(args, kw, uses):
     xl = x.permute(0, 3, 1, 2)                       # NCHW view, channels-last
     wl = w.permute(2, 0, 1)[:, None].to(x.dtype).contiguous(
         memory_format=torch.channels_last)
-    return (f"qdwconv3x3 {h}x{wd}x{c} s{cfg.stride}",
+    return (f"qdwconv3x3 {h}x{wd}x{c} s{cfg.stride}{label}",
             lambda: qd.fused_quant_dwconv3x3(*args, **kw),
             lambda: qd.qdwconv3x3_plain(*args, cfg),
             lambda out, ref: grid_check(out, ref, a_c, cfg.emit_norm,
                                         method=cfg.act_method),
             nbytes, op_s, uses,
             lambda: F.conv2d(xl, wl, stride=cfg.stride, padding=1, groups=c))
+
+
+# (H, C, stride, uses per MobileNetV2 forward) of its depthwise convs
+DW_SHAPES = [(112, 32, 1, 1), (112, 96, 2, 1), (56, 144, 1, 1), (56, 144, 2, 1),
+             (28, 192, 1, 2), (28, 192, 2, 1), (14, 384, 1, 4), (14, 576, 1, 2),
+             (14, 576, 2, 1), (7, 960, 1, 3)]
+# (batch, H, C, stride, emit_norm, activation) of qdwconv3x3 calls the main
+# path does not make: C % 8 != 0 (12, 20: the one-thread-per-output route),
+# odd maps at both strides, 1x1 and 2x2 maps, C = 8 and 24 (groups of one
+# 8-channel vector), float32 outputs, relu and no activation, batch 1
+DW_EDGES = [(3, 15, 24, 2, True, "relu"), (2, 9, 12, 1, True, None),
+            (1, 1, 32, 1, False, "relu6"), (4, 2, 64, 2, True, None),
+            (1, 13, 72, 1, False, None), (5, 8, 8, 2, True, "relu6"),
+            (2, 30, 40, 2, True, "relu6"), (2, 7, 20, 2, False, "relu")]
+
+
+def synthetic_dw(inp, n, h, c, stride, emit=True, act="relu6"):
+    """(args, kw) of a qdwconv3x3 call on synthetic operands of ``inp``'s
+    grid: bf16 input norms, per-channel normalized taps, an output
+    quantizer set from the range of the plain output."""
+    from fp8_quantization_tpu_torch.ops.kernels import qdwconv as qd
+    x = inp.norms(n, h, h, c)
+    w = qd.weight_taps(inp.weight_norms(inp.randn(c, 1, 3, 3)))
+    scale, shift = inp.uniform(c, 0.5, 1.5), inp.randn(c, scale=0.1)
+    if inp.grid == "int":
+        scale = scale * 0.02
+    y0 = qd.qdwconv3x3_plain(x, w, None, scale, shift, qd.DwConvConfig(stride=stride))
+    cfg = qd.DwConvConfig(act_method=inp.act_method, activation=act, emit_norm=emit,
+                          stride=stride)
+    return (x, w, inp.out_consts(y0), scale, shift), {"cfg": cfg}
+
+
+def dw_exact(out, ref):
+    """Every element of a qdwconv3x3 output equal to its plain version's
+    (the same products summed in the same order), counted exactly."""
+    return bool((out.float() == ref.float()).all())
 
 
 def mnv2_block_case(args, kw, uses, label=""):
@@ -1448,9 +1508,13 @@ def phase_mnv2_check(results, captures, label="mnv2_check", dw_bf16=True, grid="
     for edge in BLOCK_EDGES:
         a, kw = synthetic_block(inp, *edge)
         cases.append(("qblock", mnv2_block_case(a, kw, 0, f" edge {grid}")))
+    for n, h, c, s, norm, act in DW_EDGES:
+        a, kw = synthetic_dw(inp, n, h, c, s, norm, act)
+        cases.append(("qdwconv3x3", mnv2_dw_case(
+            a, kw, 0, f" edge {grid} batch {n} {'norm' if norm else 'value'} {act}")))
     want_cases = {"qdwconv3x3": 10, "qblock": 12}
     ok_all = (all(len(captures.get(k, {})) == n for k, n in want_cases.items())
-              and len(cases) == n_main + 2 * dw_bf16 + len(BLOCK_EDGES))
+              and len(cases) == n_main + 2 * dw_bf16 + len(BLOCK_EDGES) + len(DW_EDGES))
     for kname, (name, call, plain, check, nbytes, op_s, uses, lib) in cases:
         agg = results.setdefault(kname, {})
         for k in ("max_abs_err", "ms", "plain_ms", "library_ms", "bound_ms",
@@ -1461,7 +1525,7 @@ def phase_mnv2_check(results, captures, label="mnv2_check", dw_bf16=True, grid="
             ref = plain()
         ok, err, exact = check(out, ref)
         if kname == "qdwconv3x3":
-            ok = ok and exact == 1.0                 # the same sums, in order
+            ok = ok and dw_exact(out, ref)           # the same sums, in order
         ms = kernel_ms(call)
         cold = {"ms_cold": cold_ms(call)} if kname in COLD_TIMED else {}
         with no_tf32():
@@ -1680,10 +1744,11 @@ def phase_batch256():
     """The redesigned kernels on ResNet-18's path at its shapes at batch
     256: qmatmul at the three downsamples and the fc (FP8, baked weights),
     qconv3x3_int8 at the seven 3x3 shapes (baked weights), qconv3x3 at the
-    seven 3x3 shapes (FP8, then int_asym output quant) and qmatmul_int8 at
-    the downsamples and the fc (baked weights), each held against its plain
-    version as in phases 2, 3 and 10 and timed warm and with the L2 cache
-    flushed (cold_ms), with sums per batch-256 forward."""
+    seven 3x3 shapes (FP8, then int_asym output quant), qmatmul_int8 at
+    the downsamples and the fc (baked weights) and qstem (FP8, then
+    int_asym), each held against its plain version as in phases 2, 3 and
+    10 and timed warm and with the L2 cache flushed (cold_ms), with sums
+    per batch-256 forward."""
     from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
     table = kernel_table()
     ok_all = True
@@ -1697,14 +1762,17 @@ def phase_batch256():
             ("qconv3x3", "qconv3x3 int_asym", conv_cases(Inputs("int"), 256, edges=False),
              BF16_FLOPS_PER_S),
             ("qmatmul_int8", "qmatmul_int8", int8_matmul_cases(Inputs(), 256, edges=False),
-             INT8_OPS_PER_S)):
+             INT8_OPS_PER_S),
+            ("qstem", "qstem", stem_cases(Inputs(), 256, edges=False), BF16_FLOPS_PER_S),
+            ("qstem", "qstem int_asym", stem_cases(Inputs("int"), 256, edges=False),
+             BF16_FLOPS_PER_S)):
         wrapper, plain = table[kname][:2]
         total = dict(ms=0.0, ms_cold=0.0, library_ms=0.0, bound_ms=0.0)
         for name, args, cfg, flops, nbytes, uses, lib in cases:
             out = wrapper(*args, cfg=cfg)
             with no_tf32():
                 ref = plain(*args, cfg)
-            if kname in ("qmatmul", "qconv3x3"):
+            if kname in ("qmatmul", "qconv3x3", "qstem"):
                 ok, err, exact = grid_check(out, ref, args[3 if kname == "qmatmul" else 2],
                                             cfg.emit_norm, method=cfg.act_method)
             else:
@@ -1728,11 +1796,13 @@ def phase_batch256():
 
 
 def phase_batch256_block_attn(captures):
-    """The redesigned flash_mha and qblock at batch 256: flash_mha on
-    (256, 6, 197, 64) float32 views of a qkv tensor (checked as in
-    vit_check, 12 uses per ViT forward), qblock on the MobileNetV2 FP8
-    fp32_after forward's recorded calls with x repeated to N = 256 (checked
-    as in mnv2_check); each timed warm and with the L2 cache flushed, with
+    """The redesigned flash_mha, qblock and qdwconv3x3 at batch 256:
+    flash_mha on (256, 6, 197, 64) float32 views of a qkv tensor (checked
+    as in vit_check, 12 uses per ViT forward), qblock on the MobileNetV2
+    FP8 fp32_after forward's recorded calls with x repeated to N = 256
+    (checked as in mnv2_check), qdwconv3x3 at MobileNetV2's ten depthwise
+    shapes on synthetic FP8, then integer-grid operands (relu6, bf16 norms
+    out; 100% exact); each timed warm and with the L2 cache flushed, with
     sums per batch-256 forward."""
     import torch
     import torch.nn.functional as F
@@ -1784,6 +1854,30 @@ def phase_batch256_block_attn(captures):
             total[key] += uses * val
     emit({"phase": "batch256_block_attn", "case": f"qblock per MobileNetV2 forward at batch {n}",
           "ok": ok_all, **total})
+    for grid in ("fp8", "int"):
+        inp = Inputs(grid)
+        total = dict(ms=0.0, ms_cold=0.0, library_ms=0.0, bound_ms=0.0)
+        for h, c, s, uses in DW_SHAPES:
+            a, kw = synthetic_dw(inp, n, h, c, s)
+            name, call, plain, _, nbytes, op_s, uses, lib = mnv2_dw_case(a, kw, uses, f" {grid}")
+            out = call()
+            ref = plain()
+            ok = dw_exact(out, ref)
+            err = float((out.float() - ref.float()).abs().max())
+            del out, ref
+            ms, cms, lms = kernel_ms(call), cold_ms(call), kernel_ms(lib)
+            bms = 1e3 * max(nbytes / HBM_BYTES_PER_S, op_s)
+            emit({"phase": "batch256_block_attn", "case": name, "ok": ok, "max_abs_err": err,
+                  "ms": ms, "ms_cold": cms, "library_ms": lms, "bound_ms": bms,
+                  "uses_per_forward": uses})
+            ok_all &= ok
+            for key, val in (("ms", ms), ("ms_cold", cms), ("library_ms", lms),
+                             ("bound_ms", bms)):
+                total[key] += uses * val
+            del a, kw
+        emit({"phase": "batch256_block_attn",
+              "case": f"qdwconv3x3 {grid} per MobileNetV2 forward at batch {n}",
+              "ok": ok_all, **total})
     return ok_all
 
 

@@ -105,7 +105,8 @@ __device__ __forceinline__ float quantize(float x, int method,
 // overflow and underflow), so quantize_inv returns quantize()'s values
 // without an IEEE division per value.  Used by the block kernel, where the
 // quantizers of the expanded and filtered tensors run on every
-// intermediate value (qblock.cu).
+// intermediate value (qblock.cu), and by the epilogues of the 3x3, the
+// depthwise and the stem kernels.
 struct InvQuant {
   QuantConsts k;
   float inv;
@@ -194,15 +195,6 @@ __device__ __forceinline__ void store_out(void* out, long long i, float y,
     static_cast<__nv_bfloat16*>(out)[i] = __float2bfloat16_rn(y);
   else
     static_cast<float*>(out)[i] = y;
-}
-
-template <typename T>
-__device__ __forceinline__ float to_float(T v);
-template <>
-__device__ __forceinline__ float to_float<float>(float v) { return v; }
-template <>
-__device__ __forceinline__ float to_float<__nv_bfloat16>(__nv_bfloat16 v) {
-  return __bfloat162float(v);
 }
 
 }  // namespace fq

@@ -38,14 +38,14 @@ SIGNATURES = {
               [_P, _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _I,
                _I, _I, _P]),
     "qstem": ("qstem_launch",
-              [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P]),
+              [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "qmatmul_int8": ("qmatmul_int8_launch",
                      [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _P]),
     "qconv_int8": ("qconv3x3_int8_launch",
                    [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _I, _P]),
-    "qdwconv": ("qdwconv3x3_launch", [_P] * 6 + [_I] * 8 + [_P]),
+    "qdwconv": ("qdwconv3x3_launch", [_P] * 6 + [_I] * 11 + [_P]),
     "qblock": ("qblock_launch", [_P] * 13 + [_I] * 18 + [_P]),
     "flash_mha": ("flash_mha_launch",
                   [_P, _P, _P, _I] + [_L] * 9 + [_P] + [_I] * 6 + [_F, _P]),

@@ -3,12 +3,13 @@
 
 Mirrors ``fused_quant_dwconv3x3`` of ``fp8_quantization_tpu/ops/pallas/
 qconv.py`` (Pallas body ``_qdwconv3x3_kernel``, line 183; ``pallas_call`` at
-line 251).  The kernel is ``csrc/qdwconv.cu``: one thread per output pixel
-and vector of 8 channels, the nine taps summed in float32 in (dy, dx)
-row-major order, SAME padding as a bounds mask (an out-of-image tap reads
-0) and stride 2 as index arithmetic (no phase split).  It is bound by bytes
-(about 18 operations for every 4 bytes it moves, see the note in the
-source).
+line 251).  The kernel is ``csrc/qdwconv.cu``: a block stages the input
+halo of a ``th x tw`` output tile and ``8 * cg`` channels (``dw_tile``)
+into shared memory, SAME padding as a zero fill and stride 2 as index
+arithmetic (no phase split); each thread walks a strip of 7 outputs of 2
+channels with a sliding window, the nine taps summed in float32 in
+(dy, dx) row-major order.  It is bound by bytes and, about as much, by
+the epilogue's instruction issue (see the note in the source).
 
 Semantics carried over: ``act_method`` (FP8 or int_asym), ``activation``
 and ``emit_norm``.
@@ -23,6 +24,7 @@ same products in the same order, gives the kernel's bits.  The TPU knobs
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional
 
 import torch
@@ -35,6 +37,62 @@ from fp8_quantization_tpu_torch.ops.kernels.common import (
     quantize_prepared, require, stream_ptr)
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qconv.py:183"
+SEG = 7             # outputs a thread computes along a row (csrc: kSeg)
+VEC = 2             # channels a thread computes (csrc: kVec)
+MAX_THREADS = 512   # csrc: kMaxThreads
+SIMPLE_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class DwTile:
+    """A block's share of the output: ``th x tw`` pixels of one image and
+    ``8 * cg`` channels; ``cg = 0`` is the route for C % 8 != 0, one thread
+    per output value in blocks of 256."""
+    th: int
+    tw: int
+    cg: int
+
+    def threads(self) -> int:
+        """One thread per tile row and VEC channels; it walks the row's
+        tw / SEG strips."""
+        return self.cg * (8 // VEC) * self.th
+
+    def halo(self, stride: int) -> tuple[int, int]:
+        """Input rows and columns a tile reads."""
+        return stride * (self.th - 1) + 3, stride * (self.tw - 1) + 3
+
+    def row_pitch(self, stride: int) -> int:
+        """16-byte pieces a staged halo row takes (csrc: rp): padded so
+        that the rows a quarter-warp reads land on other banks where the
+        group is narrower than 8 pieces."""
+        hc = self.halo(stride)[1]
+        for pad in range(8 if 0 < self.cg < 8 else 0):
+            if (stride * (hc * self.cg + pad) - self.cg) % 8 == 0:
+                return hc * self.cg + pad
+        return hc * self.cg
+
+    def smem_bytes(self, stride: int) -> int:
+        return self.halo(stride)[0] * self.row_pitch(stride) * 16
+
+
+@functools.lru_cache(maxsize=None)
+def dw_tile(h: int, w: int, c: int, stride: int) -> DwTile:
+    """The kernel's tile for an (h, w, c) input: whole 7-wide strips, up to
+    4 a row at stride 1 and 2 at stride 2 (a thread walks them, so its
+    weights and constants serve 28 or 14 outputs), 4 to 8 rows (the whole
+    map up to 8, else a divisor in 4..8 where there is one), and the widest
+    group of up to 8 (stride 1) or 4 (stride 2) 8-channel vectors that
+    divides C / 8 and is a power of two, so that a stride-2 halo stays near
+    32 KB."""
+    if c % 8:
+        return DwTile(1, 1, 0)
+    ho, wo = out_hw(h, w, stride)
+    tw = SEG * min(-(-wo // SEG), 4 if stride == 1 else 2)
+    th = ho if ho <= 8 else next((d for d in range(8, 3, -1) if ho % d == 0), 8)
+    cg = 8 if stride == 1 else 4
+    while (c // 8) % cg:
+        cg //= 2
+    return DwTile(th, tw, cg)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -116,11 +174,13 @@ def fused_quant_dwconv3x3(x: torch.Tensor, w: torch.Tensor,
     if aq and a_consts is None:
         raise ValueError(f"act_method={cfg.act_method!r} needs a_consts")
     a_consts = consts_or_dummy(a_consts if aq else None, x)
+    tile = dw_tile(h, wd, c, cfg.stride)
+    vec = tile.cg > 0                   # the tiled route reads 16 bytes at once
     require(x, "x", (torch.bfloat16,), vector_loads=True)
-    require(w, "w", (torch.float32,), (3, 3, c))
+    require(w, "w", (torch.float32,), (3, 3, c), vector_loads=vec)
     require(a_consts, "a_consts", (torch.float32,), (6, 1))
-    require(scale, "scale", (torch.float32,), (c,))
-    require(shift, "shift", (torch.float32,), (c,))
+    require(scale, "scale", (torch.float32,), (c,), vector_loads=vec)
+    require(shift, "shift", (torch.float32,), (c,), vector_loads=vec)
     ho, wo = out_hw(h, wd, cfg.stride)
     out = torch.empty((n, ho, wo, c), device=x.device,
                       dtype=torch.bfloat16 if cfg.emit_norm else torch.float32)
@@ -128,7 +188,8 @@ def fused_quant_dwconv3x3(x: torch.Tensor, w: torch.Tensor,
         x.data_ptr(), w.data_ptr(), a_consts.data_ptr(), scale.data_ptr(),
         shift.data_ptr(), out.data_ptr(), n, h, wd, c, cfg.stride,
         QUANT_CODES[cfg.act_method],
-        ACTIVATION_CODES[cfg.activation], int(cfg.emit_norm), stream_ptr(x))
+        ACTIVATION_CODES[cfg.activation], int(cfg.emit_norm), tile.th, tile.tw,
+        tile.cg, stream_ptr(x))
     build.check(err, "qdwconv3x3")
     fused_quant_dwconv3x3.launches += 1
     return out

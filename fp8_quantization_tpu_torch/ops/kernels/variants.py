@@ -1,7 +1,8 @@
 """Timing of source variants of the redesigned kernels (no JAX
 counterpart): which phase of ``csrc/qmatmul.cu``, ``csrc/qconv_int8.cu``,
-``csrc/flash_mha.cu``, ``csrc/qblock.cu``, ``csrc/qconv.cu`` and
-``csrc/qmatmul_int8.cu`` holds each back on the card.
+``csrc/flash_mha.cu``, ``csrc/qblock.cu``, ``csrc/qconv.cu``,
+``csrc/qmatmul_int8.cu``, ``csrc/qdwconv.cu`` and ``csrc/qstem.cu`` holds
+each back on the card.
 
     python -m fp8_quantization_tpu_torch.ops.kernels.variants [--dry] [kernel ...]
 
@@ -13,8 +14,8 @@ no host time counts).  A variant that removes a phase computes wrong
 outputs by design: it only shows what that phase costs.  The kernels as
 committed are checked against their plain versions by ``chip_smoke.py``.
 ``--dry`` applies the patches and exits (no card, no nvcc); kernel names
-(qmatmul, qconv_int8, flash_mha, qblock, qconv, qmatmul_int8) restrict the
-run to those.
+(qmatmul, qconv_int8, flash_mha, qblock, qconv, qmatmul_int8, qdwconv,
+qstem) restrict the run to those.
 
 Shapes: the main path's qmatmul calls (bf16 x on the grid, baked bf16 w,
 FP8 output quant, bf16 normalized output) at the ViT's qkv, proj and mlp2,
@@ -28,7 +29,10 @@ qblock (FP8 stages, bf16 output) at five MobileNetV2 blocks at batch 64
 at its ``block_tile``; qconv3x3 (FP8 output quant, bf16 norms in and out)
 at ResNet-18's seven 3x3 shapes at batch 64, each at its ``conv_tile``
 width; qmatmul_int8 (baked int8 weights) at ResNet-18's three downsamples
-and the fc at batch 64, each at its ``int8_tile``.
+and the fc at batch 64, each at its ``int8_tile``; qdwconv3x3 (relu6, FP8
+output quant, bf16 norms in and out) at MobileNetV2's ten depthwise shapes
+at batch 64, each at its ``dw_tile``; qstem (FP8, bf16 norms out) at
+ResNet-18's (64, 224, 224, 3) float32 images, at ``stem_tile``.
 """
 
 from __future__ import annotations
@@ -43,11 +47,12 @@ import time
 import torch
 
 from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
-from fp8_quantization_tpu_torch.ops.kernels import build
+from fp8_quantization_tpu_torch.ops.kernels import build, qstem
 from fp8_quantization_tpu_torch.ops.kernels.attention import flash_grid
 from fp8_quantization_tpu_torch.ops.kernels.qblock import block_tile
 from fp8_quantization_tpu_torch.ops.kernels.qconv import conv_tile as qconv_tile
 from fp8_quantization_tpu_torch.ops.kernels.qconv_int8 import conv_tile
+from fp8_quantization_tpu_torch.ops.kernels.qdwconv import dw_tile
 from fp8_quantization_tpu_torch.ops.kernels.qmatmul import tile_n
 from fp8_quantization_tpu_torch.ops.kernels.qmatmul_int8 import int8_tile
 
@@ -193,14 +198,81 @@ QMATMUL_INT8 = [
     ("division-free x quantizer", [("  const float q = x == 0.0f ? 0.0f : __fdiv_rn(x, p.dx);",
                                       "  const float r = __frcp_rn(p.dx), q0 = __fmul_rn(x, r);\n  const float q = __fmaf_rn(__fmaf_rn(-q0, p.dx, x), r, q0);")]),
 ]
+DW_QUANT = """        y[v] = fq::quantize_inv_m<METHOD>(
+            fq::apply_act(__fadd_rn(__fmul_rn(acc[v], scv[v]), shv[v]), ACT), q, NORM);"""
+DW_TILE = "  a.th = th; a.tw = tw; a.cg = cg;"
+DW_STENCIL = """        acc[v] = __fmul_rn(col[S * j][0][v], wr[0][v]);
+#pragma unroll
+        for (int t = 1; t < 9; ++t)
+          acc[v] = __fmaf_rn(col[S * j + t % 3][t / 3][v], wr[t][v], acc[v]);"""
+QDWCONV = [
+    ("as committed", []),
+    ("no output quant", [(DW_QUANT, """        y[v] = fq::apply_act(__fadd_rn(__fmul_rn(acc[v], scv[v]), shv[v]), ACT);""")]),
+    ("IEEE-division output quant (fq::quantize)", [(DW_QUANT, """        y[v] = fq::quantize(
+            fq::apply_act(__fadd_rn(__fmul_rn(acc[v], scv[v]), shv[v]), ACT), METHOD, q.k,
+            NORM);""")]),
+    ("activation and output type chosen at run time", [(DW_QUANT, """        y[v] = fq::quantize_inv_m<METHOD>(
+            fq::apply_act(__fadd_rn(__fmul_rn(acc[v], scv[v]), shv[v]), a.activation), q,
+            a.emit_norm);"""), (
+        "        store_vec<kVec>(a.out, out_row + static_cast<long long>(ow) * a.C, y, NORM);",
+        "        store_vec<kVec>(a.out, out_row + static_cast<long long>(ow) * a.C, y, a.emit_norm);")]),
+    ("no halo staging (stale smem)", [(
+        "      wm::cp_async16(halo + r * a.rp + c * a.cg + v, src, ok);", "      (void)src;")]),
+    ("no stencil (the centre tap's reads only)", [(DW_STENCIL, """        acc[v] = col[S * j + 1][1][v];""")]),
+    ("stencil as separate multiplies and adds", [(DW_STENCIL, """        acc[v] = __fmul_rn(col[S * j][0][v], wr[0][v]);
+#pragma unroll
+        for (int t = 1; t < 9; ++t)
+          acc[v] = __fadd_rn(acc[v], __fmul_rn(col[S * j + t % 3][t / 3][v], wr[t][v]));""")]),
+    ("no output stores", [("      if (ow < a.Wo)\n", "      if (ow < a.Wo && y[0] == 1234.5f)\n")]),
+    ("4 channels a thread (about 110 registers)", [(
+        "constexpr int kVec = 2;", "constexpr int kVec = 4;")]),
+    ("tiles 7 wide (a strip a thread)", [(DW_TILE, "  a.th = th; a.tw = 7; a.cg = cg;")]),
+    ("tiles at most 14 wide", [(DW_TILE, "  a.th = th; a.tw = tw < 14 ? tw : 14; a.cg = cg;")]),
+    ("tiles 4 rows high", [(DW_TILE, "  a.th = th < 4 ? th : 4; a.tw = tw; a.cg = cg;")]),
+    ("tiles twice as high where the map allows", [(
+        DW_TILE, "  a.th = th >= 7 && a.Ho % (2 * th) == 0 ? 2 * th : th; a.tw = tw; a.cg = cg;")]),
+    ("tiles 56 wide at stride 1 where the map allows", [(
+        DW_TILE, "  a.th = th; a.tw = tw == 28 && a.Wo % 56 == 0 ? 56 : tw; a.cg = cg;")]),
+    ("channel groups of at most 2 vectors", [(
+        DW_TILE, "  a.th = th; a.tw = tw; a.cg = cg < 2 ? cg : 2;")]),
+]
+STEM_TILE = "  g.tp = tp; g.tq = tq;"
+QSTEM = [
+    ("as committed", []),
+    ("no output quant", [(
+        "      for (int e = 0; e < 8; ++e) y[e] = fq::quantize_inv_m<METHOD>(y[e], quant, g.emit_norm);",
+        "      for (int e = 0; e < 8; ++e) y[e] = y[e] + 0.0f;")]),
+    ("no patch loads (stale smem)", [(
+        "          put<XT>(g, patch, pr, chunk_base<XT>(s, i - pr * g.nch), s, raw[k]);",
+        "          (void)s;"), (
+        "      stage_rest<XT>(g, patch, nn, np0, nq0, tid + MAXCH * THREADS);\n", "")]),
+    ("no products", [(
+        """          wm::mma_bf16(acc[2 * p], a, b[0], b[1]);
+          wm::mma_bf16(acc[2 * p + 1], a, b[2], b[3]);""",
+        """          acc[2 * p][0] += __uint_as_float(a[0] ^ b[0]);
+          acc[2 * p + 1][0] += __uint_as_float(a[1] ^ b[2]);""")]),
+    ("no pool (the centre pixel)", [
+        ("      for (int dr = 0; dr < 3; ++dr)", "      for (int dr = 1; dr < 2; ++dr)"),
+        ("        for (int dc = 0; dc < 3; ++dc) {", "        for (int dc = 1; dc < 2; ++dc) {")]),
+    ("no output stores", [(
+        "      const long long o = ((static_cast<long long>(n) * g.P + p) * g.P + q) * COUT + 8 * oct;",
+        "      if (y[0] != 1234.5f) continue;\n"
+        "      const long long o = ((static_cast<long long>(n) * g.P + p) * g.P + q) * COUT + 8 * oct;")]),
+    ("tiles 8 x 14 (one block an SM)", [(STEM_TILE, "  g.tp = tp; g.tq = tq == 8 ? 14 : tq;")]),
+    ("tiles 4 x 8", [(STEM_TILE, "  g.tp = tp == 8 ? 4 : tp; g.tq = tq;")]),
+]
 KERNEL_VARIANTS = {"qmatmul": QMATMUL, "qconv_int8": QCONV, "flash_mha": FLASH,
-                   "qblock": QBLOCK, "qconv": QCONV3X3, "qmatmul_int8": QMATMUL_INT8}
+                   "qblock": QBLOCK, "qconv": QCONV3X3, "qmatmul_int8": QMATMUL_INT8,
+                   "qdwconv": QDWCONV, "qstem": QSTEM}
 MATMUL_SHAPES = [(64 * 197, 384, 1152), (64 * 197, 384, 384), (64 * 197, 1536, 384),
                  (64 * 28 * 28, 64, 128), (64 * 112 * 112, 16, 96)]
 INT8_MATMUL_SHAPES = [(64 * 28 * 28, 64, 128), (64 * 14 * 14, 128, 256),
                       (64 * 7 * 7, 256, 512), (64, 512, 1000)]
 CONV_SHAPES = [(56, 64, 64, 1), (56, 64, 128, 2), (28, 128, 128, 1), (28, 128, 256, 2),
                (14, 256, 256, 1), (14, 256, 512, 2), (7, 512, 512, 1)]
+# (H, C, stride) of MobileNetV2's ten depthwise shapes (224x224 input)
+DW_SHAPES = [(112, 32, 1), (112, 96, 2), (56, 144, 1), (56, 144, 2), (28, 192, 1),
+             (28, 192, 2), (14, 384, 1), (14, 576, 1), (14, 576, 2), (7, 960, 1)]
 # (H, stride, Cin, hid, Cout, residual)
 BLOCK_SHAPES = [(112, 2, 16, 96, 24, False), (56, 1, 24, 144, 24, True), (28, 2, 32, 192, 64, False),
                 (14, 1, 96, 576, 96, True), (7, 1, 160, 960, 320, False)]
@@ -378,6 +450,43 @@ def block_calls(g):
         yield [hgt, s, cin, hid, cout, res], (lambda fn, a=args, k=keep: fn(*a))
 
 
+def dw_calls(g):
+    """(shape, call(fn)) of MobileNetV2's depthwise convs: bf16 norms in,
+    relu6, FP8 output quant, bf16 norms out, each at its ``dw_tile``."""
+    stream = torch.cuda.current_stream().cuda_stream
+    a_c = fp8_consts(torch.tensor([4.0], device="cuda"), 4)
+    for h, c, s in DW_SHAPES:
+        x = torch.randn(64, h, h, c, generator=g, device="cuda").to(torch.bfloat16)
+        w = torch.randn(3, 3, c, generator=g, device="cuda").to(torch.bfloat16).float()
+        scale = torch.full((c,), 0.5, device="cuda")
+        shift = torch.zeros(c, device="cuda")
+        ho = (h - 1) // s + 1
+        out = torch.empty(64, ho, ho, c, device="cuda", dtype=torch.bfloat16)
+        t = dw_tile(h, h, c, s)
+        keep = (x, w, scale, shift, out)
+        args = (x.data_ptr(), w.data_ptr(), a_c.data_ptr(), scale.data_ptr(),
+                shift.data_ptr(), out.data_ptr(), 64, h, h, c, s, 1, 2, 1, t.th, t.tw,
+                t.cg, stream)
+        yield [h, c, s, t.th, t.tw, t.cg], (lambda fn, a=args, k=keep: fn(*a))
+
+
+def stem_calls(g):
+    """(shape, call(fn)) of ResNet-18's stem: (64, 224, 224, 3) float32
+    images, FP8 output quant, bf16 norms out, at ``stem_tile``."""
+    stream = torch.cuda.current_stream().cuda_stream
+    a_c = fp8_consts(torch.tensor([4.0], device="cuda"), 4)
+    x = torch.randn(64, 224, 224, 3, generator=g, device="cuda")
+    w = qstem.weight_matrix(torch.randn(64, 3, 7, 7, generator=g, device="cuda") * 0.05)
+    scale = torch.full((64,), 0.5, device="cuda")
+    shift = torch.zeros(64, device="cuda")
+    out = torch.empty(64, 56, 56, 64, device="cuda", dtype=torch.bfloat16)
+    t = qstem.stem_tile(224)
+    keep = (x, w, scale, shift, out)
+    args = (x.data_ptr(), 0, w.data_ptr(), w.shape[0], a_c.data_ptr(), scale.data_ptr(),
+            shift.data_ptr(), out.data_ptr(), 64, 224, 3, 1, 1, t.tp, t.tq, stream)
+    yield [64, 224, 3, t.tp, t.tq], (lambda fn, a=args, k=keep: fn(*a))
+
+
 def main(argv) -> int:
     dry = "--dry" in argv
     only = [a for a in argv if not a.startswith("--")] or list(KERNEL_VARIANTS)
@@ -393,7 +502,8 @@ def main(argv) -> int:
     for name, calls in (("qmatmul", matmul_calls(g)), ("qconv_int8", conv_calls(g)),
                         ("flash_mha", flash_calls(g)), ("qblock", block_calls(g)),
                         ("qconv", qconv_calls(g)),
-                        ("qmatmul_int8", int8_matmul_calls(g))):
+                        ("qmatmul_int8", int8_matmul_calls(g)),
+                        ("qdwconv", dw_calls(g)), ("qstem", stem_calls(g))):
         if name not in only:
             continue
         for shape, call in calls:

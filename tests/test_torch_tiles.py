@@ -32,10 +32,12 @@ from fp8_quantization_tpu_torch.ops.kernels import attention as at
 from fp8_quantization_tpu_torch.ops.kernels import qblock as qb
 from fp8_quantization_tpu_torch.ops.kernels import qconv as q3
 from fp8_quantization_tpu_torch.ops.kernels import qconv_int8 as qc
+from fp8_quantization_tpu_torch.ops.kernels import qdwconv as qd
 from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
 from fp8_quantization_tpu_torch.ops.kernels import qmatmul_int8 as q8
+from fp8_quantization_tpu_torch.ops.kernels import qstem as qs
 from fp8_quantization_tpu_torch.ops.kernels import variants
-from fp8_quantization_tpu_torch.ops.kernels.common import SMEM_LIMIT
+from fp8_quantization_tpu_torch.ops.kernels.common import SMEM_LIMIT, SMS
 
 B = 64
 
@@ -430,3 +432,261 @@ def test_qmatmul_int8_tiles_read_x_at_most_twice_and_fill_the_card(m, k, n):
         assert -(-n // tile.bn) <= (1 if n <= 256 else 2)
     if (m, k, n) == (B, 512, 1000):
         assert tile.splits == 8 and tile.blocks(m, n) == 128
+
+
+# (H, C, stride) of MobileNetV2's ten depthwise shapes, then the edges
+# chip_smoke.py runs on the card: odd maps at both strides, 1x1 and 2x2,
+# C = 8 and 24 (groups of one and of a single 8-channel vector), C = 40
+# (a group of one at stride 2), and C = 12 (the C % 8 != 0 route)
+MNV2_DW = [(112, 32, 1), (112, 96, 2), (56, 144, 1), (56, 144, 2), (28, 192, 1),
+           (28, 192, 2), (14, 384, 1), (14, 576, 1), (14, 576, 2), (7, 960, 1)]
+EDGE_DW = [(15, 24, 2), (9, 12, 1), (1, 32, 1), (2, 64, 2), (13, 72, 1), (8, 8, 2),
+           (30, 40, 2), (15, 8, 1), (2, 24, 1), (1, 16, 2)]
+
+
+@pytest.mark.parametrize("h,c,stride", MNV2_DW + EDGE_DW)
+def test_dw_tile_covers_every_output_and_channel_once(h, c, stride):
+    """The depthwise kernel's grid (tiles, channel groups) and its threads
+    (csrc/qdwconv.cu: with t = 8 cg / VEC threads a pixel, channel vector
+    cv = tid % t, tile row rt = tid / t, walking the row's 7-wide strips,
+    VEC channels each) cover each output pixel and channel of an image
+    exactly once, masked at the ragged edge; a block has at most 512
+    threads and its halo fits shared memory.  The C % 8 != 0 route covers
+    them with one thread per output value."""
+    ho, wo = qd.out_hw(h, h, stride)
+    tile = qd.dw_tile(h, h, c, stride)
+    count = np.zeros((ho, wo, c), np.int32)
+    if tile.cg == 0:
+        assert c % 8
+        for i in range(-(-ho * wo * c // qd.SIMPLE_THREADS) * qd.SIMPLE_THREADS):
+            if i < ho * wo * c:
+                pix, ch = divmod(i, c)
+                count[pix // wo, pix % wo, ch] += 1
+        assert (count == 1).all()
+        return
+    assert c % (8 * tile.cg) == 0 and tile.cg & (tile.cg - 1) == 0
+    assert tile.tw % qd.SEG == 0 and 1 <= tile.threads() <= qd.MAX_THREADS
+    assert tile.smem_bytes(stride) <= SMEM_LIMIT
+    tpv = tile.cg * 8 // qd.VEC
+    tiles_x, tiles_y = -(-wo // tile.tw), -(-ho // tile.th)
+    for block in range(tiles_x * tiles_y):
+        ty, tx = divmod(block, tiles_x)
+        assert ty * tile.th < ho and tx * tile.tw < wo        # no empty block
+        for grp in range(c // (8 * tile.cg)):
+            for tid in range(tile.threads()):
+                cv, rt = tid % tpv, tid // tpv
+                oh = ty * tile.th + rt
+                ch = grp * tile.cg * 8 + cv * qd.VEC
+                ox0 = tx * tile.tw
+                for ow0 in range(ox0, min(ox0 + tile.tw, wo), qd.SEG):
+                    for j in range(qd.SEG):
+                        ow = ow0 + j
+                        if oh < ho and ow < wo:
+                            count[oh, ow, ch:ch + qd.VEC] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("shape", MNV2_DW)
+def test_dw_tile_at_mobilenet_v2(shape):
+    """At MobileNetV2's shapes a tile divides the map (no ragged blocks), a
+    stride-1 map takes whole groups of up to 64 channels and the 7x7 map is
+    one tile; a launch has at least 4 blocks per SM at batch 64."""
+    h, c, stride = shape
+    ho, wo = qd.out_hw(h, h, stride)
+    tile = qd.dw_tile(h, h, c, stride)
+    assert ho % tile.th == 0 and wo % tile.tw == 0
+    if ho == 7:
+        assert (tile.th, tile.tw) == (7, 7)
+    blocks = B * (ho // tile.th) * (wo // tile.tw) * (c // (8 * tile.cg))
+    assert blocks >= 4 * SMS
+
+
+def _dw_window_reads(n, h, c, stride, x_ids):
+    """Mirror of csrc/qdwconv.cu for one image: stage each block's halo as
+    the kernel does (piece i of the flattened (row, column, vector) range
+    by the incremental row / remainder walk, zero where the tap is outside
+    the image) into an array of shared-memory element slots, then read
+    each thread's window (slot hs + dy * rstep + k * cstep of VEC channels,
+    hs the strip's first halo column) as the sliding strip does; returns,
+    per output pixel and channel, the 9 (dy, dx) input ids read."""
+    ho, wo = qd.out_hw(h, h, stride)
+    tile = qd.dw_tile(h, h, c, stride)
+    hr, hc = tile.halo(stride)
+    rp = tile.row_pitch(stride)
+    tpv = tile.cg * 8 // qd.VEC
+    threads = tile.threads()
+    got = np.full((ho, wo, c, 9), -1, np.int64)
+    tiles_x = -(-wo // tile.tw)
+    for block in range(tiles_x * -(-ho // tile.th)):
+        ty, tx = divmod(block, tiles_x)
+        oy0, ox0 = ty * tile.th, tx * tile.tw
+        for grp in range(c // (8 * tile.cg)):
+            c0 = grp * tile.cg * 8
+            smem = np.full(hr * rp * 8, -1, np.int64)        # bf16 slots
+            per_row = hc * tile.cg
+            for tid in range(threads):
+                r, rem = divmod(tid, per_row)
+                dr, drem = divmod(threads, per_row)
+                while r < hr:
+                    col, v = rem >> (tile.cg.bit_length() - 1), rem & (tile.cg - 1)
+                    ih, iw = oy0 * stride - 1 + r, ox0 * stride - 1 + col
+                    piece = r * rp + col * tile.cg + v
+                    inside = 0 <= ih < h and 0 <= iw < h
+                    smem[8 * piece:8 * piece + 8] = (
+                        x_ids[n, ih, iw, c0 + 8 * v:c0 + 8 * v + 8] if inside else 0)
+                    r, rem = r + dr, rem + drem
+                    if rem >= per_row:
+                        r, rem = r + 1, rem - per_row
+            tpp = 8 // qd.VEC                           # threads a 16-byte piece
+            rstep, cstep = rp * tpp, tile.cg * tpp
+            for tid in range(threads):
+                cv, rt = tid % tpv, tid // tpv
+                oh = oy0 + rt
+                if oh >= ho:
+                    continue
+                hrow = stride * rt * rstep + cv
+                for ow0 in range(ox0, min(ox0 + tile.tw, wo), qd.SEG):
+                    hs = hrow + stride * (ow0 - ox0) * cstep
+                    for j in range(qd.SEG):
+                        ow = ow0 + j
+                        if ow >= wo:
+                            continue
+                        for t in range(9):
+                            u = hs + (t // 3) * rstep + (stride * j + t % 3) * cstep
+                            ch = c0 + cv * qd.VEC
+                            got[oh, ow, ch:ch + qd.VEC, t] = smem[qd.VEC * u:qd.VEC * (u + 1)]
+    return got
+
+
+@pytest.mark.parametrize("h,c,stride", [(15, 24, 2), (13, 72, 1), (8, 8, 2), (14, 32, 1),
+                                        (2, 64, 2), (1, 16, 1), (16, 16, 2)])
+def test_dw_halo_and_window_read_the_same_window(h, c, stride):
+    """What the kernel stages and reads for output (oh, ow) and channel ch
+    is input (oh*s + dy - 1, ow*s + dx - 1, ch), zero outside the image:
+    the 3x3 SAME window of the depthwise conv (checked against an unfold
+    of the zero-padded input), for each of the nine taps in (dy, dx)
+    order."""
+    x_ids = np.arange(1, h * h * c + 1, dtype=np.int64).reshape(1, h, h, c)
+    got = _dw_window_reads(0, h, c, stride, x_ids)
+    ho, _ = qd.out_hw(h, h, stride)
+    xt = torch.from_numpy(x_ids[0]).permute(2, 0, 1).double()[:, None]   # (C, 1, H, W)
+    ref = torch.nn.functional.unfold(xt, 3, padding=1, stride=stride)    # (C, 9, L)
+    ref = ref.reshape(c, 9, ho, ho).permute(2, 3, 0, 1).long().numpy()
+    assert (got == ref).all()
+
+
+STEM_SIZES = [224, 32, 40, 64]
+
+
+@pytest.mark.parametrize("s", STEM_SIZES)
+def test_stem_tile_covers_every_pooled_output_once(s):
+    """The stem kernel's persistent blocks walk tiles t = (image, row,
+    column) of stem_tile and write pooled (p0 + pp, q0 + qq) for item
+    i = (pp * tq + qq) * 8 + octet, 8 channels each, masked past P: every
+    pooled output and channel of an image exactly once; the pooling
+    windows read conv rows and columns 2pp .. 2pp + 2 of the tile's
+    (2tp + 1) x (2tq + 1) conv pixels, all inside it."""
+    p = qs.stem_out_size(s)
+    tile = qs.stem_tile(s)
+    cr, cc = tile.conv()
+    count = np.zeros((p, p, qs.COUT), np.int32)
+    tiles_x, tiles_y = -(-p // tile.tq), -(-p // tile.tp)
+    assert tile.tiles(s) == tiles_x * tiles_y
+    for t in range(tile.tiles(s)):
+        ty, tx = divmod(t, tiles_x)
+        p0, q0 = ty * tile.tp, tx * tile.tq
+        assert p0 < p and q0 < p                                  # no empty tile
+        for i in range(tile.tp * tile.tq * 8):
+            octet, pix = i & 7, i >> 3
+            pp, qq = divmod(pix, tile.tq)
+            assert 2 * pp + 2 < cr and 2 * qq + 2 < cc
+            if p0 + pp < p and q0 + qq < p:
+                count[p0 + pp, q0 + qq, 8 * octet:8 * octet + 8] += 1
+    assert (count == 1).all()
+
+
+@pytest.mark.parametrize("cin", [1, 2, 3, 4])
+def test_stem_tile_fits_shared_memory(cin):
+    """A stem block's shared memory (weights, patch, fp32 conv tile) fits;
+    at cin = 3 two blocks fit an SM (each with the 1 KB the card keeps a
+    block), so the persistent grid is two blocks per SM."""
+    tile = qs.stem_tile(224)
+    assert tile.smem_bytes(cin) <= SMEM_LIMIT
+    if cin == 3:
+        assert 2 * (tile.smem_bytes(cin) + 1024) <= 228 * 1024
+
+
+def _stem_patch(x, n, p0, q0, tile, pitch):
+    """Mirror of the stem kernel's patch loader (csrc/qstem.cu: row_span,
+    chunk_base, fetch, put) for one tile of float32 x (N, S, S, cin): each
+    patch row is the element range e0 .. e0 + iw of x from input row
+    4 p0 - 5 + pr and column 4 q0 - 5, read in 16-byte chunks aligned in x,
+    zero outside the image's element range of that row."""
+    nimg, s, _, cin = x.shape
+    flat = x.reshape(-1)
+    ir, ic = tile.patch()
+    iw = ic * cin
+    epc = 4
+    nch = -(-iw // epc) + 1
+    patch = np.zeros((ir, pitch), np.float32)
+    for pr in range(ir):
+        ih = 4 * p0 - 5 + pr
+        rb = ((n * s) + ih) * s * cin
+        e0 = rb + (4 * q0 - 5) * cin
+        lo, hi = (max(e0, rb), min(e0 + iw, rb + s * cin)) if 0 <= ih < s else (0, 0)
+        for j in range(nch):
+            base = (e0 // epc) * epc + j * epc
+            for t in range(epc):
+                e, pe = base + t, base + t - e0
+                if 0 <= pe < iw:
+                    patch[pr, pe] = flat[e] if lo <= e < hi else 0.0
+    return patch
+
+
+@pytest.mark.parametrize("cin", [1, 3, 4])
+def test_stem_koff_and_weight_order_read_the_conv_window(cin):
+    """For every conv pixel (r, c) of a tile the kernel's A row, the patch
+    words at 2r * pitch + 2c * cin + k_offsets[k] (a pair per even k),
+    times the dy-major weight_matrix, is the plain 7x7/2 pad-3 conv of the
+    image (float64, bf16 inputs and weights); the pairs never straddle a
+    run, the padded taps read finite patch values under zero weights, and
+    the weight matrix round-trips through weight_oihw."""
+    rng = np.random.default_rng(cin)
+    s, n = 40, 2
+    x = rng.standard_normal((n, s, s, cin)).astype(np.float32)
+    x = torch.from_numpy(x).to(torch.bfloat16).float()
+    w4 = torch.from_numpy(rng.standard_normal((64, cin, 7, 7)).astype(np.float32))
+    w4 = w4.to(torch.bfloat16).float()
+    wm = qs.weight_matrix(w4)
+    assert wm.shape == (qs.k_pad(cin), 64)
+    assert torch.equal(qs.weight_oihw(wm, cin), w4)
+    ref = torch.nn.functional.conv2d(x.double().permute(0, 3, 1, 2), w4.double(),
+                                     stride=2, padding=3).permute(0, 2, 3, 1)
+    tile = qs.stem_tile(s)
+    cr, cc = tile.conv()
+    pitch = tile.pitch(cin)
+    assert pitch % 2 == 0 and pitch > tile.patch()[1] * cin
+    koff = qs.k_offsets(cin, pitch)
+    runp = qs.run_len(cin)
+    for k in range(0, len(koff), 2):
+        assert koff[k] % 2 == 0 and (k >= 7 * runp or koff[k + 1] == koff[k] + 1)
+    conv = (s - 1) // 2 + 1
+    p = qs.stem_out_size(s)
+    for ti in range(-(-p // tile.tp)):
+        for tj in range(-(-p // tile.tq)):
+            p0, q0 = ti * tile.tp, tj * tile.tq
+            patch = _stem_patch(x.numpy(), 1, p0, q0, tile, pitch).reshape(-1)
+            a = np.zeros((cr * cc, len(koff)), np.float64)
+            for m in range(cr * cc):
+                r, c = divmod(m, cc)
+                pb = 2 * r * pitch + 2 * c * cin
+                for k in range(0, len(koff), 2):
+                    a[m, k:k + 2] = patch[pb + koff[k]:pb + koff[k] + 2]
+            assert np.isfinite(a).all()
+            y = (a @ wm.double().numpy()).reshape(cr, cc, 64)
+            cr0, cc0 = 2 * p0 - 1, 2 * q0 - 1
+            for r in range(cr):
+                for c in range(cc):
+                    if 0 <= cr0 + r < conv and 0 <= cc0 + c < conv:
+                        np.testing.assert_allclose(y[r, c], ref[1, cr0 + r, cc0 + c].numpy(),
+                                                   rtol=1e-12, atol=1e-12)
