@@ -7,9 +7,12 @@ It drives the slices of the port, each on engine 'fused': ResNet-18 FP8
 PTQ, ResNet-18 INT8 PTQ (--int8-mxu --quantize-input), MobileNetV2 FP8 PTQ
 under --bn-mode fp32_after and folded, ViT-S/16 FP8 PTQ, INT8 PTQ with
 output quant (BASELINE.json config 2) on ResNet-18 and MobileNetV2 in both
-bn modes, and ResNet-18 FP8 with --quantize-input.  Phases, one
-JSON line each (a failed phase prints "ok": false and the script exits 1
-without the final result line):
+bn modes, ResNet-18 FP8 with --quantize-input, and ResNet-18 FP8 with the
+MSE range search (BASELINE.json config 3).  Every slice deploys through
+the CLI's prepare pass (nn/bake.prepare_inference), and every phase that
+runs a slice's models after it (fused against bf16, throughput, profile)
+runs the prepared forward.  Phases, one JSON line each (a failed phase
+prints "ok": false and the script exits 1 without the final result line):
 
 1. env        - card name and power limit (nvidia-smi), torch and nvcc
                 versions, the kernels' build from csrc/ (one nvcc per
@@ -29,6 +32,12 @@ without the final result line):
                 40, cin 1 and 4, bf16 images, float32 outputs).  Holds if >= 99%
                 of elements are exact and the rest within one FP8 grid step
                 (the kernel sums in another order than cuDNN/cuBLAS in fp32).
+   mbits_check - each FP8 kernel at the other mantissa widths the MSE
+                search's vote can give (M = 1, 2, 3, 5, 6), one main-path
+                shape each (qmatmul: the 14x14 downsample and the fc with
+                in-kernel weights; qconv3x3 56x56x64; the stem; qdwconv3x3
+                56x56x144; a 28x28 qblock), held as phases 2 and 8 with
+                each quantizer's own M in the grid step; not timed.
 3. int8_check - each int8 kernel against its plain version (exact integer
                 sums in float64): qmatmul_int8 at the three downsample shapes
                 and the fc with baked int8 weights, plus one in-kernel-weight
@@ -55,12 +64,17 @@ without the final result line):
                 validate_quantized) on ResNet-18 at full width with random
                 torchvision-layout weights from the seed and synthetic
                 224x224 data: calibrate 1 batch, bake, evaluate 2 batches
-                with engine='fused'.  Launch counts are zeroed just before
-                and read just after: exactly 1 stem, 16 conv3x3 and 4 qmatmul
-                per forward, no int8 kernel.  Then the same calibrated state
-                under 'fused' and 'bf16' on the same batches: logits finite,
-                top-1 agreeing on >= 99% of images and >= 98% of logits
-                within one grid step of the fc's output quantizer.
+                with engine='fused', after the CLI's prepare pass (one
+                forward of a zero image).  Launch counts are zeroed just
+                before and read just after: exactly 1 stem, 16 conv3x3 and 4
+                qmatmul per forward (the prepare forward and the two
+                evaluation batches), no int8 kernel.  Then the same
+                calibrated state under 'fused' and 'bf16' on the same
+                batches, both baked and prepared, the prepared fused logits
+                first held bit-equal to the unprepared ones: logits finite,
+                top-1 (argmax) equal on >= 99% of images and >= 98% of
+                logits within one grid step of the fc's output quantizer
+                (2^-M at its own M).
 5. int8_slice - the INT8 path the same way: calibrate, bake_int8_weights,
                 evaluate 2 batches; exactly 16 qconv3x3_int8 and 4
                 qmatmul_int8 launches per forward and none of the FP8
@@ -88,7 +102,9 @@ without the final result line):
                 port's kernels and the top PyTorch kernels), kernel
                 launches per forward and the device's idle share of the
                 wall time ("not measured" if the profiler records no device
-                time).
+                time), of the prepared model, and beside it ("unprepared")
+                the launches, wall and busy ms and idle share of the same
+                model before its prepare pass; so in every profile phase.
 8. mnv2_*     - MobileNetV2 FP8 (tonylins topology at full width, 1000
                 classes, random fan-in-scaled weights from the seed), per bn
                 mode: the slice as in phase 4 (fp32_after: 17 qblock and 2
@@ -190,10 +206,24 @@ without the final result line):
                 depthwise shapes at batch 256 (FP8, then integer grids),
                 checked as in phases 8 and 9, timed warm and cold, with
                 sums per forward.
+12. mse_*      - BASELINE.json config 3 on ResNet-18 through
+                validate-quantized (MSE_CLI_ARGS): the MSE search for
+                weights and activations on one calibration batch of 64
+                with the mantissa-bit sweep and vote, one pass of the
+                network format search, bake, prepare, 2 evaluation
+                batches; mse_e4m3_slice the same at E4M3 without the
+                sweep.  As phase 4, plus the format search's fixed-mode
+                forwards before the bake (4 qmatmul launches each, counted
+                by Forwards); fused and bf16 are calibrated and
+                format-searched as the CLI deploys them, their formats held
+                equal to the deployed model's.  The line prints the seconds
+                of the calibration and of the format search and the
+                histogram of the FP8 formats voted, deployed and compared.
+                A throughput turn and a profile each.
 
 Then a {"kernels": [...]} line (launches: the sum over the main-path runs
-of phases 4, 5, 8, 9 and 10; times: the FP8 forwards of phases 6, 8 and
-9), the nvidia-smi name/power-limit line, and last
+of phases 4, 5, 8, 9, 10 and 12; times: the FP8 forwards of phases 6, 8
+and 9), the nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {...}}.  The plain versions run with TF32 off.
 """
 
@@ -275,11 +305,12 @@ def time_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
-def kernel_ms(fn, iters=20, warmup=3):
+def kernel_ms(fn, iters=20, warmup=3, repeats=3):
     """Device ms per call of ``fn``: the calls are enqueued while the card
     spins (torch.cuda._sleep) before the start event, so the time between
     the events is the card's alone even where the wrapper's Python takes
-    longer than a short kernel."""
+    longer than a short kernel; the least of ``repeats`` such timings, so
+    that a host stall past the spin (a shared host's CPU) does not count."""
     import torch
     for _ in range(warmup):
         fn()
@@ -290,13 +321,16 @@ def kernel_ms(fn, iters=20, warmup=3):
     host_s = time.perf_counter() - t0
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda._sleep(spin_cycles(host_s))
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / iters
+    best = math.inf
+    for _ in range(repeats):
+        torch.cuda._sleep(spin_cycles(host_s))
+        start.record()
+        for _ in range(iters):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        best = min(best, start.elapsed_time(end) / iters)
+    return best
 
 
 def spin_cycles(host_s):
@@ -344,17 +378,29 @@ def bound_by(bytes_moved, flops, peak=BF16_FLOPS_PER_S):
     return "bytes" if bytes_moved / HBM_BYTES_PER_S > flops / peak else "operations"
 
 
+def const_mbits(consts):
+    """The mantissa bits M of the FP8 quantizer of the (6, 1) ``consts``,
+    from row 4, ``g = -M - 2^E + 1`` with E = 8 - sign bits - M."""
+    g = float(consts[4, 0])
+    for sign in (1, 0):
+        for m in range(1, 9 - sign):
+            if -m - 2.0 ** (8 - sign - m) + 1.0 == g:
+                return m
+    raise ValueError(f"no 8-bit FP8 format has g = {g}")
+
+
 def grid_step(a, b, consts, normalized, method="fp8"):
     """One grid step of the quantizer of the (6, 1) ``consts`` at the larger
-    of |a|, |b|: FP8, 2^-M of the magnitude plus the smallest step;
-    int_asym, one integer step (delta, or 1 on the normalized grid)."""
+    of |a|, |b|: FP8, 2^-M of the magnitude (M that quantizer's own) plus
+    the smallest step; int_asym, one integer step (delta, or 1 on the
+    normalized grid)."""
     import torch
     if method == "int_asym":
         return 1.0 if normalized else float(consts[0, 0])
     min_step = 2.0 ** (1.0 + float(consts[4, 0]))
     if not normalized:
         min_step *= float(consts[5, 0])
-    return torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS + min_step
+    return torch.maximum(a.abs(), b.abs()) * 2.0 ** -const_mbits(consts) + min_step
 
 
 def grid_check(out, ref, consts, normalized, extra=0.0, method="fp8"):
@@ -385,13 +431,15 @@ def sum_check(out, ref):
 
 class Inputs:
     """Random operands on the card from one seeded generator, on the FP8
-    grids (``grid="fp8"``) or the integer ones (``grid="int"``: int_asym
-    activations, per-channel int_sym weights)."""
+    grids of M mantissa bits (``grid="fp8"``, ``mbits``) or the integer
+    ones (``grid="int"``: int_asym activations, per-channel int_sym
+    weights)."""
 
-    def __init__(self, grid="fp8"):
+    def __init__(self, grid="fp8", mbits=MBITS):
         import torch
         self.g = torch.Generator(device="cuda").manual_seed(SEED)
         self.grid = grid
+        self.mbits = mbits
         self.act_method = "fp8" if grid == "fp8" else "int_asym"
 
     def randn(self, *shape, scale=1.0):
@@ -403,27 +451,29 @@ class Inputs:
         return torch.rand(n, generator=self.g, device="cuda") * (hi - lo) + lo
 
     def norms(self, *shape, maxval=4.0):
-        """Activations on the normalized grid, bf16 (a factored input): E3M4
-        values, or the integers xint - zp of a relu'd block output."""
+        """Activations on the normalized grid, bf16 (a factored input): FP8
+        values of M mantissa bits, or the integers xint - zp of a relu'd
+        block output."""
         import torch
         from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts, fp8_quantize_prepared
         if self.grid == "int":
             x = torch.round(torch.relu(self.randn(*shape)) * 40.0).clamp(0.0, 255.0)
             return x.to(torch.bfloat16).contiguous()
-        c = fp8_consts(torch.tensor([maxval], device="cuda"), MBITS)
+        c = fp8_consts(torch.tensor([maxval], device="cuda"), self.mbits)
         return fp8_quantize_prepared(self.randn(*shape), c,
                                      normalized=True).to(torch.bfloat16).contiguous()
 
     def weight_norms(self, w):
         """Per-output-channel normalized weights (dim 0), float32 values: the
-        E3M4 grid, or the signed 8-bit integers of a symmetric quantizer."""
+        FP8 grid of M mantissa bits, or the signed 8-bit integers of a
+        symmetric quantizer."""
         import torch
         from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts, fp8_quantize_prepared
         amax = w.abs().reshape(w.shape[0], -1).amax(dim=1)
         if self.grid == "int":
             delta = (amax / 127.0).reshape(-1, *[1] * (w.dim() - 1))
             return torch.round(w / delta).clamp(-128.0, 127.0)
-        return fp8_quantize_prepared(w, fp8_consts(amax, MBITS), channel_axis=0,
+        return fp8_quantize_prepared(w, fp8_consts(amax, self.mbits), channel_axis=0,
                                      normalized=True)
 
     def out_consts(self, y0):
@@ -434,7 +484,8 @@ class Inputs:
         if self.grid == "int":
             delta, zf = uniform.asymmetric_set_quant_range(0.8 * y0.min(), 0.8 * y0.max(), 8)
             return uniform.int_asym_consts(delta, zf, 8)
-        return fp8_consts(torch.tensor([0.8 * float(y0.abs().max())], device="cuda"), MBITS)
+        return fp8_consts(torch.tensor([0.8 * float(y0.abs().max())], device="cuda"),
+                          self.mbits)
 
 
 def in_kernel_weights(inp, N, K, unsigned=False):
@@ -446,7 +497,7 @@ def in_kernel_weights(inp, N, K, unsigned=False):
     w = inp.randn(N, K, scale=0.02)
     w = (w.abs() if unsigned else w).contiguous()
     if inp.grid == "fp8":
-        return w, fp8_consts(w.abs().amax(dim=1), MBITS), "fp8"
+        return w, fp8_consts(w.abs().amax(dim=1), inp.mbits), "fp8"
     delta, sgn = uniform.symmetric_set_quant_range(w.amin(dim=1), w.amax(dim=1), 8)
     return w, uniform.int_sym_consts(delta, sgn, 8), "int_sym"
 
@@ -691,10 +742,10 @@ def kernel_table():
     }
 
 
-def check_cases(kinds, results, label):
+def check_cases(kinds, results, label, timed=True):
     """Each case against its plain version, timed (kernel, plain, library
-    call) and bounded; one line each.  ``results[kernel]`` sums the cases
-    weighted by their uses per forward."""
+    call; not with ``timed`` false) and bounded; one line each.
+    ``results[kernel]`` sums the cases weighted by their uses per forward."""
     from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
     table = kernel_table()
     ok_all = True
@@ -713,13 +764,19 @@ def check_cases(kinds, results, label):
                 ok, err, exact = grid_check(out, ref, consts,
                                             getattr(cfg, "emit_norm", False),
                                             method=cfg.act_method)
+            bms = bound_ms(nbytes, flops)
+            if not timed:
+                emit({"phase": label, "case": name, "ok": ok, "max_abs_err": err,
+                      "exact": exact, "bound_ms": bms})
+                ok_all &= ok
+                agg["max_abs_err"] = max(agg["max_abs_err"], err)
+                continue
             ms = kernel_ms(lambda: wrapper(*args, cfg=cfg))
             cold = {"ms_cold": cold_ms(lambda: wrapper(*args, cfg=cfg))} \
                 if kname in COLD_TIMED else {}
             with no_tf32():
                 pms = kernel_ms(lambda: plain(*args, cfg), iters=5)
             lms = kernel_ms(lib)
-            bms = bound_ms(nbytes, flops)
             emit({"phase": label, "case": name, "ok": ok, "max_abs_err": err,
                   "exact": exact, "ms": ms, **cold, "plain_ms": pms, "library_ms": lms,
                   "bound_ms": bms, "bound_by": bound_by(nbytes, flops),
@@ -742,6 +799,51 @@ def phase_check_and_time(results):
     inp = Inputs()
     return check_cases((("qstem", stem_cases(inp)), ("qconv3x3", conv_cases(inp)),
                         ("qmatmul", matmul_cases(inp))), results, "check")
+
+
+# mantissa widths other than E3M4 that the MSE search's vote can give a
+# quantizer (E6M1 .. E1M6)
+OTHER_MBITS = (1, 2, 3, 5, 6)
+
+
+def phase_mbits_check(results):
+    """Each FP8 kernel at the other mantissa widths M (OTHER_MBITS), one
+    main-path shape each, on operands and output quantizers of that M:
+    qmatmul at the 14x14 downsample (baked) and the fc with FP8 weights
+    quantized in the kernel, qconv3x3 at 56x56x64, the stem, qdwconv3x3 at
+    MobileNetV2's 56x56x144 stride 1 and qblock on a 28x28 residual block
+    (synthetic operands).  Held as phases 2 and 8 (grid_step reading each
+    quantizer's own M from its constants; qdwconv3x3 bit-equal); not
+    timed."""
+    from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
+    ok_all = True
+    for m in OTHER_MBITS:
+        inp = Inputs("fp8", mbits=m)
+        mm = [c for c in matmul_cases(inp)
+              if c[0].endswith(("x128x256 norm", "x1000 fp8w"))]
+        kinds = (("qstem", stem_cases(inp, edges=False)),
+                 ("qconv3x3", conv_cases(inp, edges=False)[:1]),
+                 ("qmatmul", mm))
+        ok_all &= len(mm) == 2
+        ok_all &= check_cases(kinds, results, f"mbits_check M={m}", timed=False)
+        a, kw = synthetic_dw(inp, BATCH, 56, 144, 1)
+        dw = mnv2_dw_case(a, kw, 0, f" M={m}")
+        a, kw = synthetic_block(inp, 28, 1, 32, 192, 32, True)
+        blk = mnv2_block_case(a, kw, 0, f" M={m}")
+        for kname, (name, call, plain, check, *_rest) in (("qdwconv3x3", dw),
+                                                          ("qblock", blk)):
+            out = call()
+            with no_tf32():
+                ref = plain()
+            ok, err, exact = check(out, ref)
+            if kname == "qdwconv3x3":
+                ok = ok and dw_exact(out, ref)
+            emit({"phase": f"mbits_check M={m}", "case": name, "ok": ok,
+                  "max_abs_err": err, "exact": exact})
+            agg = results.setdefault(kname, {})
+            agg["max_abs_err"] = max(agg.get("max_abs_err", 0.0), err)
+            ok_all &= ok
+    return ok_all
 
 
 def phase_int_check(int_results):
@@ -958,32 +1060,137 @@ CLI_ARGS = ["validate-quantized", "--device", "cuda", "--engine", "fused",
 RESNET_FP8_LAUNCHES = {"qstem": 1, "qconv3x3": 16, "qmatmul": 4}
 
 
-def expected_launches(per_forward):
-    """Launch counts of a main-path run (EVAL_BATCHES forwards) for every
-    kernel: ``per_forward`` for the kernels it names, 0 for the others."""
+def expected_launches(per_forward, forwards=EVAL_BATCHES + 1, unbaked=None,
+                       unbaked_forwards=0):
+    """Launch counts of a main-path run for every kernel: ``per_forward``
+    times the forwards of the baked model (by default the CLI's prepare
+    pass and EVAL_BATCHES evaluation batches), plus ``unbaked`` times the
+    fixed-mode forwards before the bake (the format search's), 0 for the
+    kernels neither names."""
     from fp8_quantization_tpu_torch.ops import kernels
-    return {k: per_forward.get(k, 0) * EVAL_BATCHES for k in kernels.WRAPPERS}
+    unbaked = unbaked or {}
+    return {k: per_forward.get(k, 0) * forwards + unbaked.get(k, 0) * unbaked_forwards
+            for k in kernels.WRAPPERS}
 
 
-def run_main_path(cli, per_forward):
+class Forwards:
+    """Counts, while active, the fixed-mode forwards of the models (ResNet,
+    MobileNetV2, ViT), baked and not, times calibrate and the format search
+    (``seconds``), and keeps the FP8 formats' histogram right after
+    calibrate (``voted``) and the last model that evaluate took."""
+
+    def __init__(self):
+        self.baked = self.unbaked = 0
+        self.seconds = {}
+        self.voted = None
+        self.model = None
+
+    def __enter__(self):
+        import torch
+        from fp8_quantization_tpu_torch.calibration import calibrate, format_search
+        from fp8_quantization_tpu_torch.models import mobilenet_v2, resnet, vit
+        from fp8_quantization_tpu_torch.nn.layers import QuantizedLayerBase
+        self.saved = []
+
+        def patch(mod, attr, make):
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, make(fn))
+
+        def count(fn):
+            def forward(model, x, mode="fixed", **kw):
+                if mode == "fixed":
+                    baked = any(m.w_factor is not None or m.w_int8 is not None
+                                for m in model.modules()
+                                if isinstance(m, QuantizedLayerBase))
+                    if baked:
+                        self.baked += 1
+                    else:
+                        self.unbaked += 1
+                return fn(model, x, mode=mode, **kw)
+            return forward
+
+        def timed(key):
+            def make(fn):
+                def run(*a, **kw):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = fn(*a, **kw)
+                    torch.cuda.synchronize()
+                    self.seconds[key] = self.seconds.get(key, 0.0) + time.perf_counter() - t0
+                    if key == "calibrate_s":
+                        self.voted = mbits_histogram(a[0])
+                    return out
+                return run
+            return make
+
+        def keep(fn):
+            def run(model, *a, **kw):
+                self.model = model
+                return fn(model, *a, **kw)
+            return run
+
+        for cls in (resnet.QuantizedResNet, mobilenet_v2.QuantizedMobileNetV2,
+                    vit.QuantizedViT):
+            patch(cls, "forward", count)
+        patch(calibrate, "calibrate", timed("calibrate_s"))
+        patch(calibrate, "evaluate", keep)
+        patch(format_search, "network_format_search", timed("format_search_s"))
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self.saved):
+            setattr(mod, attr, fn)
+
+
+def mbits_of(model):
+    """{path: M} of the model's FP8 quantizers."""
+    from fp8_quantization_tpu_torch.nn.quantizers import Quantizer
+    return {n: int(float(m.mantissa_bits)) for n, m in model.named_modules()
+            if isinstance(m, Quantizer) and m.spec.is_fp8}
+
+
+def mbits_histogram(model):
+    """{M: number of FP8 quantizers of the model with M mantissa bits}."""
+    hist = {}
+    for k in mbits_of(model).values():
+        hist[k] = hist.get(k, 0) + 1
+    return dict(sorted(hist.items()))
+
+
+def run_main_path(cli, per_forward, unbaked=None, info=None):
     """validate-quantized through the CLI's entry point with the launch
     counts zeroed just before and read just after: (metrics, counts, the
-    counts ``per_forward`` asks for, ok of the metrics line)."""
+    counts ``per_forward`` asks for, ok of the metrics line, the deployed
+    model's FP8 formats (mbits_of)).  The baked forwards (the prepare pass
+    and the evaluation batches) launch ``per_forward``, fixed-mode forwards
+    before the bake (the format search's) ``unbaked``; ``info`` receives
+    the forwards, the seconds of calibrate and the format search, and the
+    FP8 formats' histograms after calibrate and as deployed."""
     import torch
     from fp8_quantization_tpu_torch.cli import image_net
     from fp8_quantization_tpu_torch.ops import kernels
     kernels.reset_launch_counts()
-    metrics = image_net.validate_quantized(image_net.build_parser().parse_args(cli))
+    with Forwards() as fw:
+        metrics = image_net.validate_quantized(image_net.build_parser().parse_args(cli))
     torch.cuda.synchronize()
+    counts = kernels.launch_counts()
     ok = (math.isfinite(metrics["loss"])
-          and metrics["num_examples"] == BATCH * EVAL_BATCHES)
-    return metrics, kernels.launch_counts(), expected_launches(per_forward), ok
+          and metrics["num_examples"] == BATCH * EVAL_BATCHES
+          and fw.baked == EVAL_BATCHES + 1 and (unbaked or not fw.unbaked))
+    if info is not None:
+        info.update(forwards={"baked": fw.baked, "unbaked": fw.unbaked},
+                    **fw.seconds, mbits_voted=fw.voted,
+                    mbits_deployed=mbits_histogram(fw.model))
+    return (metrics, counts, expected_launches(per_forward, fw.baked, unbaked,
+                                               fw.unbaked), ok, mbits_of(fw.model))
 
 
 def engine_pair(cli):
     """The evaluation batches and the model of ``cli`` under 'fused' and
     'bf16', built from the seed's weights and calibrated (as 'fused', on the
-    first batch) to one state, not yet baked."""
+    first batch, and format-searched where ``cli`` asks for it, as the CLI
+    deploys it) to one state, not yet baked."""
     from itertools import islice
 
     from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
@@ -991,8 +1198,11 @@ def engine_pair(cli):
     from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
     _, val = make_dataloaders(None, batch_size=BATCH, seed=SEED)
     batches = list(islice(iter(val), EVAL_BATCHES))
-    fused = image_net.build_model(image_net.build_parser().parse_args(cli))
+    args = image_net.build_parser().parse_args(cli)
+    fused = image_net.build_model(args)
     calibrate(fused, batches[:1], device="cuda", num_batches=1)
+    if args.format_search_passes > 0:
+        image_net.format_search(fused, batches[:1], args, "cuda")
     bf16 = image_net.build_model(image_net.build_parser().parse_args(
         cli + ["--engine", "bf16"]))
     bf16.load_state_dict(fused.state_dict())
@@ -1014,22 +1224,54 @@ def fused_forward(fused, x, captures, first):
 
 def logit_step(quantizer, a, b):
     """One grid step of the last layer's output quantizer at the larger of
-    |a|, |b|: E3M4 (2^-M of the magnitude plus maxval * 2^-10), or the
-    integer step of an int_asym quantizer."""
+    |a|, |b|: FP8 with its own M, 2^-M of the magnitude plus maxval *
+    2^(1 + g) (maxval * 2^-10 at E3M4), or the integer step of an int_asym
+    quantizer."""
     import torch
     if quantizer.spec.is_fp8:
-        return (torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS
-                + float(quantizer.maxval) * 2.0 ** -10)
+        consts = quantizer.act_consts()[1]
+        return (torch.maximum(a.abs(), b.abs()) * 2.0 ** -const_mbits(consts)
+                + float(quantizer.maxval) * 2.0 ** (1.0 + float(consts[4, 0])))
     return float(torch.clamp(quantizer.delta, min=1e-8))
+
+
+# the unprepared copy of each slice's fused model (prepare_models), by the
+# slice's label, for the profile phases
+UNPREPARED = {}
+
+
+def prepare_models(label, fused, bf16, batches, quant_w=False):
+    """The prepare pass (nn/bake.prepare_inference, on the card, as the CLI
+    runs it) on both baked models, after an unprepared copy of fused is
+    kept (UNPREPARED[label]); then the prepared fused logits are held
+    bit-equal to the unprepared ones on the batches: (ok, line fields)."""
+    import copy
+
+    import torch
+    from fp8_quantization_tpu_torch.nn.bake import prepare_inference
+    unprepared = UNPREPARED[label] = copy.deepcopy(fused)
+    xs = [torch.as_tensor(x, device="cuda") for x, _ in batches]
+    example = torch.zeros((1,) + tuple(xs[0].shape[1:]), device="cuda")
+    for model in (fused, bf16):
+        prepare_inference(model, example, quant_w=quant_w)
+    equal = []
+    with torch.no_grad():
+        for x in xs:
+            equal.append(bool(torch.equal(
+                unprepared(x, mode="fixed", quant_w=quant_w),
+                fused(x, mode="fixed", quant_w=quant_w))))
+    return all(equal), {"prepared_logits_bit_equal": equal}
 
 
 def phase_slice(results, label="slice", cli=CLI_ARGS,
                 per_forward=RESNET_FP8_LAUNCHES, head="fc", min_share=0.0,
-                captures=None, plain_reference=False):
+                captures=None, plain_reference=False, unbaked=None):
     """A main path through the CLI's entry point (launch counts against
     ``per_forward``), then fused against bf16 on one calibrated, baked
     state, judged on the grid of the ``head`` layer's output quantizer
-    (logit_step): top-1 >= 99%, >= 98% within one step.  With
+    (logit_step): top-1 (argmax) equal on >= 99% of images, >= 98% within
+    one step; the plain CPU reference of fused (plain_witness) is printed
+    beside each image whose top-1 differs.  With
     ``plain_reference`` (--quantize-input, where fused and bf16 differ by
     design, see QI_CLI_ARGS) the judged reference is instead the same fused
     model on the CPU, where every wrapper takes its plain version.  Its
@@ -1043,14 +1285,21 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
     one-ulp floor are printed, as is fused against bf16.
     With ``captures`` the first fused forward records the depthwise and
     block kernels' operands (Capture); ``min_share`` bounds the
-    input-dependent share of the logits from below."""
+    input-dependent share of the logits from below; ``unbaked`` gives the
+    launches of a fixed-mode forward before the bake (run_main_path).
+    Both models are prepared after the bake (prepare_models, whose
+    bit-equality check joins ok), so every comparison and every later
+    phase on them runs the prepared forward."""
     import copy
 
     import torch
     from fp8_quantization_tpu_torch.nn.bake import bake_weights
 
-    metrics, counts, want, metrics_ok = run_main_path(cli, per_forward)
+    info = {}
+    metrics, counts, want, metrics_ok, deployed = run_main_path(
+        cli, per_forward, unbaked, info)
     batches, fused, bf16 = engine_pair(cli)
+    as_deployed = mbits_of(fused) == deployed
     parity = None
     if plain_reference:        # the reference's semantics, same state
         from fp8_quantization_tpu_torch.cli import image_net
@@ -1059,8 +1308,10 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
         parity.load_state_dict(fused.state_dict())
     bake_weights(fused)
     bake_weights(bf16)
+    prep_ok, prep_line = prepare_models(label, fused, bf16, batches)
     plain = copy.deepcopy(fused).cpu() if plain_reference else None
     agree, exact, within, share, classes, gap, finite = [], [], [], [], [], [], True
+    flips = []
     runs = {"fused": [], "plain": [], "fused_ulp": [], "bf16": [], "parity": [],
             "parity_ulp": []}
     head_q = getattr(fused, head).act_q
@@ -1071,8 +1322,16 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
             b = bf16(xt, mode="fixed", quant_w=False)
             finite &= bool(torch.isfinite(a).all())
             agree.append(float((a.argmax(-1) == b.argmax(-1)).float().mean()))
-            within.append(float(((a - b).abs() <= logit_step(head_q, a, b))
-                                .float().mean()))
+            step = logit_step(head_q, a, b)
+            within.append(float(((a - b).abs() <= step).float().mean()))
+            for j in torch.nonzero(a.argmax(-1) != b.argmax(-1)).flatten().tolist():
+                ca, cb = int(a[j].argmax()), int(b[j].argmax())
+                flips.append({"batch": i, "row": j, "fused_top1": ca, "bf16_top1": cb,
+                              "fused_top2": a[j].topk(2).values.tolist(),
+                              "bf16_top2": b[j].topk(2).values.tolist(),
+                              "fused_at_bf16_top1": float(a[j, cb]),
+                              "bf16_at_fused_top1": float(b[j, ca]),
+                              "step_at_top": float(torch.as_tensor(step).expand_as(a)[j, ca])})
             exact.append(float((a == b).float().mean()))
             gap.append(logit_gap(a, b))
             share.append(input_share(a))
@@ -1094,13 +1353,16 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
         plain_gap = {"fused_vs_plain_cpu": logit_gap(t["fused"], t["plain"]),
                      "fused_one_ulp_floor": logit_gap(t["fused_ulp"], t["fused"])}
         close = plain_gap["fused_vs_plain_cpu"] <= 2 * plain_gap["fused_one_ulp_floor"]
-    ok = (counts == want and finite and metrics_ok and close
-          and min(share) > min_share)
+    ok = (counts == want and finite and metrics_ok and close and prep_ok
+          and as_deployed and min(share) > min_share)
     line = {"phase": label, "ok": ok, "metrics": metrics, "launches": counts,
-            "expected_launches": want, "logits_finite": finite,
+            "expected_launches": want, **info, **prep_line,
+            "mbits_compared": mbits_histogram(fused), "formats_as_deployed": as_deployed,
+            "logits_finite": finite,
             "top1_agree_vs_bf16": mean(agree),
             "logits_within_one_step_vs_bf16": mean(within),
             "logits_exact_vs_bf16": mean(exact), "logit_gap_vs_bf16": gap,
+            "top1_flips_vs_bf16": plain_witness(fused, batches, flips[:8]),
             "input_dependent_share": share, "distinct_top1_classes": classes}
     if plain is not None:
         argmax = {k: v.argmax(-1) for k, v in t.items()}
@@ -1119,6 +1381,29 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
     emit(line)
     add_launches(results, counts)
     return ok, fused, bf16
+
+
+def plain_witness(fused, batches, flips):
+    """``flips`` (images whose top-1 differs between fused and bf16), each
+    with a second witness: the same prepared fused model on the CPU, where
+    every wrapper takes its plain version (its top-1, top-2 and logits at
+    the two engines' top-1 classes)."""
+    if not flips:
+        return flips
+    import copy
+
+    import torch
+    plain = copy.deepcopy(fused).cpu()
+    outs = {}
+    with torch.no_grad():
+        for i in sorted({f["batch"] for f in flips}):
+            outs[i] = plain(torch.as_tensor(batches[i][0]), mode="fixed", quant_w=False)
+    for f in flips:
+        p = outs[f["batch"]][f["row"]]
+        f.update(plain_top1=int(p.argmax()), plain_top2=p.topk(2).values.tolist(),
+                 plain_at_fused_top1=float(p[f["fused_top1"]]),
+                 plain_at_bf16_top1=float(p[f["bf16_top1"]]))
+    return flips
 
 
 def add_launches(results, counts):
@@ -1154,10 +1439,11 @@ def phase_int8_slice(results):
 
     args = image_net.build_parser().parse_args(INT8_CLI_ARGS)
     kernels.reset_launch_counts()
-    metrics = image_net.validate_quantized(args)
+    with Forwards() as fw:
+        metrics = image_net.validate_quantized(args)
     torch.cuda.synchronize()
     counts = kernels.launch_counts()
-    want = expected_launches({"qconv3x3_int8": 16, "qmatmul_int8": 4})
+    want = expected_launches({"qconv3x3_int8": 16, "qmatmul_int8": 4}, fw.baked)
 
     _, val = make_dataloaders(None, batch_size=BATCH, seed=SEED)
     batches = list(islice(iter(val), EVAL_BATCHES))
@@ -1168,6 +1454,8 @@ def phase_int8_slice(results):
     bf16.load_state_dict(fused.state_dict())
     bake_int8_weights(fused)
     bake_int8_weights(bf16)
+    prep_ok, prep_line = prepare_models("int8_slice", fused, bf16, batches,
+                                        quant_w=True)
     agree, within, exact, finite = [], [], [], True
     with torch.no_grad():
         for x, _ in batches:
@@ -1181,9 +1469,10 @@ def phase_int8_slice(results):
     mean = lambda v: sum(v) / len(v)  # noqa: E731
     ok = (counts == want and finite and math.isfinite(metrics["loss"])
           and metrics["num_examples"] == BATCH * EVAL_BATCHES
+          and fw.baked == EVAL_BATCHES + 1 and not fw.unbaked and prep_ok
           and mean(agree) >= 0.99 and mean(within) >= 0.98)
     emit({"phase": "int8_slice", "ok": ok, "metrics": metrics, "launches": counts,
-          "expected_launches": want, "logits_finite": finite,
+          "expected_launches": want, **prep_line, "logits_finite": finite,
           "top1_agree_vs_bf16": mean(agree),
           "logits_within_1e-3_vs_bf16": mean(within),
           "logits_exact_vs_bf16": mean(exact)})
@@ -1207,6 +1496,23 @@ INT8_OQ_CLI_ARGS = ["validate-quantized", "--device", "cuda", "--engine", "fused
 # bf16 path, as in JAX (4 qmatmul launches per forward, no qstem/qconv3x3)
 QI_CLI_ARGS = CLI_ARGS + ["--quantize-input"]
 QI_LAUNCHES = {"qmatmul": 4}
+# BASELINE.json config 3 on ResNet-18: the MSE range search for weights and
+# activations with the mantissa-bit sweep and vote (each quantizer its own
+# M, E6M1 .. E1M6), one pass of the network format search, then the bake
+# and the prepared deploy; and the same at E4M3 without the sweep.  Before
+# the bake the format search's fixed-mode forwards quantize the weights in
+# qmatmul (the downsamples and the fc) and run the stem and the 3x3 convs
+# composed: 4 qmatmul launches each (RESNET_FP8_UNBAKED)
+MSE_CLI_ARGS = ["validate-quantized", "--device", "cuda", "--engine", "fused",
+                "--architecture", "resnet18_quantized", "--per-channel",
+                "--fp8-set-maxval", "--weight-quant-method", "MSE",
+                "--act-quant-method", "MSE", "--fp8-mse-include-mantissa-bits",
+                "--format-search-passes", "1", "--num-est-batches", "1",
+                "--max-eval-batches", str(EVAL_BATCHES), "--batch-size", str(BATCH),
+                "--seed", str(SEED)]
+MSE_E4M3_CLI_ARGS = MSE_CLI_ARGS + ["--fp8-mantissa-bits", "3",
+                                    "--no-fp8-mse-include-mantissa-bits"]
+RESNET_FP8_UNBAKED = {"qmatmul": 4}
 # fused and bf16 under --quantize-input: every layer quantizes its input
 # on an E3M4 grid and the logits are not quantized, so a last-bit
 # difference anywhere (another summation order) flips bins downstream and
@@ -1582,14 +1888,14 @@ def phase_vit_slice(results, captures):
     import torch
     from fp8_quantization_tpu_torch.nn.bake import bake_weights
 
-    metrics, counts, want, metrics_ok = run_main_path(VIT_CLI_ARGS, VIT_LAUNCHES)
+    metrics, counts, want, metrics_ok, _ = run_main_path(VIT_CLI_ARGS, VIT_LAUNCHES)
     batches, fused, bf16 = engine_pair(VIT_CLI_ARGS)
     xs = [torch.as_tensor(x, device="cuda") for x, _ in batches]
     with torch.no_grad():
         ref32 = torch.cat([bf16(x, mode="fp32") for x in xs])
     bake_weights(fused)
     bake_weights(bf16)
-    maxval = float(fused.head.act_q.maxval)
+    prep_ok, prep_line = prepare_models("vit_slice", fused, bf16, batches)
     out = {k: [] for k in ("a", "b", "b_ulp", "a_off", "b_off", "b_off_ulp")}
     with torch.no_grad():
         for i, x in enumerate(xs):
@@ -1603,19 +1909,19 @@ def phase_vit_slice(results, captures):
                                          quant_a=False))
     t = {k: torch.cat(v) for k, v in out.items()}
     a, b = t["a"], t["b"]
-    step = torch.maximum(a.abs(), b.abs()) * 2.0 ** -MBITS + maxval * 2.0 ** -10
+    step = logit_step(fused.head.act_q, a, b)
     gaps = {"quant": logit_gap(a, b), "quant_floor": logit_gap(t["b_ulp"], b),
             "act_quant_off": logit_gap(t["a_off"], t["b_off"]),
             "act_quant_off_floor": logit_gap(t["b_off_ulp"], t["b_off"]),
             "fused_vs_fp32": logit_gap(a, ref32), "bf16_vs_fp32": logit_gap(b, ref32)}
     finite = bool(torch.isfinite(a).all())
     share = [input_share(x) for x in out["a"]]
-    ok = (counts == want and finite and metrics_ok and min(share) > 0.01
+    ok = (counts == want and finite and metrics_ok and prep_ok and min(share) > 0.01
           and gaps["quant"] <= 2 * gaps["quant_floor"]
           and gaps["act_quant_off"] <= 2 * gaps["act_quant_off_floor"]
           and gaps["fused_vs_fp32"] <= 1.25 * gaps["bf16_vs_fp32"])
     emit({"phase": "vit_slice", "ok": ok, "metrics": metrics, "launches": counts,
-          "expected_launches": want, "logits_finite": finite,
+          "expected_launches": want, **prep_line, "logits_finite": finite,
           "logit_gaps": gaps,
           "top1_agree_vs_bf16": float((a.argmax(-1) == b.argmax(-1)).float().mean()),
           "top1_agree_bf16_one_ulp": float(
@@ -1971,20 +2277,18 @@ def phase_throughput(fused, bf16, label="throughput", batches=(BATCH, 256)):
     emit({"phase": label, "ok": True, **rows})
 
 
-def phase_profile(fused, label="profile", quant_w=False,
-                  kernel_names=("qstem", "qconv3x3", "qmatmul")):
+def profile_forwards(model, x, quant_w, n=3):
+    """torch.profiler over ``n`` forwards after a warm one: ([(kernel name,
+    device ms per forward, launches per forward)], wall ms per forward)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    x = torch.randn(BATCH, 224, 224, 3, device="cuda",
-                    generator=torch.Generator(device="cuda").manual_seed(2))
-    n = 3
     with torch.no_grad():
-        fused(x, mode="fixed", quant_w=quant_w)
+        model(x, mode="fixed", quant_w=quant_w)
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(n):
-                fused(x, mode="fixed", quant_w=quant_w)
+                model(x, mode="fixed", quant_w=quant_w)
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / n
     rows = []
@@ -1992,6 +2296,18 @@ def phase_profile(fused, label="profile", quant_w=False,
         us = getattr(e, "self_device_time_total", 0) or 0
         if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
             rows.append((e.key, us / 1e3 / n, e.count / n))
+    return rows, wall_ms
+
+
+def phase_profile(fused, label="profile", quant_w=False,
+                  kernel_names=("qstem", "qconv3x3", "qmatmul"), unprepared=None):
+    """The prepared forward under torch.profiler: device time by kernel,
+    launches per forward, idle share; with ``unprepared`` (the same model
+    before the prepare pass) its launches, wall ms and idle share beside."""
+    import torch
+    x = torch.randn(BATCH, 224, 224, 3, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(2))
+    rows, wall_ms = profile_forwards(fused, x, quant_w)
     if not rows:
         emit({"phase": label, "ok": True, "device_time": "not measured",
               "wall_ms_per_forward": wall_ms})
@@ -1999,13 +2315,21 @@ def phase_profile(fused, label="profile", quant_w=False,
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     ours = {k: sum(r[1] for r in rows if k + "_kernel" in r[0]) for k in kernel_names}
-    emit({"phase": label, "ok": True, "wall_ms_per_forward": wall_ms,
-          "device_busy_ms_per_forward": busy,
-          "idle_share": max(0.0, 1.0 - busy / wall_ms),
-          "launches_per_forward": sum(r[2] for r in rows),
-          "port_kernels_ms": ours,
-          "other_ms": busy - sum(ours.values()),
-          "top": [{"name": r[0][:80], "ms": r[1], "calls": r[2]} for r in rows[:12]]})
+    line = {"phase": label, "ok": True, "wall_ms_per_forward": wall_ms,
+            "device_busy_ms_per_forward": busy,
+            "idle_share": max(0.0, 1.0 - busy / wall_ms),
+            "launches_per_forward": sum(r[2] for r in rows),
+            "port_kernels_ms": ours,
+            "other_ms": busy - sum(ours.values()),
+            "top": [{"name": r[0][:80], "ms": r[1], "calls": r[2]} for r in rows[:12]]}
+    if unprepared is not None:
+        urows, uwall = profile_forwards(unprepared, x, quant_w)
+        ubusy = sum(r[1] for r in urows)
+        line["unprepared"] = {"launches_per_forward": sum(r[2] for r in urows),
+                              "wall_ms_per_forward": uwall,
+                              "device_busy_ms_per_forward": ubusy,
+                              "idle_share": max(0.0, 1.0 - ubusy / uwall)}
+    emit(line)
     return True
 
 
@@ -2051,7 +2375,8 @@ def int_phases(results, slice_out):
                 slice_out[k], slice_out[k + "_bf16"], f"mnv2_{k}_throughput",
                 (BATCH,)) or True),
             (f"mnv2_{key}_profile", lambda k=key, n=kernel_names: phase_profile(
-                slice_out[k], f"mnv2_{k}_profile", kernel_names=n))]
+                slice_out[k], f"mnv2_{k}_profile", kernel_names=n,
+                unprepared=UNPREPARED.get(f"mnv2_{k}_slice")))]
 
     return [
         ("int_check", lambda: phase_int_check(int_results)),
@@ -2059,7 +2384,9 @@ def int_phases(results, slice_out):
         ("int8oq_throughput", lambda: phase_throughput(
             slice_out["int8oq"], slice_out["int8oq_bf16"], "int8oq_throughput",
             (BATCH,)) or True),
-        ("int8oq_profile", lambda: phase_profile(slice_out["int8oq"], "int8oq_profile")),
+        ("int8oq_profile", lambda: phase_profile(
+            slice_out["int8oq"], "int8oq_profile",
+            unprepared=UNPREPARED.get("int8oq_slice"))),
         ("qi_slice", lambda: phase_slice(results, "qi_slice", QI_CLI_ARGS, QI_LAUNCHES,
                                          "fc", 0.01, plain_reference=True)[0]),
         *mnv2,
@@ -2111,7 +2438,8 @@ def main():
         ("vit_throughput", lambda: phase_throughput(
             slice_out["vit"], slice_out["vit_bf16"], "vit_throughput", (BATCH,)) or True),
         ("vit_profile", lambda: phase_profile(
-            slice_out["vit"], "vit_profile", kernel_names=("flash_mha", "qmatmul")))]
+            slice_out["vit"], "vit_profile", kernel_names=("flash_mha", "qmatmul"),
+            unprepared=UNPREPARED.get("vit_slice")))]
 
     mnv2_phases = []
     for bn_mode, kernel_names in (("fp32_after", ("qblock", "qmatmul")),
@@ -2122,9 +2450,28 @@ def main():
                 slice_out[m], slice_out[m + "_bf16"], f"mnv2_{m}_throughput",
                 (BATCH,)) or True),
             (f"mnv2_{bn_mode}_profile", lambda m=bn_mode, k=kernel_names: phase_profile(
-                slice_out[m], f"mnv2_{m}_profile", kernel_names=k))]
+                slice_out[m], f"mnv2_{m}_profile", kernel_names=k,
+                unprepared=UNPREPARED.get(f"mnv2_{m}_slice")))]
+
+    def run_mse_slice(label, cli):
+        ok, slice_out[label], slice_out[label + "_bf16"] = phase_slice(
+            results, label, cli, RESNET_FP8_LAUNCHES, "fc", 0.01,
+            unbaked=RESNET_FP8_UNBAKED)
+        return ok
+
+    mse_phases = []
+    for label, cli in (("mse_slice", MSE_CLI_ARGS), ("mse_e4m3_slice", MSE_E4M3_CLI_ARGS)):
+        mse_phases += [
+            (label, lambda k=label, c=cli: run_mse_slice(k, c)),
+            (label.replace("slice", "throughput"), lambda k=label: phase_throughput(
+                slice_out[k], slice_out[k + "_bf16"], k.replace("slice", "throughput"),
+                (BATCH,)) or True),
+            (label.replace("slice", "profile"), lambda k=label: phase_profile(
+                slice_out[k], k.replace("slice", "profile"),
+                unprepared=UNPREPARED.get(k)))]
 
     phases = [("check", lambda: phase_check_and_time(results)),
+              ("mbits_check", lambda: phase_mbits_check(results)),
               ("int8_check", lambda: phase_int8_check(results)),
               ("batch256", phase_batch256),
               ("slice", run_slice),
@@ -2132,14 +2479,17 @@ def main():
               ("throughput", lambda: phase_throughput(slice_out["fused"],
                                                       slice_out["bf16"]) or True),
               ("int8_throughput", lambda: phase_int8_throughput(slice_out["int8"]) or True),
-              ("profile", lambda: phase_profile(slice_out["fused"])),
+              ("profile", lambda: phase_profile(
+                  slice_out["fused"], unprepared=UNPREPARED.get("slice"))),
               ("int8_profile", lambda: phase_profile(
                   slice_out["int8"], "int8_profile", quant_w=True,
-                  kernel_names=("qconv3x3_int8", "qmatmul_int8")))]
+                  kernel_names=("qconv3x3_int8", "qmatmul_int8"),
+                  unprepared=UNPREPARED.get("int8_slice")))]
     phases += mnv2_phases + [("mnv2_check", lambda: phase_mnv2_check(results, captures))]
     phases += int_phases(results, slice_out)
     phases += vit_phases
     phases += [("batch256_block_attn", lambda: phase_batch256_block_attn(captures))]
+    phases += mse_phases
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

@@ -3,11 +3,20 @@
 Mirrors ``validate-quantized`` of ``cli/image_net.py`` (lines 247-334):
 calibrate -> freeze -> bake -> evaluate, printing the same JSON metrics
 line.  The flag names are the JAX CLI's, plus ``--device {cuda,cpu}`` and
-``--engine {parity,bf16,fused}``.  Two differences: ``--bake-weights`` is
+``--engine {parity,bf16,fused}``.  Three differences: ``--bake-weights`` is
 on by default (the fused engine's kernels for the stem, the 3x3 convs, the
-depthwise convs and the MobileNetV2 blocks need baked weights), and
-without ``--model-dir`` the weights are random in the torchvision (ResNet),
-tonylins (MobileNetV2) or timm (ViT-S/16) layout, made from ``--seed``.  Under the int8 datapath
+depthwise convs and the MobileNetV2 blocks need baked weights); after the
+bake the ``bf16`` and ``fused`` engines run the prepare pass
+(``nn/bake.prepare_inference``, as ``bench.py`` deploys every row through
+``prepare_for_deployment_host``), which changes no value and so has no
+flag; and without ``--model-dir`` the weights are random in the torchvision (ResNet),
+tonylins (MobileNetV2) or timm (ViT-S/16) layout, made from ``--seed``.
+Range methods include ``MSE`` (the grid search with the mantissa-bit
+sweep and vote, ``--num-candidates``, ``--act-num-candidates``,
+``--fp8-mse-include-mantissa-bits``) and ``line_search``;
+``--format-search-passes N`` then reallocates each FP8 quantizer's
+mantissa bits by N sweeps of coordinate descent on the logits' error
+(calibration/format_search.py) before the bake.  Under the int8 datapath
 (``--int8-mxu --quantize-input`` with symmetric weights and asymmetric
 inputs) the bake is ``bake_int8_weights`` and the model is evaluated with
 ``quant_w=True``, as ``bench.py`` does (lines 107-111): the JAX CLI's
@@ -29,6 +38,11 @@ weights (ROADMAP.md, section C).
         --device cpu --architecture vit_small_quantized --engine fused \\
         --per-channel --fp8-set-maxval --num-est-batches 1 \\
         --max-eval-batches 1 --batch-size 2
+    python -m fp8_quantization_tpu_torch.cli.image_net validate-quantized \\
+        --device cpu --engine fused --per-channel --fp8-set-maxval \\
+        --weight-quant-method MSE --act-quant-method MSE \\
+        --format-search-passes 1 --num-est-batches 1 --max-eval-batches 1 \\
+        --batch-size 1
 """
 
 from __future__ import annotations
@@ -84,6 +98,11 @@ def build_parser() -> argparse.ArgumentParser:
                    choices=["current_minmax", "allminmax", "running_minmax",
                             "MSE", "line_search"])
     p.add_argument("--act-momentum", type=float, default=None)
+    p.add_argument("--num-candidates", type=int, default=None,
+                   help="MSE grid size (111 when omitted)")
+    p.add_argument("--act-num-candidates", type=int, default=None,
+                   help="act-quant MSE grid size; falls back to "
+                        "--num-candidates")
     p.add_argument("--quant-setup", default="all",
                    choices=["all", "FP_logits", "fc4", "fc4_dw8",
                             "dw_bf16_acts", "LSQ", "LSQ_paper"])
@@ -94,6 +113,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fp8-maxval", type=float, default=None)
     p.add_argument("--fp8-mantissa-bits", type=int, default=4)
     _bool_flag(p, "fp8-set-maxval", False)
+    _bool_flag(p, "fp8-mse-include-mantissa-bits", True,
+               "the MSE search also votes each quantizer's mantissa bits")
     _bool_flag(p, "fp8-allow-unsigned", False)
     p.add_argument("--engine", default="parity",
                    choices=["parity", "bf16", "fused"],
@@ -108,6 +129,10 @@ def build_parser() -> argparse.ArgumentParser:
                "s32 datapath (with --quantize-input)")
     _bool_flag(p, "bake-weights", True,
                "bake the quantized weights before evaluating (default on)")
+    p.add_argument("--format-search-passes", type=int, default=0,
+                   help="coordinate-descent sweeps over the FP8 quantizers' "
+                        "mantissa bits minimizing the logits' error against "
+                        "float32 (calibration/format_search.py)")
     p.add_argument("--max-eval-batches", type=int, default=None)
     return parser
 
@@ -130,9 +155,11 @@ def build_model(args):
         per_channel_weights=args.per_channel,
         weight_range_method=args.weight_quant_method,
         act_range_method=args.act_quant_method, percentile=args.percentile,
-        act_momentum=args.act_momentum, fp8_maxval=args.fp8_maxval,
+        act_momentum=args.act_momentum, num_candidates=args.num_candidates,
+        act_num_candidates=args.act_num_candidates, fp8_maxval=args.fp8_maxval,
         fp8_mantissa_bits=args.fp8_mantissa_bits,
         fp8_set_maxval=args.fp8_set_maxval,
+        fp8_mse_include_mantissa_bits=args.fp8_mse_include_mantissa_bits,
         fp8_allow_unsigned=args.fp8_allow_unsigned,
         quantize_input=args.quantize_input, int8_mxu=args.int8_mxu,
         bn_mode=args.bn_mode, engine=args.engine)
@@ -180,6 +207,37 @@ def bake_for_eval(model, quant_w: bool, bake: bool) -> bool:
     return False
 
 
+def prepare_for_eval(model, cal_data, device, quant_w: bool,
+                     quant_a: bool) -> None:
+    """The prepare pass on the ``bf16`` and ``fused`` engines, on the
+    device, with the flags the evaluation uses and a zero image of the
+    data's size (it changes no value)."""
+    import numpy as np
+    import torch
+
+    from fp8_quantization_tpu_torch.nn.bake import prepare_inference
+    if model.config.engine in ("bf16", "fused"):
+        first = next(iter(cal_data))
+        shape = np.shape(first[0] if isinstance(first, (tuple, list)) else first)
+        prepare_inference(model, torch.zeros((1,) + tuple(shape[1:]),
+                                             device=device),
+                          quant_w=quant_w, quant_a=quant_a)
+        log.info("prepared: fixed-mode constants frozen")
+
+
+def format_search(model, cal_data, args, device) -> None:
+    """``--format-search-passes``: the global FP8 format allocation on the
+    calibration batches, logged as the JAX CLI logs it."""
+    from fp8_quantization_tpu_torch.calibration.format_search import (
+        network_format_search)
+    _, assignment, history = network_format_search(
+        model, list(islice(iter(cal_data), args.num_est_batches)),
+        device=device, passes=args.format_search_passes,
+        quant_w=args.weight_quant, quant_a=args.act_quant)
+    log.info("global format search: network MSE %.3e -> %.3e; assignment: %s",
+             history[0], history[-1], json.dumps(assignment))
+
+
 def validate_quantized(args) -> dict:
     import numpy as np
     import torch
@@ -203,7 +261,10 @@ def validate_quantized(args) -> dict:
               num_batches=args.num_est_batches, quant_w=args.weight_quant,
               quant_a=args.act_quant)
     log.info("calibration done (%d batches)", args.num_est_batches)
+    if args.format_search_passes > 0:
+        format_search(model, cal_data, args, device)
     quant_w = bake_for_eval(model, args.weight_quant, args.bake_weights)
+    prepare_for_eval(model, cal_data, device, quant_w, args.act_quant)
     return evaluate(model, val_data, device=device, quant_w=quant_w,
                     quant_a=args.act_quant, max_batches=args.max_eval_batches)
 

@@ -31,6 +31,7 @@ from torch import nn
 
 from fp8_quantization_tpu_torch.nn.layers import (
     QuantConv, QuantizedActivation, QuantizedLayerBase, QuantLayerNorm)
+from fp8_quantization_tpu_torch.ops.fp8 import FP8_CONST_ROWS
 
 Arrays = Dict[str, np.ndarray]
 
@@ -302,11 +303,23 @@ def _copy(dst: torch.Tensor, value) -> None:
     dst.copy_(v)
 
 
-def _load_quantizer(quantizer, tree) -> None:
+def _load_quantizer(quantizer, tree, prep=None) -> None:
+    """The quantizer's ``q`` and ``est`` state, and its ``qprep`` constants
+    (the dict of ops/fp8.FP8_CONST_ROWS, each broadcast to the maxval's
+    shape) as the (6, C) ``qprep`` buffer, None where JAX has none."""
     if tree is None:
         return
     quantizer.load_state({k: np.array(v) for k, v in tree.get("q", {}).items()},
                          {k: np.array(v) for k, v in tree.get("est", {}).items()})
+    c = (prep or {}).get("c")
+    if c is None:
+        quantizer.qprep = None
+        return
+    shape = quantizer.maxval.reshape(-1).shape
+    quantizer.qprep = torch.stack([
+        torch.broadcast_to(torch.as_tensor(np.array(c[k]), dtype=torch.float32)
+                           .reshape(-1), shape)
+        for k in FP8_CONST_ROWS]).to(quantizer.maxval.device).contiguous()
 
 
 def _load_int8_bake(mod, tree) -> None:
@@ -326,6 +339,12 @@ def _load_int8_bake(mod, tree) -> None:
                                 dtype=torch.float32, device=dev).reshape(())
 
 
+def _load_quantizers(mod, quant, qprep, path) -> None:
+    for name in ("weight_q", "act_q"):
+        _load_quantizer(getattr(mod, name), _node(quant, path + [name]),
+                        _node(qprep, path + [name]))
+
+
 @torch.no_grad()
 def load_jax_variables(model: nn.Module, variables: dict) -> None:
     """Load the JAX package's variables into the port's modules in place.
@@ -337,7 +356,10 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
     kernels (in, out) -> (out, in); ``gamma``/``beta`` -> ``bn_weight``/
     ``bn_bias``; ``batch_stats`` mean/var -> running_mean/var; ``quant``
     ``q``/``est`` -> quantizer and estimator buffers (FP8 ``maxval``... or
-    uniform ``delta``, ``zero_float``, ``signed``); ``baked/w_factor`` ->
+    uniform ``delta``, ``zero_float``, ``signed``; the estimators' carries,
+    the MSE search's ``search_grid`` / ``mses`` and the line search's
+    ``thresholds`` / ``losses`` / ``one_sided`` among them); ``qprep``
+    ``c`` -> the quantizer's ``qprep`` constants; ``baked/w_factor`` ->
     ``w_factor``; ``baked_int8`` -> ``w_int8`` (HWIO or (K, N) -> the int8
     kernels' (C, K) layout), ``w_delta``, ``w_signed``.  A ``QuantLayerNorm``
     takes ``scale``/``bias`` and its two quantizers; parameters of the model
@@ -349,6 +371,7 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
     quant = variables.get("quant", {})
     baked = variables.get("baked", {})
     baked_int8 = variables.get("baked_int8", {})
+    qprep = variables.get("qprep", {})
     if not isinstance(model, (QuantizedLayerBase, QuantLayerNorm)):
         for name, param in model.named_parameters(recurse=False):
             _copy(param, params[name])
@@ -369,9 +392,7 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
                 _copy(mod.running_var, s["var"])
             if mod.use_bias:
                 _copy(mod.bias, p["bias"])
-            q = _node(quant, path) or {}
-            _load_quantizer(mod.weight_q, q.get("weight_q"))
-            _load_quantizer(mod.act_q, q.get("act_q"))
+            _load_quantizers(mod, quant, qprep, path)
             wf = _node(baked, path + ["w_factor"])
             mod.w_factor = (None if wf is None else torch.tensor(
                 np.asarray(wf), dtype=torch.float32,
@@ -383,8 +404,7 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
                 raise KeyError(f"no params for {name!r}")
             _copy(mod.weight, p["scale"])
             _copy(mod.bias, p["bias"])
-            q = _node(quant, path) or {}
-            _load_quantizer(mod.weight_q, q.get("weight_q"))
-            _load_quantizer(mod.act_q, q.get("act_q"))
+            _load_quantizers(mod, quant, qprep, path)
         elif isinstance(mod, QuantizedActivation):
-            _load_quantizer(mod.act_q, _node(quant, path + ["act_q"]))
+            _load_quantizer(mod.act_q, _node(quant, path + ["act_q"]),
+                            _node(qprep, path + ["act_q"]))

@@ -21,7 +21,9 @@ to dw in a t=1 block; the expand output's factor to dw; dw's to project).
 Otherwise, and under folded BN (``fused_state`` returns None there, JAX
 nn/layers.py:795-799), the block runs layer by layer: the 1x1 convs on
 ``qmatmul``, the depthwise convs on ``qdwconv``.  The stem (Cin = 3) stays
-on the composed path, as in JAX.
+on the composed path, as in JAX.  A prepared block
+(nn/bake.prepare_inference) keeps its stages' constants as one ``(6, 4)``
+buffer.
 """
 
 from __future__ import annotations
@@ -37,6 +39,7 @@ from fp8_quantization_tpu_torch.nn.factored import (
     Factored, fadd, fmean, materialize, split)
 from fp8_quantization_tpu_torch.nn.layers import (
     QuantConv, QuantizedActivation, QuantLinear)
+from fp8_quantization_tpu_torch.nn.quantizers import preparing
 from fp8_quantization_tpu_torch.ops.kernels import qblock
 
 # (expand ratio t, channels c, repeats n, stride s), the reference's table
@@ -76,6 +79,10 @@ class QuantInvertedResidual(nn.Module):
                                  config=config)
         if self.use_res:
             self.block_act = QuantizedActivation(block_act_config or config)
+        # the qblock route's (6, 4) stage constants, stored by the prepare
+        # pass (nn/bake.prepare_inference) with the stages' methods
+        self.register_buffer("prep_consts", None)
+        self._prep_methods = None
 
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False,
@@ -119,14 +126,20 @@ class QuantInvertedResidual(nn.Module):
         final = stb if self.use_res else stp
         emit = (out == "factored" and final["a_method"] != "none"
                 and final["factored_ok"])
-        dummy = torch.zeros((6, 1), device=xv.device)
-        consts = torch.cat([dummy if st is None or st["a_consts"] is None
-                            else st["a_consts"] for st in stages], dim=1)
+        methods = tuple("none" if st is None else st["a_method"]
+                        for st in stages)
+        if (self.prep_consts is not None and self._prep_methods == methods
+                and not preparing(self)):
+            consts = self.prep_consts
+        else:
+            dummy = torch.zeros((6, 1), device=xv.device)
+            consts = torch.cat([dummy if st is None or st["a_consts"] is None
+                                else st["a_consts"] for st in stages], dim=1)
+            if preparing(self):
+                self.prep_consts, self._prep_methods = consts, methods
         cfg = qblock.FusedBlockConfig(
             expand=st1 is not None, stride=self.stride, use_res=self.use_res,
-            emit_norm=emit,
-            methods=tuple("none" if st is None else st["a_method"]
-                          for st in stages))
+            emit_norm=emit, methods=methods)
         y = qblock.fused_inverted_residual(
             xv.to(torch.bfloat16).contiguous(),
             None if st1 is None else st1["w"], std["w"], stp["w"],

@@ -18,7 +18,8 @@ JAX model does when ``_conv_fused_state`` returns None (there lines
 146-157, and nn/layers.py:795-799); the block tails and the tied avgpool
 quantizer then exchange ``Factored`` integers ``xint - zp``.  The
 ``LSQ_paper`` preset (fp32 block activations, an untied avgpool) is not
-ported yet and raises.
+ported yet and raises.  In a prepared model (nn/bake.prepare_inference)
+the stem kernel takes the stem's stored fold and output-quant constants.
 """
 
 from __future__ import annotations

@@ -32,6 +32,17 @@ the bake multiplies by exactly 1 and the shift is beta: the identity.
 so evaluating afterwards with ``quant_w=False`` runs unquantized weights
 (ROADMAP.md, section C); the int8 bake is the one to use there, and the
 model is evaluated with ``quant_w=True`` as before.
+
+``prepare_inference`` mirrors the JAX function of that name (there lines
+199-225): after calibration (and after the bake) one fixed-mode forward on
+an example input, with the ``quant_w`` / ``quant_a`` the deployment will
+use, stores every layer's fixed-mode scalar algebra (nn/layers.py,
+nn/quantizers.py) so that later forwards read it instead of recomputing
+it, with bit-identical results.  ``prepare_for_deployment`` is the bake,
+the prepare pass (``quant_w=False``) and nothing else;
+``prepare_for_deployment_host`` runs it on the host CPU and puts the model
+back on its device.  Calibrating afterwards leaves the prepared constants
+stale: run the prepare pass again.
 """
 
 from __future__ import annotations
@@ -41,6 +52,8 @@ from torch import nn
 
 from fp8_quantization_tpu_torch.nn.layers import (
     QuantizedLayerBase, QuantLayerNorm, int8_datapath)
+
+EXAMPLE_SHAPE = (1, 64, 64, 3)     # deep enough for every model's strides
 
 
 @torch.no_grad()
@@ -86,3 +99,44 @@ def bake_int8_weights(model: nn.Module) -> nn.Module:
                 and int8_datapath(layer.config)):
             layer.w_int8, layer.w_delta, layer.w_signed = layer.int8_weights()
     return model
+
+
+@torch.no_grad()
+def prepare_inference(model: nn.Module, example_input: torch.Tensor, *,
+                      quant_w: bool = True, quant_a: bool = True) -> nn.Module:
+    """Freeze the fixed-mode scalar algebra of ``model`` in place (one
+    fixed-mode forward on ``example_input``, whose values do not matter);
+    evaluate afterwards with the same ``quant_w`` / ``quant_a``.  Returns
+    the model.  Calibrating afterwards leaves the constants stale: run this
+    again."""
+    modules = list(model.modules())
+    for m in modules:
+        m._preparing = True
+    try:
+        model(example_input, mode="fixed", quant_w=quant_w, quant_a=quant_a)
+    finally:
+        for m in modules:
+            m._preparing = False
+    return model
+
+
+def prepare_for_deployment(model: nn.Module, example_input: torch.Tensor, *,
+                           quant_a: bool = True) -> nn.Module:
+    """``bake_weights`` then ``prepare_inference(quant_w=False)``: evaluate
+    the model with ``quant_w=False`` afterwards."""
+    bake_weights(model)
+    return prepare_inference(model, example_input, quant_w=False,
+                             quant_a=quant_a)
+
+
+def prepare_for_deployment_host(model: nn.Module, example_shape=EXAMPLE_SHAPE,
+                                *, quant_a: bool = True) -> nn.Module:
+    """``prepare_for_deployment`` run on the host CPU (the kernels' plain
+    versions), the model then moved back to the device it was on.  The
+    constants are then the CPU's: where its log2 / exp2 round otherwise
+    than the card's, they differ from what the card computes unprepared;
+    ``prepare_for_deployment`` on the card keeps the card's."""
+    device = next(model.parameters()).device
+    model.cpu()
+    prepare_for_deployment(model, torch.zeros(example_shape), quant_a=quant_a)
+    return model.to(device)

@@ -93,9 +93,12 @@ def make_layer_config(
     act_range_method: str | RangeEstimators = RangeEstimators.running_minmax,
     percentile: Optional[float] = None,
     act_momentum: Optional[float] = None,
+    num_candidates: Optional[int] = None,
+    act_num_candidates: Optional[int] = None,
     fp8_maxval: Optional[float] = None,
     fp8_mantissa_bits: int = 4,
     fp8_set_maxval: bool = False,
+    fp8_mse_include_mantissa_bits: bool = True,
     fp8_allow_unsigned: bool = False,
     quantize_input: bool = False,
     int8_mxu: bool = False,
@@ -104,7 +107,10 @@ def make_layer_config(
     **not_ported,
 ) -> LayerQuantConfig:
     """Build a LayerQuantConfig from the JAX package's flag values; the same
-    qmethod and FP8 options feed weight and act quantizers."""
+    qmethod and FP8 options feed weight and act quantizers.  The MSE grid
+    has ``num_candidates`` points for the weights and
+    ``act_num_candidates`` (else ``num_candidates``) for the activations,
+    111 when neither is given."""
     for name, value in not_ported.items():
         if name not in _NOT_PORTED:
             raise TypeError(f"unknown option {name!r}")
@@ -119,6 +125,7 @@ def make_layer_config(
                              scale_domain=scale_domain,
                              mantissa_bits=fp8_mantissa_bits, maxval=fp8_maxval,
                              set_maxval=fp8_set_maxval,
+                             mse_include_mantissa_bits=fp8_mse_include_mantissa_bits,
                              allow_unsigned=fp8_allow_unsigned)
 
     act_kwargs = {} if act_momentum is None else {"momentum": act_momentum}
@@ -126,8 +133,11 @@ def make_layer_config(
         weight_quant=_qspec(qmethod, n_bits, per_channel_weights),
         act_quant=_qspec(act_qmethod, n_bits_act or n_bits, False),
         weight_range=EstimatorSpec(kind=RangeEstimators(weight_range_method),
-                                   percentile=percentile),
+                                   percentile=percentile,
+                                   num_candidates=num_candidates),
         act_range=EstimatorSpec(kind=RangeEstimators(act_range_method),
-                                percentile=percentile, **act_kwargs),
+                                percentile=percentile,
+                                num_candidates=act_num_candidates or num_candidates,
+                                **act_kwargs),
         quantize_input=quantize_input, engine=engine, int8_mxu=int8_mxu,
         bn_mode=bn_mode)

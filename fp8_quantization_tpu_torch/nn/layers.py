@@ -61,6 +61,19 @@ datapath do.  JAX's bf16 engine instead takes the ``Factored`` value
 unquantized (there lines 1001-1004, 1235-1238) and its ``pallas`` engine
 quantizes the norm with this layer's step (ROADMAP.md section C).
 
+Prepared layers (nn/bake.prepare_inference, JAX nn/bake.py:199-263): the
+prepare pass runs one fixed-mode forward in which each layer stores the
+scalar algebra it computes, and later fixed-mode forwards read it back:
+the quantizers' constants (nn/quantizers.py: ``qprep``, ``kprep``), the
+fold ``(scale, shift)`` (``prep_fold``, taken only when the layer sees the
+same kind of weight and input factor as in the prepare pass), the
+in-kernel weight quantizer's constants (``prep_w_consts``) and the int8
+routes' scalars (``prep_int8_w_delta``, ``prep_int8_scalars``).  Each is
+what the unprepared forward computes, so the logits stay bit-identical.
+Calibrating afterwards leaves them stale until the prepare pass runs
+again.  Under the int8 datapath the port also freezes the integer
+constants, which JAX recomputes.
+
 Not ported, and rejected where they would be selected: cast fast paths, f8
 storage, space-to-depth stems, grouped convs other than depthwise, the int8
 datapath with depthwise convs (nn/config.py or the layers raise).
@@ -78,12 +91,11 @@ from fp8_quantization_tpu_torch.nn import factored
 from fp8_quantization_tpu_torch.nn.activations import get_activation
 from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
 from fp8_quantization_tpu_torch.nn.factored import Factored
-from fp8_quantization_tpu_torch.nn.quantizers import Quantizer
+from fp8_quantization_tpu_torch.nn.quantizers import Quantizer, preparing
 from fp8_quantization_tpu_torch.ops import int8 as int8_ops
 from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
 from fp8_quantization_tpu_torch.ops.kernels import (
     qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8, qstem)
-from fp8_quantization_tpu_torch.ops.kernels.common import pack_act_consts
 from fp8_quantization_tpu_torch.ops.quantizer import QMethod
 from fp8_quantization_tpu_torch.ops.uniform import (
     _scale_from_delta, int_sym_consts)
@@ -114,7 +126,7 @@ def out_quant(config: LayerQuantConfig, quantizer: Quantizer, quant_a: bool):
     kernels (``common.pack_act_consts``): "fp8" or "int_asym", or "none"
     when it does not quantize."""
     if quant_a and config.quant_a:
-        return pack_act_consts(quantizer.spec, quantizer.state())
+        return quantizer.act_consts()
     return "none", None
 
 
@@ -179,6 +191,12 @@ class QuantizedLayerBase(nn.Module):
         self.register_buffer("w_int8", None)
         self.register_buffer("w_delta", None)
         self.register_buffer("w_signed", None)
+        # what the prepare pass stores (see the module docstring)
+        self.register_buffer("prep_fold", None)
+        self.register_buffer("prep_w_consts", None)
+        self.register_buffer("prep_int8_w_delta", None)
+        self.register_buffer("prep_int8_scalars", None)
+        self._prep_fold_key = None
         self._operand_cache = {}
 
     # ---- shared pieces ----------------------------------------------------
@@ -279,6 +297,19 @@ class QuantizedLayerBase(nn.Module):
         return x, w, None
 
     def _fold(self, w_factor, x_factor):
+        """``_fold_values``, or in a prepared layer the (scale, shift) the
+        prepare pass stored for the same kind of factors (a weight factor
+        or none, an input factor or none)."""
+        key = (w_factor is None, x_factor is None)
+        if preparing(self):
+            scale, shift = self._fold_values(w_factor, x_factor)
+            self.prep_fold = torch.stack([scale.expand_as(shift), shift])
+            self._prep_fold_key = key
+        elif self.prep_fold is None or self._prep_fold_key != key:
+            return self._fold_values(w_factor, x_factor)
+        return self.prep_fold[0], self.prep_fold[1]
+
+    def _fold_values(self, w_factor, x_factor):
         """(scale, shift) of fixed-mode inference, per output channel:
         ``y*scale + shift == ((y*w_factor)*x_factor)*bn_inv + bn_shift`` (or
         ``+ bias``), with ``scale = (w_factor*x_factor)*bn_inv``.  The bf16
@@ -349,14 +380,33 @@ class QuantizedLayerBase(nn.Module):
                                      (self.features,)).contiguous()
         return w_delta, st["signed"].to(torch.float32).reshape(())
 
-    def _int8_weight_state(self):
-        """(w, w_delta, signed): the baked int8 grid, or else the float32
-        (C, K) weight that the route quantizes (JAX ``_int8_weight_state``)."""
+    def _int8_weight(self):
+        """The baked int8 grid, or else the float32 (C, K) weight that the
+        route quantizes (JAX ``_int8_weight_state``)."""
         if self.w_int8 is not None:
-            return self.w_int8, self.w_delta, self.w_signed
-        w = self._operand("int8", lambda w: self._int8_matrix(w)
-                          .to(torch.float32).contiguous())
-        return (w, *self._int8_quant_state())
+            return self.w_int8
+        return self._operand("int8", lambda w: self._int8_matrix(w)
+                             .to(torch.float32).contiguous())
+
+    def _int8_scalars(self):
+        """(w_delta (C,), [0, signed, a_delta, a_zero, 0]): the weight's
+        step (baked or from its quantizer) and the input quantizer's
+        scalars; the prepared ones when there are."""
+        if self.prep_int8_scalars is not None and not preparing(self):
+            return self.prep_int8_w_delta, self.prep_int8_scalars
+        if self.w_int8 is not None:
+            w_delta, signed = self.w_delta, self.w_signed
+        else:
+            w_delta, signed = self._int8_quant_state()
+        spec, st = self.config.act_quant, self.act_q.state()
+        a_delta = _scale_from_delta(st["delta"].reshape(()), spec.scale_domain,
+                                    spec.eps)
+        zero = torch.zeros_like(signed)
+        scalars = torch.stack([zero, signed, a_delta,
+                               st["zero_float"].reshape(()), zero])
+        if preparing(self):
+            self.prep_int8_w_delta, self.prep_int8_scalars = w_delta, scalars
+        return w_delta, scalars
 
     @torch.no_grad()
     def int8_weights(self):
@@ -378,21 +428,15 @@ class QuantizedLayerBase(nn.Module):
         """Everything an int8 route needs: the weight, its (w_delta,
         w_scalars) and the input quantizer's (a_delta, a_zero, a_scalars),
         the folded (scale, shift) and the kernels' config fields."""
-        w, w_delta, signed = self._int8_weight_state()
-        spec, st = self.config.act_quant, self.act_q.state()
-        a_delta = _scale_from_delta(st["delta"].reshape(()), spec.scale_domain,
-                                    spec.eps)
-        a_zero = st["zero_float"].reshape(())
+        w_delta, s = self._int8_scalars()
         scale, shift = self._fold(None, None)
         return dict(
-            w=w, w_delta=w_delta, signed=signed,
-            w_scalars=torch.stack([torch.zeros_like(signed), signed]),
-            a_delta=a_delta, a_zero=a_zero,
-            a_scalars=torch.stack([a_delta, a_zero, torch.zeros_like(a_delta)]),
+            w=self._int8_weight(), w_delta=w_delta, signed=s[1],
+            w_scalars=s[0:2], a_delta=s[2], a_zero=s[3], a_scalars=s[2:5],
             scale=scale.contiguous(), shift=shift.contiguous(),
             kernel_cfg=dict(activation=self.activation,
                             n_bits=self.config.weight_quant.n_bits,
-                            act_n_bits=spec.n_bits))
+                            act_n_bits=self.config.act_quant.n_bits))
 
     def _int8_fused(self) -> bool:
         return (self.config.engine == "fused"
@@ -428,6 +472,25 @@ class QuantizedLayerBase(nn.Module):
             self._operand_cache[kind] = hit
         return hit[1]
 
+    def _w_kernel_consts(self, w2d, features, mode):
+        """(6, N) constants of the weight quantizer for qmatmul's in-kernel
+        weight quant: FP8 or int_sym; the prepared ones when there are."""
+        if self.prep_w_consts is not None and not preparing(self):
+            return self.prep_w_consts
+        cfg = self.config
+        if cfg.weight_quant.is_fp8:
+            _, wst = self.weight_q(w2d, mode=mode, out="state")
+            w_c = fp8_consts(torch.broadcast_to(wst["maxval"].reshape(-1),
+                                                (features,)),
+                             wst["mantissa_bits"], cfg.weight_quant.n_bits,
+                             wst["sign_bits"])
+        else:
+            w_c = int_sym_consts(*self._int8_quant_state(),
+                                 cfg.weight_quant.n_bits)
+        if preparing(self):
+            self.prep_w_consts = w_c
+        return w_c
+
     def _fused_matmul(self, x2d, features, mode, quant_w, quant_a, x_factor,
                       out):
         """The qmatmul kernel route (JAX ``_pallas_forward``) for an (M, K)
@@ -439,17 +502,8 @@ class QuantizedLayerBase(nn.Module):
         w2d = self._kernel().reshape(features, -1)
         if quant_w and cfg.quant_w:
             wop, w_factor = w2d.detach().contiguous(), None  # factor in kernel
-            if cfg.weight_quant.is_fp8:
-                _, wst = self.weight_q(w2d, mode=mode, out="state")
-                w_method = "fp8"
-                w_c = fp8_consts(torch.broadcast_to(wst["maxval"].reshape(-1),
-                                                    (features,)),
-                                 wst["mantissa_bits"],
-                                 cfg.weight_quant.n_bits, wst["sign_bits"])
-            else:
-                w_method = "int_sym"
-                w_c = int_sym_consts(*self._int8_quant_state(),
-                                     cfg.weight_quant.n_bits)
+            w_method = "fp8" if cfg.weight_quant.is_fp8 else "int_sym"
+            w_c = self._w_kernel_consts(w2d, features, mode)
         else:
             w_method, w_c = "none", None
             wop = self._operand("matmul", lambda w: w.reshape(features, -1)

@@ -244,9 +244,17 @@ def fp8_quantize_prepared(x: torch.Tensor, c: torch.Tensor, *,
     if c.shape[1] > 1:
         shape = [1] * x.ndim
         shape[channel_axis] = c.shape[1]
-        lo, hi, bint, bfrac, g, factor = (r.reshape(shape) for r in c)
+        rows = (r.reshape(shape) for r in c)
     else:
-        lo, hi, bint, bfrac, g, factor = c[:, 0]
+        rows = c[:, 0]
+    return fp8_quantize_rows(x, *rows, normalized=normalized)
+
+
+def fp8_quantize_rows(x, lo, hi, bint, bfrac, g, factor, *,
+                      normalized: bool = False) -> torch.Tensor:
+    """``fp8_quantize_prepared`` with the six constant rows given apart,
+    each broadcasting against ``x`` (the MSE search passes a chunk of
+    candidates along a leading axis)."""
     xc = torch.minimum(torch.maximum(x, lo), hi)
     ls = torch.clamp(_floor_log2_exact(torch.abs(xc) * bfrac) + bint, min=1.0)
     pow2 = _exp2_int_exact(ls + g)

@@ -1,9 +1,13 @@
 """Functional quantizer: static spec + state dict + pure transforms.
 
-Mirrors ``fp8_quantization_tpu/ops/quantizer.py`` (lines 103-208 and
-256-285): ``QMethod``, ``QuantizerSpec``, ``init_state``, ``apply``,
-``apply_factored`` and ``set_quant_range`` for ``fp_quantizer`` and the
-uniform methods (``ops/uniform.py``).  Uniform state is ``delta`` with
+Mirrors ``fp8_quantization_tpu/ops/quantizer.py`` (lines 103-285):
+``QMethod``, ``QuantizerSpec``, ``init_state``, ``apply``,
+``apply_factored``, ``fixed_consts``, ``apply_prepared`` and
+``set_quant_range`` for ``fp_quantizer`` and the uniform methods
+(``ops/uniform.py``).  ``fixed_consts`` freezes a fixed FP8 quantizer's
+scalar algebra into the ``(6, C)`` layout of ``ops/fp8.fp8_consts``, which
+the kernels also read; the IEEE-f8 cast constants of JAX's
+``cast_fastpath`` are not ported (nn/config.py raises for those flags).  Uniform state is ``delta`` with
 ``signed`` (symmetric) or ``zero_float`` (asymmetric); ``apply_factored``
 gives the bare integers ``x_int`` (symmetric) or ``x_int - zp``
 (asymmetric), exact in bfloat16, and the step as the factor.
@@ -44,6 +48,7 @@ class QuantizerSpec:
     mantissa_bits: int = 4
     maxval: float | None = None          # None -> format default maxval
     set_maxval: bool = False
+    mse_include_mantissa_bits: bool = True   # the MSE search's mantissa sweep
     allow_unsigned: bool = False
 
     def replace(self, **kw) -> "QuantizerSpec":
@@ -134,6 +139,33 @@ def apply_factored(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
         x, maxval, state["mantissa_bits"], n_bits=spec.n_bits,
         sign_bits=state["sign_bits"], normalized=True)
     return x_norm, maxval / (2.0 - 2.0 ** -M)
+
+
+def fixed_consts(spec: QuantizerSpec, state: QuantState):
+    """The scalar algebra of a fixed FP8 quantizer, computed once: a ``(6,
+    C)`` float32 tensor (rows ``ops/fp8.FP8_CONST_ROWS``, ``C`` = 1 per
+    tensor), or None for the uniform methods (JAX prepares FP8 only)."""
+    if not spec.is_fp8:
+        return None
+    return fp8_ops.fp8_consts(state["maxval"], state["mantissa_bits"],
+                              spec.n_bits, state["sign_bits"])
+
+
+def apply_prepared(spec: QuantizerSpec, consts: torch.Tensor, x: torch.Tensor,
+                   *, channel_axis: int = -1, factored: bool = False):
+    """Fixed-mode FP8 fake-quant from ``fixed_consts`` output: the values of
+    ``apply`` (or, with ``factored``, ``apply_factored``) on the same
+    state, with no scalar algebra per call.  The factor of a per-tensor
+    quantizer is a scalar, of a per-channel one ``(C,)`` broadcast along
+    ``channel_axis``."""
+    assert spec.is_fp8, "the prepared path is FP8 only"
+    if not factored:
+        return fp8_ops.fp8_quantize_prepared(x, consts, channel_axis=channel_axis)
+    x_norm = fp8_ops.fp8_quantize_prepared(x, consts, channel_axis=channel_axis,
+                                           normalized=True)
+    factor = consts[5, 0] if consts.shape[1] == 1 else broadcast(
+        consts[5], x.ndim, channel_axis)
+    return x_norm, factor
 
 
 def set_quant_range(spec: QuantizerSpec, state: QuantState, x_min,

@@ -7,7 +7,10 @@ exponent exactly, so outputs may differ by one grid step where a value sits
 within an ulp of a bin boundary: fused_quant_matmul is held to
 rtol=atol=1e-5 (tests/test_pallas_qmatmul.py), the conv and the stem to
 rtol=atol=2e-2 with at least 98% of elements exact
-(tests/test_pallas_qconv.py, tests/test_pallas_qstem.py).
+(tests/test_pallas_qconv.py, tests/test_pallas_qstem.py).  Each case also
+runs at other mantissa widths M (the MSE search's vote gives each
+quantizer its own): 2, 3 and 5, and for the quant-matmul also 1 and 6, at
+the same tolerances.
 """
 
 import jax.numpy as jnp
@@ -60,6 +63,18 @@ MATMUL_CASES = {
 
 @pytest.mark.parametrize("case", list(MATMUL_CASES))
 def test_qmatmul_plain_matches_pallas(case):
+    _qmatmul_case(case, 4.0)
+
+
+@pytest.mark.parametrize("mbits", [1.0, 2.0, 3.0, 5.0, 6.0])
+@pytest.mark.parametrize("case", list(MATMUL_CASES))
+def test_qmatmul_plain_matches_pallas_other_formats(case, mbits):
+    _qmatmul_case(case, mbits)
+
+
+def _qmatmul_case(case, mbits):
+    """One MATMUL_CASES case with weight and output quantizers of M =
+    ``mbits``."""
     M, K, N, wm, act, relu, emit, bn = MATMUL_CASES[case]
     rng = np.random.RandomState(len(case))
     x = rng.standard_normal((M, K)).astype(np.float32)
@@ -71,17 +86,17 @@ def test_qmatmul_plain_matches_pallas(case):
     scale = (rng.uniform(0.5, 1.5, N) if bn else np.ones(N)).astype(np.float32)
     shift = (rng.standard_normal(N) * 0.1).astype(np.float32)
     y_max = float(np.abs(x @ w).max() * scale.max() * 0.6)
-    ja, ta = _act(y_max, 4.0)
+    ja, ta = _act(y_max, mbits)
     activation = "relu" if relu else None
     jcfg = JMatCfg(weight_method=wm, act_method="fp8" if act else "none",
                    activation=activation, emit_norm=emit)
     ref = j_matmul(jnp.asarray(x), jnp.asarray(w), jnp.asarray(wmax),
-                   jnp.asarray([4.0, 1.0]), ja, jnp.asarray(scale),
+                   jnp.asarray([mbits, 1.0]), ja, jnp.asarray(scale),
                    jnp.asarray(shift), cfg=jcfg, interpret=True)
     tcfg = qmatmul.FusedQuantMatmulConfig(
         weight_method=wm, act_method="fp8" if act else "none",
         activation=activation, emit_norm=emit)
-    w_c = fp8_consts(_t(wmax), 4.0) if wm == "fp8" else None
+    w_c = fp8_consts(_t(wmax), mbits) if wm == "fp8" else None
     out = qmatmul.fused_quant_matmul(
         _t(x), _t(w.T), w_c, ta if act else None, _t(scale), _t(shift),
         cfg=tcfg)
@@ -100,6 +115,17 @@ CONV_CASES = {
 
 @pytest.mark.parametrize("case", list(CONV_CASES))
 def test_qconv3x3_plain_matches_pallas(case):
+    _qconv_case(case, 4.0)
+
+
+@pytest.mark.parametrize("mbits", [2.0, 3.0, 5.0])
+@pytest.mark.parametrize("case", list(CONV_CASES))
+def test_qconv3x3_plain_matches_pallas_other_formats(case, mbits):
+    _qconv_case(case, mbits)
+
+
+def _qconv_case(case, mbits):
+    """One CONV_CASES case with an output quantizer of M = ``mbits``."""
     stride, res, emit = CONV_CASES[case]
     n, h, w_, cin, cout = 2, 8, 8, 16, 8
     rng = np.random.RandomState(3 + stride)
@@ -112,7 +138,7 @@ def test_qconv3x3_plain_matches_pallas(case):
     ho = (h - 1) // stride + 1
     residual = (rng.standard_normal((n, ho, ho, cout)).astype(np.float32)
                 if res else None)
-    ja, ta = _act(6.0, 4.0)
+    ja, ta = _act(6.0, mbits)
     ref = j_conv(jnp.asarray(x), jnp.asarray(w), ja, jnp.asarray(scale),
                  jnp.asarray(shift),
                  None if residual is None else jnp.asarray(residual),
@@ -131,6 +157,17 @@ def test_qconv3x3_plain_matches_pallas(case):
 @pytest.mark.parametrize("s", [32, 64])
 @pytest.mark.parametrize("emit", [False, True], ids=["value", "norm"])
 def test_qstem_plain_matches_pallas(s, emit):
+    _qstem_case(s, emit, 4.0)
+
+
+@pytest.mark.parametrize("mbits", [2.0, 3.0, 5.0])
+@pytest.mark.parametrize("emit", [False, True], ids=["value", "norm"])
+def test_qstem_plain_matches_pallas_other_formats(emit, mbits):
+    _qstem_case(32, emit, mbits)
+
+
+def _qstem_case(s, emit, mbits):
+    """The stem at S x S with an output quantizer of M = ``mbits``."""
     n, cin, cout = 2, 3, 16
     rng = np.random.RandomState(s)
     x = rng.standard_normal((n, s, s, cin)).astype(np.float32)
@@ -138,7 +175,7 @@ def test_qstem_plain_matches_pallas(s, emit):
                    .astype(jnp.bfloat16), np.float32)
     scale = rng.uniform(0.5, 1.5, cout).astype(np.float32)
     shift = (rng.standard_normal(cout) * 0.1).astype(np.float32)
-    ja, ta = _act(4.0, 4.0)
+    ja, ta = _act(4.0, mbits)
     ref = j_stem(jnp.asarray(x), jnp.asarray(w), ja, jnp.asarray(scale),
                  jnp.asarray(shift),
                  cfg=JStemCfg(act_method="fp8", emit_norm=emit), interpret=True)

@@ -57,11 +57,12 @@ def _bf16(a):
     return np.asarray(jnp.asarray(a).astype(jnp.bfloat16), np.float32)
 
 
-def _one_grid_step(out, ref, maxval, min_exact=0.98, min_near=1.0):
+def _one_grid_step(out, ref, maxval, min_exact=0.98, min_near=1.0,
+                   mbits=MBITS):
     """At least ``min_near`` of the elements within one FP8 grid step of the
     larger magnitude, and at least ``min_exact`` of them equal."""
     out, ref = np.asarray(out, np.float32), np.asarray(ref, np.float32)
-    step = (np.maximum(np.abs(out), np.abs(ref)) * 2.0 ** -MBITS
+    step = (np.maximum(np.abs(out), np.abs(ref)) * 2.0 ** -mbits
             + maxval * 2.0 ** -10)
     near = (np.abs(out - ref) <= step).mean()
     assert near >= min_near, (near, np.abs(out - ref).max())
@@ -69,10 +70,11 @@ def _one_grid_step(out, ref, maxval, min_exact=0.98, min_near=1.0):
     assert exact >= min_exact, exact
 
 
-def _act(maxval):
-    """(JAX act scalars, port (6, 1) constants) of one E3M4 act quantizer."""
-    return (np.asarray([maxval, MBITS, 1.0], np.float32),
-            fp8_consts(torch.tensor([maxval], dtype=torch.float32), MBITS))
+def _act(maxval, mbits=MBITS):
+    """(JAX act scalars, port (6, 1) constants) of one act quantizer, E3M4
+    unless ``mbits`` says otherwise."""
+    return (np.asarray([maxval, mbits, 1.0], np.float32),
+            fp8_consts(torch.tensor([maxval], dtype=torch.float32), mbits))
 
 
 # ---- (a) the depthwise kernel ------------------------------------------------
@@ -80,13 +82,25 @@ def _act(maxval):
 @pytest.mark.parametrize("stride", [1, 2], ids=["s1", "s2"])
 @pytest.mark.parametrize("emit", [False, True], ids=["value", "norm"])
 def test_qdwconv3x3_plain_matches_pallas(stride, emit):
+    _qdwconv_case(stride, emit, MBITS)
+
+
+@pytest.mark.parametrize("mbits", [2.0, 3.0, 5.0])
+@pytest.mark.parametrize("stride", [1, 2], ids=["s1", "s2"])
+@pytest.mark.parametrize("emit", [False, True], ids=["value", "norm"])
+def test_qdwconv3x3_plain_matches_pallas_other_formats(stride, emit, mbits):
+    _qdwconv_case(stride, emit, mbits)
+
+
+def _qdwconv_case(stride, emit, mbits):
+    """The depthwise kernel with an output quantizer of M = ``mbits``."""
     c = 32
     rng = np.random.RandomState(41 + stride)
     x = _bf16(rng.normal(0, 1, (2, 8, 8, c)))
     w = _bf16(rng.normal(0, 0.3, (3, 3, c)))
     scale = rng.uniform(0.5, 1.5, c).astype(np.float32)
     shift = rng.normal(0, 0.1, c).astype(np.float32)
-    ja, ta = _act(4.0)
+    ja, ta = _act(4.0, mbits)
     ref = j_dwconv(jnp.asarray(x), jnp.asarray(w), jnp.asarray(ja),
                    jnp.asarray(scale), jnp.asarray(shift),
                    cfg=JConvCfg(act_method="fp8", activation="relu6",
@@ -134,6 +148,21 @@ BLOCK_CASES = {
 @pytest.mark.parametrize("emit", [False, True], ids=["value", "norm"])
 @pytest.mark.parametrize("case", list(BLOCK_CASES))
 def test_qblock_plain_matches_pallas(case, emit):
+    _qblock_case(case, emit, MBITS)
+
+
+@pytest.mark.parametrize("mbits", [2.0, 3.0, 5.0])
+@pytest.mark.parametrize("emit", [False, True], ids=["value", "norm"])
+@pytest.mark.parametrize("case", list(BLOCK_CASES))
+def test_qblock_plain_matches_pallas_other_formats(case, emit, mbits):
+    _qblock_case(case, emit, mbits)
+
+
+def _qblock_case(case, emit, mbits):
+    """One BLOCK_CASES block, its four quantizers of M = ``mbits``; held as
+    at E3M4 (> 99% within 1e-5, all within one grid step), with a 95%
+    bit-equal share in place of 99% for a float32 output at another
+    width."""
     expand, stride, use_res, cout, methods = BLOCK_CASES[case]
     rng = np.random.RandomState(len(case))
     n, h, cin = 2, 8, 16
@@ -147,8 +176,8 @@ def test_qblock_plain_matches_pallas(case, emit):
     sd, bd = vec(hid, 0.5, 1.5), vec(hid, -0.1, 0.1)
     s2, b2 = vec(cout, 0.5, 1.5), vec(cout, -0.1, 0.1)
     maxvals = (6.0, 6.0, 4.0, 5.0)
-    ja = np.asarray([[m, MBITS, 1.0] for m in maxvals], np.float32)
-    ta = torch.cat([_act(m)[1] for m in maxvals], dim=1)
+    ja = np.asarray([[m, mbits, 1.0] for m in maxvals], np.float32)
+    ta = torch.cat([_act(m, mbits)[1] for m in maxvals], dim=1)
     xf = np.float32(0.7)
     jcfg = JBlockCfg(expand=expand, stride=stride, use_res=use_res,
                      emit_norm=emit, methods=methods, imgs_per_block=2)
@@ -173,7 +202,10 @@ def test_qblock_plain_matches_pallas(case, emit):
     near = np.isclose(out, ref, rtol=1e-5, atol=1e-5)
     assert near.mean() > 0.99, near.mean()
     final = maxvals[3 if use_res else 2] * (2.0 ** -10 if not emit else 1.0)
-    _one_grid_step(out, ref, final, min_exact=0.99)
+    # float32 outputs at other widths: the Pallas body rounds the product
+    # of grid value and factor in another place, so fewer are bit-equal
+    min_exact = 0.99 if emit or mbits == MBITS else 0.95
+    _one_grid_step(out, ref, final, min_exact=min_exact, mbits=mbits)
 
 
 # ---- (c) folded BN -------------------------------------------------------------

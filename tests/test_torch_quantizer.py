@@ -133,7 +133,7 @@ def test_minmax_estimators_same_state(kind, per_channel):
         x = _data(30 + seed, shape=(8, 50))
         x_cn = x if per_channel else x.reshape(1, -1)
         js, jlo, jhi, _ = jest.update(jspec, jqs, js, jnp.asarray(x_cn))
-        ts, tlo, thi = test_.update(tspec, tqs, ts, torch.from_numpy(x_cn))
+        ts, tlo, thi, _ = test_.update(tspec, tqs, ts, torch.from_numpy(x_cn))
         _eq(jlo, tlo)
         _eq(jhi, thi)
         for k in js:
@@ -160,11 +160,14 @@ def test_grid_oracles_match():
 
 
 def test_not_ported_methods_raise():
-    """What still raises: the MSE search, and LSQ gradient scaling (QAT) in
-    the uniform quantizers, which are ported for PTQ."""
+    """What still raises: LSQ gradient scaling (QAT) in the uniform
+    quantizers, which are ported for PTQ, and the QAT flags of
+    make_layer_config."""
+    from fp8_quantization_tpu_torch.nn.config import make_layer_config
     from fp8_quantization_tpu_torch.ops import uniform as tuni
     with pytest.raises(NotImplementedError, match="QAT"):
         tuni.quantize_uniform_symmetric(torch.ones(3), torch.tensor(0.1),
                                         torch.tensor(1), 8, grad_scaling=True)
-    with pytest.raises(NotImplementedError):
-        test_.EstimatorSpec(kind=test_.RangeEstimators.MSE)
+    for flag in ("fp8_learn_maxval", "fp8_learn_mantissa_bits"):
+        with pytest.raises(NotImplementedError, match="QAT"):
+            make_layer_config(**{flag: True})
