@@ -7,11 +7,12 @@ It drives the slices of the port, each on engine 'fused': ResNet-18 FP8
 PTQ, ResNet-18 INT8 PTQ (--int8-mxu --quantize-input), MobileNetV2 FP8 PTQ
 under --bn-mode fp32_after and folded, ViT-S/16 FP8 PTQ, INT8 PTQ with
 output quant (BASELINE.json config 2) on ResNet-18 and MobileNetV2 in both
-bn modes, ResNet-18 FP8 with --quantize-input, and ResNet-18 FP8 with the
-MSE range search (BASELINE.json config 3).  Every slice deploys through
-the CLI's prepare pass (nn/bake.prepare_inference), and every phase that
-runs a slice's models after it (fused against bf16, throughput, profile)
-runs the prepared forward.  Phases, one JSON line each (a failed phase
+bn modes, ResNet-18 FP8 with --quantize-input, ResNet-18 FP8 with the MSE
+range search (BASELINE.json config 3; at E4M3 and E5M2 too), and ResNet-50
+FP8 PTQ, with ResNet-18's space-to-depth stem beside.  Every slice deploys
+through the CLI's prepare pass (nn/bake.prepare_inference), and every phase
+that runs a slice's models after it (fused against bf16, throughput,
+profile) runs the prepared forward.  Phases, one JSON line each (a failed phase
 prints "ok": false and the script exits 1 without the final result line):
 
 1. env        - card name and power limit (nvidia-smi), torch and nvcc
@@ -219,11 +220,30 @@ prints "ok": false and the script exits 1 without the final result line):
                 equal to the deployed model's.  The line prints the seconds
                 of the calibration and of the format search and the
                 histogram of the FP8 formats voted, deployed and compared.
-                A throughput turn and a profile each.
+                A throughput turn and a profile each.  mse_e5m2_slice: the
+                same at E5M2 (--fp8-mantissa-bits 2, no sweep), without a
+                throughput turn or a profile.
+13. r50_*      - ResNet-50 FP8 (stages 3, 4, 6, 3, bottleneck blocks, full
+                width, 1000 classes, random bottleneck-scaled weights from
+                the seed, models/convert.random_resnet_state_dict) as phase
+                4: exactly 1 qstem, 16 qconv3x3 and 37 qmatmul launches per
+                forward (32 block 1x1 convs, 4 downsamples, the fc), fused
+                against bf16, input-dependent share > 0.01, a throughput
+                turn and a profile.  r50_check holds the first fused
+                forward's distinct qmatmul and qconv3x3 calls (recorded)
+                against their plain versions as phase 2 and times them as
+                phase 6, warm and cold, with their sums per ResNet-50
+                forward (the kernels line's rows stay ResNet-18's).
+14. s2d_check  - ResNet-18 FP8 with stem_s2d=True and 'input' (fed
+                space_to_depth(x)) from phase 4's calibrated state, baked
+                and prepared: bit-equal to unprepared, against phase 4's
+                default-stem model at its measures, 0 qstem, 16 qconv3x3
+                and 4 qmatmul launches per forward; images/s of 'input'
+                beside the default stem.
 
 Then a {"kernels": [...]} line (launches: the sum over the main-path runs
-of phases 4, 5, 8, 9, 10 and 12; times: the FP8 forwards of phases 6, 8
-and 9), the nvidia-smi name/power-limit line, and last
+of phases 4, 5, 8, 9, 10, 12 and 13; times: the FP8 forwards of phases 6,
+8 and 9), the nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {...}}.  The plain versions run with TF32 off.
 """
 
@@ -1238,6 +1258,9 @@ def logit_step(quantizer, a, b):
 # the unprepared copy of each slice's fused model (prepare_models), by the
 # slice's label, for the profile phases
 UNPREPARED = {}
+# the calibrated state of phase 4's fused model before its bake
+# (phase_slice, label "slice"), for s2d_check
+CALIBRATED = {}
 
 
 def prepare_models(label, fused, bf16, batches, quant_w=False):
@@ -1306,6 +1329,8 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
         parity = image_net.build_model(image_net.build_parser().parse_args(
             cli + ["--engine", "parity"]))
         parity.load_state_dict(fused.state_dict())
+    if label == "slice":
+        CALIBRATED[label] = copy.deepcopy(fused.state_dict())
     bake_weights(fused)
     bake_weights(bf16)
     prep_ok, prep_line = prepare_models(label, fused, bf16, batches)
@@ -1513,6 +1538,19 @@ MSE_CLI_ARGS = ["validate-quantized", "--device", "cuda", "--engine", "fused",
 MSE_E4M3_CLI_ARGS = MSE_CLI_ARGS + ["--fp8-mantissa-bits", "3",
                                     "--no-fp8-mse-include-mantissa-bits"]
 RESNET_FP8_UNBAKED = {"qmatmul": 4}
+# config 3's E5M2 half: the range search alone at M = 2 (no mantissa sweep),
+# then the format search as in mse_slice
+MSE_E5M2_CLI_ARGS = MSE_CLI_ARGS + ["--fp8-mantissa-bits", "2",
+                                    "--no-fp8-mse-include-mantissa-bits"]
+# the main path's FP8 config on ResNet-50 (bench.py's ResNet-50 row without
+# its TPU deploy flags), random torchvision-layout bottleneck weights from
+# the seed (models/convert.random_resnet_state_dict's bottleneck scales)
+R50_CLI_ARGS = [a if a != "resnet18_quantized" else "resnet50_quantized"
+                for a in CLI_ARGS]
+# launches per ResNet-50 FP8 forward: the stem, the 16 3x3 convs, and on
+# qmatmul the 32 block 1x1 convs, the 4 downsamples (layer1_0's at stride 1,
+# 64 -> 256) and the fc
+RESNET50_FP8_LAUNCHES = {"qstem": 1, "qconv3x3": 16, "qmatmul": 37}
 # fused and bf16 under --quantize-input: every layer quantizes its input
 # on an E3M4 grid and the logits are not quantized, so a last-bit
 # difference anywhere (another summation order) flips bins downstream and
@@ -1548,17 +1586,18 @@ MNV2_LAUNCHES = {"fp32_after": {"qblock": 17, "qmatmul": 2},
 
 class Capture:
     """Records, while active, the first call of each distinct shape and
-    config of the depthwise, block, attention and quant-matmul wrappers as
-    the model calls them, with the number of calls (uses): the check phases
-    replay them."""
+    config of the depthwise, block, attention, quant-matmul and 3x3-conv
+    wrappers as the model calls them, with the number of calls (uses): the
+    check phases replay them."""
 
     def __init__(self):
         from fp8_quantization_tpu_torch.ops.kernels import (
-            attention, qblock, qdwconv, qmatmul)
+            attention, qblock, qconv, qdwconv, qmatmul)
         self.targets = [(qdwconv, "fused_quant_dwconv3x3", "qdwconv3x3"),
                         (qblock, "fused_inverted_residual", "qblock"),
                         (attention, "flash_mha", "flash_mha"),
-                        (qmatmul, "fused_quant_matmul", "qmatmul")]
+                        (qmatmul, "fused_quant_matmul", "qmatmul"),
+                        (qconv, "fused_quant_conv3x3", "qconv3x3")]
         self.calls = {}            # kernel -> {key: [args, kwargs, uses]}
 
     def __enter__(self):
@@ -2393,6 +2432,167 @@ def int_phases(results, slice_out):
         ("mnv2_int8_check", lambda: phase_mnv2_int8_check(int_results, int_captures))]
 
 
+# ---- ResNet-50 and the s2d stem -------------------------------------------------
+
+def recorded_case(kname, args, kw):
+    """(name, call, plain call, consts, bytes, operations, library fn) of
+    one recorded qmatmul or qconv3x3 call."""
+    import torch
+    import torch.nn.functional as F
+    from fp8_quantization_tpu_torch.ops.kernels import qconv as qc
+    from fp8_quantization_tpu_torch.ops.kernels import qmatmul as qm
+    cfg = kw["cfg"]
+    out_size = 2 if cfg.emit_norm else 4
+    if kname == "qmatmul":
+        x, w, _, a_c = args[:4]
+        (m, k), n = x.shape, w.shape[0]
+        nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+                  + m * n * out_size)
+        xl, wl = x.to(torch.bfloat16), w.to(torch.bfloat16).t()
+        return (f"qmatmul {m}x{k}x{n} {cfg.activation}",
+                lambda: qm.fused_quant_matmul(*args, **kw),
+                lambda: qm.qmatmul_plain(*args, cfg), a_c, nbytes, 2 * m * n * k,
+                lambda: torch.matmul(xl, wl))
+    x, w, a_c = args[:3]
+    residual = args[5] if len(args) > 5 else None
+    nb, h, wd, cin = x.shape
+    cout = w.shape[0]
+    ho, wo = qc.out_hw(h, wd, cfg.stride)
+    nbytes = x.numel() * 2 + w.numel() * 2 + nb * ho * wo * cout * out_size
+    xl = x.permute(0, 3, 1, 2)                          # NCHW view, channels-last
+    wl = w.reshape(cout, 3, 3, cin).permute(0, 3, 1, 2).contiguous(
+        memory_format=torch.channels_last)
+    return (f"qconv3x3 {h}x{wd}x{cin}->{cout} s{cfg.stride}",
+            lambda: qc.fused_quant_conv3x3(*args, **kw),
+            lambda: qc.qconv3x3_plain(*args[:5], residual, cfg),
+            a_c, nbytes, 2 * nb * ho * wo * 9 * cin * cout,
+            lambda: F.conv2d(xl, wl, stride=cfg.stride, padding=1))
+
+
+def phase_r50_check(captures):
+    """qmatmul and qconv3x3 against their plain versions on the first fused
+    ResNet-50 forward's distinct calls (recorded by r50_slice: 37 qmatmul
+    calls, among them M = 200,704 at K = 64 and K = 2,048 at M = 3,136; 16
+    qconv3x3 calls in 7 shapes, three of them stride 2 with Cin = Cout),
+    held as phase 2 and timed as phase 6, warm and with the L2 flushed
+    (cold_ms); one line each and a line with each kernel's sums per
+    ResNet-50 forward.  They are not added to the kernels line's rows,
+    which hold ResNet-18's forward."""
+    from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
+    ok_all = True
+    for kname, n_uses in (("qmatmul", RESNET50_FP8_LAUNCHES["qmatmul"]),
+                          ("qconv3x3", RESNET50_FP8_LAUNCHES["qconv3x3"])):
+        recorded = list(captures.get(kname, {}).values())
+        ok_k = sum(u for _, _, u in recorded) == n_uses
+        total = dict(ms=0.0, ms_cold=0.0, plain_ms=0.0, library_ms=0.0, bound_ms=0.0)
+        for args, kw, uses in recorded:
+            name, call, plain, consts, nbytes, flops, lib = recorded_case(kname, args, kw)
+            out = call()
+            with no_tf32():
+                ref = plain()
+            ok, err, exact = grid_check(out, ref, consts, kw["cfg"].emit_norm,
+                                        method=kw["cfg"].act_method)
+            del out, ref
+            ms, cms, lms = kernel_ms(call), cold_ms(call), kernel_ms(lib)
+            with no_tf32():
+                pms = kernel_ms(plain, iters=2, warmup=1)
+            bms = bound_ms(nbytes, flops)
+            emit({"phase": "r50_check", "case": name, "ok": ok, "max_abs_err": err,
+                  "exact": exact, "ms": ms, "ms_cold": cms, "plain_ms": pms,
+                  "library_ms": lms, "bound_ms": bms, "bound_by": bound_by(nbytes, flops),
+                  "uses_per_forward": uses})
+            ok_k &= ok
+            for key, val in (("ms", ms), ("ms_cold", cms), ("plain_ms", pms),
+                             ("library_ms", lms), ("bound_ms", bms)):
+                total[key] += uses * val
+        emit({"phase": "r50_check", "case": f"{kname} per ResNet-50 forward",
+              "ok": ok_k, "distinct_calls": len(recorded), **total})
+        ok_all &= ok_k
+    return ok_all
+
+
+def phase_s2d_check(slice_out):
+    """ResNet-18 FP8 with the space-to-depth stem (stem_s2d=True, and
+    'input' fed space_to_depth(x)), each built from phase 4's calibrated
+    state (CALIBRATED["slice"]), baked and prepared (on an example of the
+    geometry it takes, QuantizedResNet.input_shape): prepared logits bit-equal to
+    unprepared; held against phase 4's prepared default-stem fused model on
+    its batches at phase 4's measures (top-1 on >= 99% of images, >= 98% of
+    logits within one step of the fc's output quantizer); per forward 0
+    qstem (the s2d stem rides the general conv path, as in JAX), 16
+    qconv3x3 and 4 qmatmul launches (not added to the kernels line).  Then
+    images/s of the 'input' model (its images s2d'd before the timed
+    forwards) beside the default stem, in turns; a record, not a claim."""
+    import copy
+    import statistics
+    from itertools import islice
+
+    import torch
+    from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
+    from fp8_quantization_tpu_torch.models.resnet import resnet18_quantized
+    from fp8_quantization_tpu_torch.nn.bake import (
+        bake_weights, prepare_inference)
+    from fp8_quantization_tpu_torch.ops import kernels
+    from fp8_quantization_tpu_torch.ops.s2d import space_to_depth
+    default = slice_out["fused"]
+    _, val = make_dataloaders(None, batch_size=BATCH, seed=SEED)
+    xs = [torch.as_tensor(x, device="cuda") for x, _ in islice(iter(val), EVAL_BATCHES)]
+    with torch.no_grad():
+        refs = [default(x, mode="fixed", quant_w=False) for x in xs]
+    ok_all, models = True, {}
+    for mode in (True, "input"):
+        feed = space_to_depth if mode == "input" else (lambda x: x)
+        model = resnet18_quantized(default.config, device="cuda", stem_s2d=mode).eval()
+        model.load_state_dict(CALIBRATED["slice"])
+        bake_weights(model)
+        unprepared = copy.deepcopy(model)
+        example = torch.zeros(model.input_shape((1, 224, 224, 3)), device="cuda")
+        prepare_inference(model, example, quant_w=False)
+        kernels.reset_launch_counts()
+        with torch.no_grad():
+            outs = [model(feed(x), mode="fixed", quant_w=False) for x in xs]
+        torch.cuda.synchronize()
+        counts = kernels.launch_counts()
+        want = expected_launches({"qconv3x3": 16, "qmatmul": 4}, len(xs))
+        with torch.no_grad():
+            equal = [bool(torch.equal(unprepared(feed(x), mode="fixed", quant_w=False), a))
+                     for x, a in zip(xs, outs)]
+        agree, within, exact = [], [], []
+        for a, b in zip(outs, refs):
+            step = logit_step(default.fc.act_q, a, b)
+            agree.append(float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+            within.append(float(((a - b).abs() <= step).float().mean()))
+            exact.append(float((a == b).float().mean()))
+        finite = all(bool(torch.isfinite(a).all()) for a in outs)
+        ok = (counts == want and finite and all(equal) and min(agree) >= 0.99
+              and min(within) >= 0.98)
+        emit({"phase": "s2d_check", "case": f"stem_s2d={mode}", "ok": ok,
+              "launches": counts, "expected_launches": want,
+              "prepared_logits_bit_equal": equal, "logits_finite": finite,
+              "top1_agree_vs_default_stem": agree,
+              "logits_within_one_step_vs_default_stem": within,
+              "logits_exact_vs_default_stem": exact})
+        ok_all &= ok
+        models[mode] = model
+        del unprepared
+    x = torch.randn(BATCH, 224, 224, 3, device="cuda",
+                    generator=torch.Generator(device="cuda").manual_seed(1))
+    runs = (("default_stem", default, x), ("s2d_input", models["input"], space_to_depth(x)))
+    turns = {name: [] for name, _, _ in runs}
+    with torch.no_grad():
+        for order in range(2 * THROUGHPUT_TURNS):
+            for name, model, xin in (runs if order % 2 == 0 else runs[::-1]):
+                turns[name].append(time_ms(lambda: model(xin, mode="fixed", quant_w=False),
+                                           iters=THROUGHPUT_ITERS))
+    rows = {}
+    for name, ms in turns.items():
+        med = statistics.median(ms)
+        rows[f"{name}_b{BATCH}"] = {"ms": ms, "median_ms": med,
+                                    "images_per_s": BATCH / med * 1e3}
+    emit({"phase": "s2d_check", "case": "throughput", "ok": ok_all, **rows})
+    return ok_all
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2410,7 +2610,7 @@ def main():
 
     results = {}
     slice_out = {}
-    captures, vit_captures = {}, {}
+    captures, vit_captures, r50_captures = {}, {}, {}
 
     def run_slice():
         ok, fused, bf16 = phase_slice(results)
@@ -2470,6 +2670,20 @@ def main():
                 slice_out[k], k.replace("slice", "profile"),
                 unprepared=UNPREPARED.get(k)))]
 
+    def run_r50_slice():
+        ok, slice_out["r50"], slice_out["r50_bf16"] = phase_slice(
+            results, "r50_slice", R50_CLI_ARGS, RESNET50_FP8_LAUNCHES, "fc", 0.01,
+            r50_captures)
+        return ok
+
+    r50_phases = [
+        ("r50_slice", run_r50_slice),
+        ("r50_throughput", lambda: phase_throughput(
+            slice_out["r50"], slice_out["r50_bf16"], "r50_throughput", (BATCH,)) or True),
+        ("r50_profile", lambda: phase_profile(
+            slice_out["r50"], "r50_profile", unprepared=UNPREPARED.get("r50_slice"))),
+        ("r50_check", lambda: phase_r50_check(r50_captures))]
+
     phases = [("check", lambda: phase_check_and_time(results)),
               ("mbits_check", lambda: phase_mbits_check(results)),
               ("int8_check", lambda: phase_int8_check(results)),
@@ -2490,6 +2704,8 @@ def main():
     phases += vit_phases
     phases += [("batch256_block_attn", lambda: phase_batch256_block_attn(captures))]
     phases += mse_phases
+    phases += [("mse_e5m2_slice", lambda: run_mse_slice("mse_e5m2_slice", MSE_E5M2_CLI_ARGS))]
+    phases += r50_phases + [("s2d_check", lambda: phase_s2d_check(slice_out))]
     for name, fn in phases:
         t0 = time.perf_counter()
         try:

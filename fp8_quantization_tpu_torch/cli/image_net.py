@@ -16,7 +16,10 @@ sweep and vote, ``--num-candidates``, ``--act-num-candidates``,
 ``--fp8-mse-include-mantissa-bits``) and ``line_search``;
 ``--format-search-passes N`` then reallocates each FP8 quantizer's
 mantissa bits by N sweeps of coordinate descent on the logits' error
-(calibration/format_search.py) before the bake.  Under the int8 datapath
+(calibration/format_search.py) before the bake.  ``--stem-s2d`` (ResNet
+only, JAX there lines 125-128, 179-181) runs the stem as the exact
+space-to-depth 4x4/1 conv (ops/s2d.py); the images stay (N, 224, 224,
+3).  Under the int8 datapath
 (``--int8-mxu --quantize-input`` with symmetric weights and asymmetric
 inputs) the bake is ``bake_int8_weights`` and the model is evaluated with
 ``quant_w=True``, as ``bench.py`` does (lines 107-111): the JAX CLI's
@@ -134,6 +137,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "mantissa bits minimizing the logits' error against "
                         "float32 (calibration/format_search.py)")
     p.add_argument("--max-eval-batches", type=int, default=None)
+    _bool_flag(p, "stem-s2d", False,
+               "ResNet only: run the 7x7/2 stem as the exact space-to-depth "
+               "4x4/1 conv (ops/s2d.py)")
     return parser
 
 
@@ -179,8 +185,9 @@ def build_model(args):
         convert.load_timm_vit(
             model, checkpoint or convert.random_vit_state_dict(args.seed))
         return model.eval()
+    extra = {"stem_s2d": True} if args.stem_s2d else {}   # as the JAX CLI
     model = QUANT_ARCHITECTURES[arch](config, quant_setup=args.quant_setup,
-                                      device=device)
+                                      device=device, **extra)
     convert.load_torchvision_resnet(
         model, checkpoint or convert.random_resnet_state_dict(
             args.seed, model.stage_sizes, "50" in arch))
@@ -211,7 +218,7 @@ def prepare_for_eval(model, cal_data, device, quant_w: bool,
                      quant_a: bool) -> None:
     """The prepare pass on the ``bf16`` and ``fused`` engines, on the
     device, with the flags the evaluation uses and a zero image of the
-    data's size (it changes no value)."""
+    data's size, in the geometry the model takes (it changes no value)."""
     import numpy as np
     import torch
 
@@ -219,8 +226,8 @@ def prepare_for_eval(model, cal_data, device, quant_w: bool,
     if model.config.engine in ("bf16", "fused"):
         first = next(iter(cal_data))
         shape = np.shape(first[0] if isinstance(first, (tuple, list)) else first)
-        prepare_inference(model, torch.zeros((1,) + tuple(shape[1:]),
-                                             device=device),
+        example = model.input_shape((1,) + tuple(shape[1:]))
+        prepare_inference(model, torch.zeros(example, device=device),
                           quant_w=quant_w, quant_a=quant_a)
         log.info("prepared: fixed-mode constants frozen")
 

@@ -190,6 +190,10 @@ class QuantizedMobileNetV2(nn.Module):
         self.classifier = QuantLinear(last_channel, num_classes, use_bias=True,
                                       config=fc_config or config)
 
+    def input_shape(self, image_shape) -> tuple:
+        """The shape of the input this model takes: the NHWC images'."""
+        return tuple(image_shape)
+
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False):
         kw = dict(mode=mode, quant_w=quant_w, quant_a=quant_a, train_bn=train_bn)
@@ -243,7 +247,8 @@ def mobilenet_v2_configs(base: LayerQuantConfig,
         return cfgs
     if setup == "LSQ_paper":
         raise NotImplementedError("the LSQ_paper preset is not ported yet "
-                                  "(ROADMAP.md, section A, item 12)")
+                                  "(ROADMAP.md, section A, item "
+                                  "\"MobileNetV2 LSQ_paper\")")
     raise ValueError(f"Quantization setup '{setup}' not supported for "
                      "MobilenetV2")
 

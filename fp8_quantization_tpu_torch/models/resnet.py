@@ -16,15 +16,27 @@ as in JAX (``_conv_fused_state`` returns None).  Under the int8 datapath (nn/lay
 the layer route (``ops/int8.int8_conv``) and ``fmax_pool`` instead, as the
 JAX model does when ``_conv_fused_state`` returns None (there lines
 146-157, and nn/layers.py:795-799); the block tails and the tied avgpool
-quantizer then exchange ``Factored`` integers ``xint - zp``.  The
-``LSQ_paper`` preset (fp32 block activations, an untied avgpool) is not
-ported yet and raises.  In a prepared model (nn/bake.prepare_inference)
-the stem kernel takes the stem's stored fold and output-quant constants.
+quantizer then exchange ``Factored`` integers ``xint - zp``.  In a
+prepared model (nn/bake.prepare_inference) the stem kernel takes the
+stem's stored fold and output-quant constants.
+
+``stem_s2d`` (there lines 98-105): ``True`` runs the stem as the exact
+space-to-depth 4x4/1 conv (ops/s2d.py, nn/layers.QuantConv), ``'input'``
+takes images that arrive s2d'd, (N, H/2, W/2, 4C), with the checkpoint
+and quantizer state of the default stem.  Either way the stem rides the
+general conv path and its maxpool, as in JAX (there line 147): the qstem
+kernel is not launched.
+
+The ``quant_setup`` presets are JAX's (there lines 268-299), ``LSQ_paper``
+included: input quantization everywhere, an 8-bit stem with fp32
+activations, fp32 block-output quantizers, an 8w/8a fc and an untied
+avgpool.  Under ``fused`` its 1x1 convs and fc run qmatmul with the input
+quantized in the kernel, its stem and 3x3 convs the bf16 path (nn/layers).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 from torch import nn
@@ -84,13 +96,14 @@ class QuantizedResNet(nn.Module):
                  fc_config: Optional[LayerQuantConfig] = None,
                  last_block_config: Optional[LayerQuantConfig] = None,
                  block_act_config: Optional[LayerQuantConfig] = None,
-                 tie_avgpool: bool = True):
+                 tie_avgpool: bool = True, stem_s2d: Union[bool, str] = False):
         super().__init__()
         self.config = config
         self.stage_sizes = tuple(stage_sizes)
         self.tie_avgpool = tie_avgpool
+        self.stem_s2d = stem_s2d
         self.stem = QuantConv(3, 64, 7, 2, 3, bn=True, activation="relu",
-                              config=stem_config or config)
+                              config=stem_config or config, s2d=stem_s2d)
         block_cls = BottleneckFeatures if bottleneck else BasicBlockFeatures
         widths = (64, 128, 256, 512)
         num_blocks = sum(self.stage_sizes)
@@ -117,10 +130,19 @@ class QuantizedResNet(nn.Module):
         self.fc = QuantLinear(in_feats, num_classes, use_bias=True,
                               config=fc_config or config)
 
+    def input_shape(self, image_shape) -> tuple:
+        """The shape of the input this model takes for NHWC images of
+        ``image_shape``: under ``stem_s2d='input'`` they come
+        space-to-depth'd, (N, H/2, W/2, 4C) (ops/s2d.py)."""
+        n, h, w, c = image_shape
+        if self.stem_s2d == "input":
+            return (n, h // 2, w // 2, 4 * c)
+        return tuple(image_shape)
+
     def _fused_stem(self, x, mode, quant_w, quant_a, train_bn, out):
         """The qstem kernel route, or None for the layer + pool path."""
         if (mode != "fixed" or train_bn or self.config.engine != "fused"
-                or isinstance(x, Factored) or x.ndim != 4
+                or isinstance(x, Factored) or self.stem_s2d or x.ndim != 4
                 or x.shape[1] != x.shape[2] or x.shape[-1] > 4):
             return None
         st = self.stem.fused_state(quant_w, quant_a)
@@ -181,21 +203,31 @@ def resnet_configs(base: LayerQuantConfig, quant_setup: Optional[str]) -> dict:
         cfgs["fc_config"] = base.with_weight_bits(8).fp32_acts()
         return cfgs
     if setup == "LSQ_paper":
-        raise NotImplementedError("the LSQ_paper preset is not ported yet "
-                                  "(ROADMAP.md, section A, item 6)")
+        # input quantization everywhere; the stem 8-bit weights and fp32
+        # activations; the block-output quantizers fp32 (the convs' input
+        # quantizers stay); the fc 8w/8a; the avgpool untied
+        qin = base.replace(quantize_input=True)
+        cfgs["config"] = qin
+        cfgs["stem_config"] = qin.with_weight_bits(8).fp32_acts()
+        cfgs["block_act_config"] = qin.fp32_acts()
+        cfgs["fc_config"] = qin.with_weight_bits(8).with_act_bits(8)
+        cfgs["tie_avgpool"] = False
+        return cfgs
     raise ValueError(f"Quantization setup '{setup}' not supported for Resnet")
 
 
 def resnet18_quantized(base: LayerQuantConfig, quant_setup: Optional[str] = None,
-                       num_classes: int = 1000, device="cuda") -> QuantizedResNet:
-    return QuantizedResNet((2, 2, 2, 2), False, num_classes,
+                       num_classes: int = 1000, device="cuda",
+                       stem_s2d: Union[bool, str] = False) -> QuantizedResNet:
+    return QuantizedResNet((2, 2, 2, 2), False, num_classes, stem_s2d=stem_s2d,
                            **resnet_configs(base, quant_setup)).to(
                                resolve_device(device))
 
 
 def resnet50_quantized(base: LayerQuantConfig, quant_setup: Optional[str] = None,
-                       num_classes: int = 1000, device="cuda") -> QuantizedResNet:
-    return QuantizedResNet((3, 4, 6, 3), True, num_classes,
+                       num_classes: int = 1000, device="cuda",
+                       stem_s2d: Union[bool, str] = False) -> QuantizedResNet:
+    return QuantizedResNet((3, 4, 6, 3), True, num_classes, stem_s2d=stem_s2d,
                            **resnet_configs(base, quant_setup)).to(
                                resolve_device(device))
 

@@ -121,7 +121,7 @@ class QuantizedViT(nn.Module):
                 raise NotImplementedError(
                     "the ViT on the int8 datapath (the padded token layout, "
                     "the key mask, PrequantS8) is not ported yet (ROADMAP.md, "
-                    "section A, item 13)")
+                    "section A, item \"ViT INT8\")")
         self.config, self.depth = config, depth
         self.patch_embed = QuantConv(3, dim, patch_size, stride=patch_size,
                                      padding=0, use_bias=True, config=config)
@@ -134,6 +134,10 @@ class QuantizedViT(nn.Module):
         self.ln_final = QuantLayerNorm(dim, config)
         self.head = QuantLinear(dim, num_classes, use_bias=True,
                                 config=head_config or config)
+
+    def input_shape(self, image_shape) -> tuple:
+        """The shape of the input this model takes: the NHWC images'."""
+        return tuple(image_shape)
 
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False):

@@ -132,11 +132,14 @@ def prepare_for_deployment(model: nn.Module, example_input: torch.Tensor, *,
 def prepare_for_deployment_host(model: nn.Module, example_shape=EXAMPLE_SHAPE,
                                 *, quant_a: bool = True) -> nn.Module:
     """``prepare_for_deployment`` run on the host CPU (the kernels' plain
-    versions), the model then moved back to the device it was on.  The
-    constants are then the CPU's: where its log2 / exp2 round otherwise
-    than the card's, they differ from what the card computes unprepared;
-    ``prepare_for_deployment`` on the card keeps the card's."""
+    versions) on a zero example of images of ``example_shape`` (in the
+    geometry the model takes, ``model.input_shape``), the model then moved back
+    to the device it was on.  The constants are then the CPU's: where its
+    log2 / exp2 round otherwise than the card's, they differ from what the
+    card computes unprepared; ``prepare_for_deployment`` on the card keeps
+    the card's."""
     device = next(model.parameters()).device
     model.cpu()
-    prepare_for_deployment(model, torch.zeros(example_shape), quant_a=quant_a)
+    prepare_for_deployment(model, torch.zeros(model.input_shape(example_shape)),
+                           quant_a=quant_a)
     return model.to(device)

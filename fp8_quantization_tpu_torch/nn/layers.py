@@ -74,9 +74,17 @@ Calibrating afterwards leaves them stale until the prepare pass runs
 again.  Under the int8 datapath the port also freezes the integer
 constants, which JAX recomputes.
 
+The space-to-depth stem (``QuantConv(s2d=...)``, JAX there lines
+772-782, 1008-1019): a 7x7/2 conv with padding 3 runs as the exact 4x4/1
+conv on the s2d input (ops/s2d.py), the rearrangement applied after the
+weight fake-quant on the general conv path, which it always takes (not
+the int8 route: there lines 845-847).  Under ``s2d='input'`` the input
+arrives s2d'd, (N, H/2, W/2, 4C), and the weight keeps its (F, C, 7, 7)
+geometry.
+
 Not ported, and rejected where they would be selected: cast fast paths, f8
-storage, space-to-depth stems, grouped convs other than depthwise, the int8
-datapath with depthwise convs (nn/config.py or the layers raise).
+storage, grouped convs other than depthwise, the int8 datapath with
+depthwise convs (nn/config.py or the layers raise).
 """
 
 from __future__ import annotations
@@ -93,6 +101,7 @@ from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
 from fp8_quantization_tpu_torch.nn.factored import Factored
 from fp8_quantization_tpu_torch.nn.quantizers import Quantizer, preparing
 from fp8_quantization_tpu_torch.ops import int8 as int8_ops
+from fp8_quantization_tpu_torch.ops import s2d as s2d_ops
 from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
 from fp8_quantization_tpu_torch.ops.kernels import (
     qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8, qstem)
@@ -101,6 +110,9 @@ from fp8_quantization_tpu_torch.ops.uniform import (
     _scale_from_delta, int_sym_consts)
 
 FUSED_ACTIVATIONS = (None, "relu", "relu6")
+# QuantConv's space-to-depth stem (ops/s2d.py, JAX nn/layers.py:772-782):
+# off, the input transformed in the layer, or the input already s2d'd
+S2D_MODES = (False, True, "input")
 
 
 def int8_datapath(cfg: LayerQuantConfig) -> bool:
@@ -537,7 +549,9 @@ class QuantConv(QuantizedLayerBase):
                  activation: Optional[str] = None, use_bias: bool = False,
                  config: LayerQuantConfig = LayerQuantConfig(),
                  groups: int = 1, bn_eps: float = 1e-5,
-                 bn_momentum: float = 0.1):
+                 bn_momentum: float = 0.1, s2d=False):
+        if s2d not in S2D_MODES:
+            raise ValueError(f"s2d must be one of {S2D_MODES}, got {s2d!r}")
         if groups != 1 and not groups == in_features == features:
             raise NotImplementedError("grouped convs other than depthwise "
                                       "(groups == in_features == features) "
@@ -545,13 +559,15 @@ class QuantConv(QuantizedLayerBase):
         if groups != 1 and int8_datapath(config):
             raise NotImplementedError(
                 "the int8 datapath with depthwise convs (MobileNetV2 INT8) "
-                "is not ported yet (ROADMAP.md, section A, item 12)")
+                "is not ported yet (ROADMAP.md, section A, item "
+                "\"int8 depthwise\")")
         super().__init__((features, in_features // groups, kernel_size,
                           kernel_size),
                          features, config, activation, bn, use_bias, bn_eps,
                          bn_momentum)
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.groups = groups
+        self.s2d = s2d
 
     @property
     def depthwise(self) -> bool:
@@ -591,7 +607,8 @@ class QuantConv(QuantizedLayerBase):
         if mode == "fp32":
             mode, quant_w, quant_a = "fixed", False, False
         self._check_train_bn(train_bn)
-        if self._int8_ok(mode, train_bn, quant_w, quant_a):
+        # an s2d stem rides the general conv path (JAX nn/layers.py:845-847)
+        if not self.s2d and self._int8_ok(mode, train_bn, quant_w, quant_a):
             return self._int8_conv(factored.materialize(x))
         if self._quantizes_input(quant_a):
             x = factored.materialize(x)     # re-quantized, as on parity
@@ -623,14 +640,34 @@ class QuantConv(QuantizedLayerBase):
         if x_factor is None:
             x, x_factor = self._quant_in_engine(x, mode, quant_a)
         xm, wm, w_factor = self._engine_operands(x, mode, quant_w)
+        xm = xm.to(torch.float32)
+        if self._s2d_applies(xm):
+            # after the weight fake-quant (JAX nn/layers.py:1008-1019): an
+            # exact re-indexing, the input padded explicitly because
+            # F.conv2d pads symmetrically only
+            if self.s2d != "input":
+                xm = s2d_ops.space_to_depth(xm)
+            w2, (s, _), ((top, bottom), (left, right)) = (
+                s2d_ops.s2d_stem_kernel(wm.permute(2, 3, 1, 0)))
+            wm = w2.permute(3, 2, 0, 1)
+            xm, p = F.pad(xm, (0, 0, left, right, top, bottom)), 0
         # bf16-exact operands are exact in TF32 too (see module docstring)
         with torch.backends.cudnn.flags(
                 enabled=True, allow_tf32=self.config.engine != "parity"):
-            y = F.conv2d(xm.to(torch.float32).permute(0, 3, 1, 2), wm,
-                         stride=s, padding=p, groups=self.groups)
+            y = F.conv2d(xm.permute(0, 3, 1, 2), wm, stride=s, padding=p,
+                         groups=self.groups)
         y = self._affine_epilogue(y.permute(0, 2, 3, 1), w_factor, x_factor,
                                   mode, train_bn)
         return self._quant_out(y, mode, quant_a, out)
+
+    def _s2d_applies(self, x) -> bool:
+        """Whether this conv runs as the space-to-depth stem (JAX
+        nn/layers.py:1008-1014): a 7x7/2 conv with padding 3 on NHWC input
+        that arrives s2d'd (``'input'``) or has even H and W."""
+        return (bool(self.s2d) and self.kernel_size == 7 and self.stride == 2
+                and self.padding == 3 and self.groups == 1 and x.ndim == 4
+                and (self.s2d == "input"
+                     or (x.shape[1] % 2 == 0 and x.shape[2] % 2 == 0)))
 
     def _int8_matrix(self, w):
         return qconv_int8.weight_matrix(w)

@@ -534,7 +534,7 @@ def test_fused_rejects_what_its_kernels_do_not_carry():
     output quantizers off the int8 datapath now run on the kernels' plain
     versions and agree with 'bf16' (their own tests are in
     tests/test_torch_int_grids.py); the int8 datapath with a depthwise conv
-    still raises (ROADMAP.md, section A, item 12)."""
+    still raises (ROADMAP.md, section A, item "int8 depthwise")."""
     x = torch.randn(2, 8, 8, 16)
     cases = [dict(quantize_input=True),
              dict(qmethod="symmetric_uniform", act_qmethod="asymmetric_uniform")]

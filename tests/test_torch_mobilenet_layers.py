@@ -161,8 +161,7 @@ def test_qblock_plain_matches_pallas_other_formats(case, emit, mbits):
 def _qblock_case(case, emit, mbits):
     """One BLOCK_CASES block, its four quantizers of M = ``mbits``; held as
     at E3M4 (> 99% within 1e-5, all within one grid step), with a 95%
-    bit-equal share in place of 99% for a float32 output at another
-    width."""
+    bit-equal share in place of 99% for a float32 output at M = 2 and 3."""
     expand, stride, use_res, cout, methods = BLOCK_CASES[case]
     rng = np.random.RandomState(len(case))
     n, h, cin = 2, 8, 16
@@ -202,9 +201,13 @@ def _qblock_case(case, emit, mbits):
     near = np.isclose(out, ref, rtol=1e-5, atol=1e-5)
     assert near.mean() > 0.99, near.mean()
     final = maxvals[3 if use_res else 2] * (2.0 ** -10 if not emit else 1.0)
-    # float32 outputs at other widths: the Pallas body rounds the product
-    # of grid value and factor in another place, so fewer are bit-equal
-    min_exact = 0.99 if emit or mbits == MBITS else 0.95
+    # float32 outputs at M = 2 and 3: the Pallas tile's bin step,
+    # exp2(log_scales - M - 2^E + 1) (ops/pallas/qmatmul.py:94), reaches
+    # 2^-17 and 2^-32 there, where XLA's CPU exp2 is 9 and 1 ulps off
+    # (exact at M = 4 and 5's lowest bins, 2^-10 and 2^-7), so the tile is
+    # off the composed quantizer the port follows on 0.06-0.18% of values
+    # (ROADMAP.md section C, "Settled"), and the project sum carries them
+    min_exact = 0.99 if emit or mbits >= MBITS else 0.95
     _one_grid_step(out, ref, final, min_exact=min_exact, mbits=mbits)
 
 
