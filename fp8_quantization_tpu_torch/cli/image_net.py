@@ -65,13 +65,11 @@ def _bool_flag(p: argparse.ArgumentParser, name: str, default: bool, help_=""):
                    help=help_)
 
 
-def build_parser() -> argparse.ArgumentParser:
-    parser = argparse.ArgumentParser(prog="image_net")
-    sub = parser.add_subparsers(dest="command", required=True)
-    p = sub.add_parser("validate-quantized",
-                       help="PTQ: calibrate ranges, freeze, bake, evaluate")
+def _quant_options(p: argparse.ArgumentParser) -> None:
+    """The flags both commands share (JAX ``_quant_options``)."""
     p.add_argument("--images-dir", default=None,
-                   help="ImageNet root with val/ (synthetic data when omitted)")
+                   help="ImageNet root with val/ (and train/ for "
+                        "train-quantized); synthetic data when omitted")
     p.add_argument("--architecture", default="resnet18_quantized",
                    choices=["mobilenet_v2_quantized", "resnet18_quantized",
                             "resnet50_quantized", "vit_small_quantized"])
@@ -116,9 +114,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--fp8-maxval", type=float, default=None)
     p.add_argument("--fp8-mantissa-bits", type=int, default=4)
     _bool_flag(p, "fp8-set-maxval", False)
+    _bool_flag(p, "fp8-learn-maxval", False, "QAT: maxval learns")
+    _bool_flag(p, "fp8-learn-mantissa-bits", False,
+               "QAT: mantissa_bits learns")
     _bool_flag(p, "fp8-mse-include-mantissa-bits", True,
                "the MSE search also votes each quantizer's mantissa bits")
     _bool_flag(p, "fp8-allow-unsigned", False)
+    p.add_argument("--grad-estimator", default="ste",
+                   choices=["ste", "stoch_round", "ewgs", "stacked_sigmoid"],
+                   help="QAT: the rounding's gradient estimator")
     p.add_argument("--engine", default="parity",
                    choices=["parity", "bf16", "fused"],
                    help="parity=fp32 reference semantics, bf16=normalized-grid "
@@ -132,14 +136,76 @@ def build_parser() -> argparse.ArgumentParser:
                "s32 datapath (with --quantize-input)")
     _bool_flag(p, "bake-weights", True,
                "bake the quantized weights before evaluating (default on)")
-    p.add_argument("--format-search-passes", type=int, default=0,
-                   help="coordinate-descent sweeps over the FP8 quantizers' "
-                        "mantissa bits minimizing the logits' error against "
-                        "float32 (calibration/format_search.py)")
     p.add_argument("--max-eval-batches", type=int, default=None)
     _bool_flag(p, "stem-s2d", False,
                "ResNet only: run the 7x7/2 stem as the exact space-to-depth "
                "4x4/1 conv (ops/s2d.py)")
+
+
+def build_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(prog="image_net")
+    sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("validate-quantized",
+                       help="PTQ: calibrate ranges, freeze, bake, evaluate")
+    _quant_options(p)
+    _bool_flag(p, "reestimate-bn-stats", False,
+               "re-estimate BN statistics on 2% of the calibration batches "
+               "after calibrating")
+    p.add_argument("--format-search-passes", type=int, default=0,
+                   help="coordinate-descent sweeps over the FP8 quantizers' "
+                        "mantissa bits minimizing the logits' error against "
+                        "float32 (calibration/format_search.py)")
+
+    t = sub.add_parser("train-quantized",
+                       help="QAT: calibrate, fine-tune weights and ranges, "
+                            "then bake, prepare and evaluate")
+    _quant_options(t)
+    t.add_argument("--optimizer", default="SGD")
+    t.add_argument("--learning-rate", type=float, default=1e-3)
+    t.add_argument("--momentum", type=float, default=0.9)
+    t.add_argument("--weight-decay", type=float, default=0.0)
+    t.add_argument("--learning-rate-schedule", default=None,
+                   help="e.g. multistep:10:20 or cosine:0.01")
+    t.add_argument("--max-epochs", type=int, default=1)
+    _bool_flag(t, "sep-quant-optimizer", False,
+               "train the ranges with --quant-optimizer")
+    t.add_argument("--quant-optimizer", default="Adam")
+    t.add_argument("--quant-learning-rate", type=float, default=1e-5)
+    t.add_argument("--oscillations-dampen-weight", type=float, default=0.0,
+                   help="oscillation dampening strength (0 = off)")
+    t.add_argument("--oscillations-dampen-weight-final", type=float,
+                   default=None)
+    t.add_argument("--oscillations-dampen-anneal-start", type=float,
+                   default=0.25)
+    t.add_argument("--oscillations-freeze-threshold", type=float, default=0.0,
+                   help="freeze weights whose oscillation frequency EMA "
+                        "exceeds this (0 = off)")
+    t.add_argument("--oscillations-freeze-threshold-final", type=float,
+                   default=None)
+    t.add_argument("--oscillations-freeze-anneal-start", type=float,
+                   default=0.25)
+    t.add_argument("--oscillations-freeze-ema-momentum", type=float,
+                   default=0.99)
+    t.add_argument("--learn-ranges", dest="learn_ranges",
+                   action="store_true", default=True,
+                   help="learn the ranges through the gradient estimator "
+                        "(mode 'learn', the default)")
+    t.add_argument("--estimate-ranges-train", dest="learn_ranges",
+                   action="store_false",
+                   help="re-estimate the ranges on every training batch "
+                        "(mode 'calibrate_train')")
+    _bool_flag(t, "reestimate-bn-stats", True,
+               "re-estimate BN statistics on the training batches before "
+               "each evaluation")
+    t.add_argument("--reestimate-bn-batches", type=int, default=50,
+                   help="batches of the BN re-estimation (JAX: 50)")
+    _bool_flag(t, "grad-scaling", False, "LSQ gradient scaling (uniform)")
+    t.add_argument("--save-checkpoint-dir", default=None,
+                   help="not ported yet (raises)")
+    t.add_argument("--tb-logging-dir", default=None,
+                   help="metrics JSONL directory")
+    t.add_argument("--max-train-batches", type=int, default=None,
+                   help="cap the batches of each epoch")
     return parser
 
 
@@ -165,8 +231,12 @@ def build_model(args):
         act_num_candidates=args.act_num_candidates, fp8_maxval=args.fp8_maxval,
         fp8_mantissa_bits=args.fp8_mantissa_bits,
         fp8_set_maxval=args.fp8_set_maxval,
+        fp8_learn_maxval=args.fp8_learn_maxval,
+        fp8_learn_mantissa_bits=args.fp8_learn_mantissa_bits,
         fp8_mse_include_mantissa_bits=args.fp8_mse_include_mantissa_bits,
         fp8_allow_unsigned=args.fp8_allow_unsigned,
+        grad_scaling=getattr(args, "grad_scaling", False),
+        grad_estimator=args.grad_estimator,
         quantize_input=args.quantize_input, int8_mxu=args.int8_mxu,
         bn_mode=args.bn_mode, engine=args.engine)
     arch, device = args.architecture, resolve_device(args.device)
@@ -249,8 +319,7 @@ def validate_quantized(args) -> dict:
     import numpy as np
     import torch
 
-    from fp8_quantization_tpu_torch.calibration.calibrate import (
-        calibrate, evaluate)
+    from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
     from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
     from fp8_quantization_tpu_torch.device import resolve_device
 
@@ -268,12 +337,118 @@ def validate_quantized(args) -> dict:
               num_batches=args.num_est_batches, quant_w=args.weight_quant,
               quant_a=args.act_quant)
     log.info("calibration done (%d batches)", args.num_est_batches)
+    if args.reestimate_bn_stats:
+        from fp8_quantization_tpu_torch.training.qat import reestimate_bn_stats
+        n = max(1, int(0.02 * len(cal_data)))   # 2% of the batches, as JAX
+        reestimate_bn_stats(model, cal_data, num_batches=n)
+        log.info("BN stats re-estimated on %d batches", n)
     if args.format_search_passes > 0:
         format_search(model, cal_data, args, device)
+    return deploy_and_evaluate(model, args, cal_data, val_data, device)
+
+
+def deploy_and_evaluate(model, args, cal_data, val_data, device) -> dict:
+    """Bake, prepare and evaluate ``model`` as ``validate-quantized``
+    deploys it (on the engine it was built for)."""
+    from fp8_quantization_tpu_torch.calibration.calibrate import evaluate
     quant_w = bake_for_eval(model, args.weight_quant, args.bake_weights)
     prepare_for_eval(model, cal_data, device, quant_w, args.act_quant)
     return evaluate(model, val_data, device=device, quant_w=quant_w,
                     quant_a=args.act_quant, max_batches=args.max_eval_batches)
+
+
+def _oscillation_config(args, total_steps: int):
+    from fp8_quantization_tpu_torch.training.oscillation import (
+        OscillationConfig)
+    if not (args.oscillations_dampen_weight > 0
+            or args.oscillations_freeze_threshold > 0):
+        return None
+    return OscillationConfig(
+        dampen_weight=args.oscillations_dampen_weight,
+        dampen_weight_final=args.oscillations_dampen_weight_final,
+        dampen_anneal_start=args.oscillations_dampen_anneal_start,
+        freeze_threshold=args.oscillations_freeze_threshold,
+        freeze_threshold_final=args.oscillations_freeze_threshold_final,
+        freeze_anneal_start=args.oscillations_freeze_anneal_start,
+        freeze_ema_momentum=args.oscillations_freeze_ema_momentum,
+        total_steps=total_steps)
+
+
+def train_quantized(args) -> dict:
+    """QAT (JAX ``train_quantized``, cli/image_net.py:479-594): calibrate
+    on the training batches, then per epoch train, and evaluate a copy of
+    the trained model re-estimated (``--reestimate-bn-stats``), baked,
+    prepared and run on ``--engine`` as ``validate-quantized`` deploys it
+    (JAX evaluates unbaked).  Returns the last epoch's metrics."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
+    from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
+    from fp8_quantization_tpu_torch.device import resolve_device
+    from fp8_quantization_tpu_torch.training.qat import (
+        init_qat_state, make_optimizer, make_train_step, reestimate_bn_stats,
+        train_epoch)
+    from fp8_quantization_tpu_torch.utils.metrics import MetricsLogger
+
+    if args.save_checkpoint_dir:
+        raise NotImplementedError(
+            "--save-checkpoint-dir: checkpoints are not ported yet "
+            "(ROADMAP.md, section A, item \"Checkpoints, utilities and "
+            "preflight\")")
+    device = resolve_device(args.device)
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+    model = build_model(args)
+    train_data, val_data = make_dataloaders(
+        args.images_dir, batch_size=args.batch_size,
+        num_workers=args.num_workers, seed=args.seed,
+        interpolation=args.interpolation)
+    if train_data is None:
+        raise SystemExit(f"--images-dir {args.images_dir} has no train/ "
+                         "split; train-quantized needs one "
+                         "(validate-quantized works val-only)")
+    calibrate(model, train_data, device=device,
+              num_batches=args.num_est_batches)
+    log.info("calibration done (%d batches)", args.num_est_batches)
+
+    steps_per_epoch = len(train_data) if hasattr(train_data, "__len__") else 1000
+    model_tx = make_optimizer(args.optimizer, args.learning_rate,
+                              momentum=args.momentum,
+                              weight_decay=args.weight_decay,
+                              scheduler=args.learning_rate_schedule,
+                              max_steps=steps_per_epoch * args.max_epochs,
+                              steps_per_epoch=steps_per_epoch)
+    quant_tx = (make_optimizer(args.quant_optimizer, args.quant_learning_rate)
+                if args.sep_quant_optimizer else None)
+    state = init_qat_state(
+        model, model.config, model_tx, quant_tx,
+        oscillation=_oscillation_config(args, steps_per_epoch * args.max_epochs))
+    mode = "learn" if args.learn_ranges else "calibrate_train"
+    step_fn = make_train_step(state, mode=mode)
+
+    def batches():
+        for i, b in enumerate(train_data):
+            if args.max_train_batches and i >= args.max_train_batches:
+                break
+            yield b
+
+    val_metrics = None
+    with MetricsLogger(args.tb_logging_dir, run_name=args.architecture) as mlog:
+        for epoch in range(args.max_epochs):
+            state, metrics = train_epoch(state, batches(), mode=mode,
+                                         step_fn=step_fn)
+            mlog.log(epoch, metrics, prefix="train/")
+            deployed = copy.deepcopy(model)
+            if args.reestimate_bn_stats:
+                reestimate_bn_stats(deployed, batches(),
+                                    num_batches=args.reestimate_bn_batches)
+            val_metrics = deploy_and_evaluate(deployed, args, train_data,
+                                              val_data, device)
+            mlog.log(epoch, val_metrics, prefix="val/")
+    return val_metrics
 
 
 def main(argv=None) -> None:
@@ -281,6 +456,8 @@ def main(argv=None) -> None:
     args = build_parser().parse_args(argv)
     if args.command == "validate-quantized":
         print(json.dumps(validate_quantized(args)))
+    else:
+        print(json.dumps(train_quantized(args)))
 
 
 if __name__ == "__main__":

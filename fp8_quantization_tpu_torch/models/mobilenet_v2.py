@@ -7,10 +7,15 @@ activation quantizer; the head's output quantizer is hoisted to the model
 lines 262-278); the classifier is a quantized linear.  Module names are the
 JAX scope names (``stem``, ``block{i}_{b}.{expand,dw,project,block_act}``,
 ``head``, ``head_act``, ``classifier``), so that its variables carry over
-by path (models/convert.load_jax_variables).  The classifier's dropout is
-training-only and not ported (its default of 0 leaves inference as is);
-nor are width multipliers other than 1 and the untied avgpool of the
-``LSQ_paper`` preset.
+by path (models/convert.load_jax_variables).  The classifier's dropout
+(``dropout_rate``, JAX there lines 206-210, 280-290; 0 by default, so
+inference is as before) acts in training forwards (``train_bn``) only and
+draws its mask from the model's ``dropout_generator``, never from the
+global random state; a ``Factored`` input keeps its factor (dropout
+scales by 1/keep, which commutes with it).  ``weight_spec_fn`` resolves a
+layer's module path to its weight spec under the preset (JAX there lines
+212-234), for training/oscillation.py.  Not ported: width multipliers
+other than 1 and the untied avgpool of the ``LSQ_paper`` preset.
 
 Under ``engine='fused'`` in fixed mode a block whose stages are all baked
 runs ``ops/kernels/qblock`` as one kernel (there lines 86-190, without the
@@ -38,7 +43,7 @@ from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
 from fp8_quantization_tpu_torch.nn.factored import (
     Factored, fadd, fmean, materialize, split)
 from fp8_quantization_tpu_torch.nn.layers import (
-    QuantConv, QuantizedActivation, QuantLinear)
+    QuantConv, QuantizedActivation, QuantLinear, layer_weight_spec)
 from fp8_quantization_tpu_torch.nn.quantizers import preparing
 from fp8_quantization_tpu_torch.ops.kernels import qblock
 
@@ -163,9 +168,12 @@ class QuantizedMobileNetV2(nn.Module):
                  fc_config: Optional[LayerQuantConfig] = None,
                  dw_config: Optional[LayerQuantConfig] = None,
                  expand_config: Optional[LayerQuantConfig] = None,
-                 block_act_config: Optional[LayerQuantConfig] = None):
+                 block_act_config: Optional[LayerQuantConfig] = None,
+                 dropout_rate: float = 0.0):
         super().__init__()
         self.config = config
+        self.dropout_rate = dropout_rate
+        self.dropout_generator: Optional[torch.Generator] = None
         self.settings = tuple(tuple(s) for s in settings)
         input_channel, last_channel = 32, 1280
         self.stem = QuantConv(3, input_channel, 3, 2, 1, bn=True,
@@ -194,6 +202,25 @@ class QuantizedMobileNetV2(nn.Module):
         """The shape of the input this model takes: the NHWC images'."""
         return tuple(image_shape)
 
+    def weight_spec_fn(self):
+        """Module path -> the weight QuantizerSpec of the layer there, as
+        the preset configures it (fc4_dw8's 8-bit depthwise convs and 4-bit
+        classifier, ...)."""
+        return layer_weight_spec(self)
+
+    def _dropout(self, x):
+        """Inverted dropout with keep probability 1 - rate (flax
+        ``nn.Dropout``), the mask from ``dropout_generator``."""
+        if self.dropout_generator is None:
+            raise ValueError("dropout in a training forward needs the "
+                             "model's dropout_generator")
+        norm, factor = split(x)
+        keep_prob = 1.0 - self.dropout_rate
+        keep = torch.rand(norm.shape, generator=self.dropout_generator,
+                          device=norm.device) < keep_prob
+        y = torch.where(keep, norm / keep_prob, torch.zeros_like(norm))
+        return y if factor is None else Factored(y, factor)
+
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False):
         kw = dict(mode=mode, quant_w=quant_w, quant_a=quant_a, train_bn=train_bn)
@@ -211,6 +238,8 @@ class QuantizedMobileNetV2(nn.Module):
         if quant_head:
             x = self.head_act(x, mode=mode, quant_a=quant_a,
                               update_range=False, out=out)
+        if self.dropout_rate > 0.0 and train_bn:
+            x = self._dropout(x)
         x = self.classifier(x, **{**kw, "out": "value"})
         return materialize(x)
 
@@ -257,7 +286,9 @@ def mobilenetv2_quantized(base: LayerQuantConfig,
                           quant_setup: Optional[str] = None,
                           num_classes: int = 1000,
                           settings=INVERTED_RESIDUAL_SETTING,
-                          device="cuda") -> QuantizedMobileNetV2:
+                          device="cuda",
+                          dropout_rate: float = 0.0) -> QuantizedMobileNetV2:
     return QuantizedMobileNetV2(num_classes, settings,
-                                **mobilenet_v2_configs(base, quant_setup)).to(
+                                **mobilenet_v2_configs(base, quant_setup),
+                                dropout_rate=dropout_rate).to(
                                     resolve_device(device))

@@ -46,7 +46,7 @@ from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
 from fp8_quantization_tpu_torch.nn.factored import (
     Factored, fadd, fmax_pool, fmean, materialize)
 from fp8_quantization_tpu_torch.nn.layers import (
-    QuantConv, QuantizedActivation, QuantLinear)
+    QuantConv, QuantizedActivation, QuantLinear, layer_weight_spec)
 from fp8_quantization_tpu_torch.ops.kernels import qstem
 
 
@@ -138,6 +138,12 @@ class QuantizedResNet(nn.Module):
         if self.stem_s2d == "input":
             return (n, h // 2, w // 2, 4 * c)
         return tuple(image_shape)
+
+    def weight_spec_fn(self):
+        """Module path -> the weight QuantizerSpec of the layer there, as
+        the preset configures it (fc4's 4-bit fc and 8-bit stem, ...; JAX
+        ``weight_spec_fn``), for training/oscillation.py."""
+        return layer_weight_spec(self)
 
     def _fused_stem(self, x, mode, quant_w, quant_a, train_bn, out):
         """The qstem kernel route, or None for the layer + pool path."""

@@ -1,8 +1,11 @@
 """Layer-level quantization configuration.
 
 Mirrors ``fp8_quantization_tpu/nn/config.py`` (``LayerQuantConfig``,
-``make_layer_config``) for the FP8 and INT8 PTQ slices.  Flags of the JAX
-package that this port does not carry yet raise instead of being ignored.
+``make_layer_config``) for FP8 and INT8 PTQ and QAT (``grad_scaling``,
+``fp8_learn_maxval``, ``fp8_learn_mantissa_bits``, ``grad_estimator`` with
+its EWGS scaling and stacked-sigmoid alpha).  The TPU deployment flags of
+the JAX package that this port does not carry raise instead of being
+ignored.
 """
 
 from __future__ import annotations
@@ -13,6 +16,7 @@ from typing import Optional
 from fp8_quantization_tpu_torch.calibration.estimators import (
     EstimatorSpec, RangeEstimators)
 from fp8_quantization_tpu_torch.ops.quantizer import QMethod, QuantizerSpec
+from fp8_quantization_tpu_torch.ops.rounding import GradientEstimator
 
 ENGINES = ("parity", "bf16", "fused")
 BN_MODES = ("fp32_after", "folded")
@@ -76,9 +80,6 @@ _NOT_PORTED = {
     "deploy_cast_ieee": "the IEEE-f8 cast fast path",
     "conv_out_bf16": "bf16 conv stores",
     "int8_assume_signed": "the static signed-grid elision of the int8 route",
-    "grad_scaling": "QAT (LSQ gradient scaling)",
-    "fp8_learn_maxval": "QAT",
-    "fp8_learn_mantissa_bits": "QAT",
 }
 
 
@@ -98,8 +99,14 @@ def make_layer_config(
     fp8_maxval: Optional[float] = None,
     fp8_mantissa_bits: int = 4,
     fp8_set_maxval: bool = False,
+    fp8_learn_maxval: bool = False,
+    fp8_learn_mantissa_bits: bool = False,
     fp8_mse_include_mantissa_bits: bool = True,
     fp8_allow_unsigned: bool = False,
+    grad_scaling: bool = False,
+    grad_estimator: str = "ste",
+    ewgs_scaling: float = 0.2,
+    ss_alpha: float = 1.0,
     quantize_input: bool = False,
     int8_mxu: bool = False,
     bn_mode: str = "fp32_after",
@@ -123,10 +130,15 @@ def make_layer_config(
     def _qspec(method: QMethod, bits: int, per_channel: bool) -> QuantizerSpec:
         return QuantizerSpec(method=method, n_bits=bits, per_channel=per_channel,
                              scale_domain=scale_domain,
+                             grad_scaling=grad_scaling,
                              mantissa_bits=fp8_mantissa_bits, maxval=fp8_maxval,
                              set_maxval=fp8_set_maxval,
+                             learn_maxval=fp8_learn_maxval,
+                             learn_mantissa_bits=fp8_learn_mantissa_bits,
                              mse_include_mantissa_bits=fp8_mse_include_mantissa_bits,
-                             allow_unsigned=fp8_allow_unsigned)
+                             allow_unsigned=fp8_allow_unsigned,
+                             grad_estimator=GradientEstimator(grad_estimator).value,
+                             ewgs_scaling=ewgs_scaling, ss_alpha=ss_alpha)
 
     act_kwargs = {} if act_momentum is None else {"momentum": act_momentum}
     return LayerQuantConfig(

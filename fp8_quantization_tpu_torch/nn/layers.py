@@ -28,7 +28,9 @@ per channel along dim 0.  Engines (``config.engine``):
   quant (FP8 or int_asym) in the epilogue.  Under ``quantize_input`` the
   3x3 and depthwise convs and the stem take the bf16 path, as in JAX
   (there lines 901-903, 987, 795-799).  There is no autotune gate: the
-  kernels always launch on the card.  Elsewhere the bf16 path runs.
+  kernels always launch on the card.  Elsewhere the bf16 path runs, so
+  QAT's modes (``learn``, ``calibrate_train``, with ``train_bn``) train on
+  the bf16 route, as JAX's ``pallas`` engine does (there lines 268-272).
 
 The int8 datapath (``int8_datapath``: ``int8_mxu`` + ``quantize_input``,
 symmetric-uniform weights, per-tensor asymmetric-uniform inputs, <= 8
@@ -124,6 +126,12 @@ def int8_datapath(cfg: LayerQuantConfig) -> bool:
             and not cfg.act_quant.per_channel and cfg.act_quant.n_bits <= 8
             and cfg.weight_quant.method == QMethod.symmetric_uniform
             and cfg.weight_quant.n_bits <= 8)
+
+
+def layer_weight_spec(model: nn.Module):
+    """The models' ``weight_spec_fn``: module path (a tuple of names) -> the
+    weight spec of the quantized layer there, as its preset configured it."""
+    return lambda path: model.get_submodule(".".join(path)).weight_q.spec
 
 
 def factored_act_ok(cfg: LayerQuantConfig) -> bool:

@@ -24,8 +24,26 @@ buffers: the prepared constants are then stale until the prepare pass runs
 again.
 
 Modes: ``calibrate`` (estimator update, set range, quantize), ``fixed``
-(quantize with the stored state) and ``fp32`` (passthrough).  The QAT modes
-``learn`` and ``calibrate_train`` come with QAT.
+(quantize with the stored state), ``fp32`` (passthrough) and the two QAT
+modes: ``learn`` (quantize; the state receives gradients) and
+``calibrate_train`` (estimator update and set range on every training
+forward, no gradient to the state).  Outside ``learn`` the forward takes
+the state detached, as JAX stops its gradient.
+
+QAT (JAX training/qat.py) makes the state that ``trainable_param_names``
+names trainable: ``make_range_trainable`` turns those buffers into
+``nn.Parameter``s of the same name (the reference's
+``make_range_trainable``, fp8_quantizer.py:242-254), so ``parameters()``
+and the quant-parameter group of training/qat.py split the model as
+JAX's ``quant_trainable_mask`` splits its tree.  ``state()`` is detached
+whatever the entries are, so what a kernel reads never carries autograd.
+
+Rounding follows the spec's ``grad_estimator`` (JAX ``_discretizer``):
+the straight-through round, or in the training modes the stochastic,
+EWGS or stacked-sigmoid estimator (``ops/rounding``).  Stochastic
+rounding draws from the module's ``noise_generator`` (set by
+``set_quant_noise``) and rounds to nearest without one, as JAX does
+without its ``quant_noise`` stream.
 
 Outputs: ``out='apply'`` the fake-quantized tensor, ``'factored'``
 ``(x_norm, factor)`` on the normalized grid, ``'state'`` ``(x, state)``.
@@ -41,14 +59,25 @@ from torch import nn
 from fp8_quantization_tpu_torch.calibration import estimators as est
 from fp8_quantization_tpu_torch.ops import quantizer as q
 from fp8_quantization_tpu_torch.ops.kernels.common import pack_act_consts
+from fp8_quantization_tpu_torch.ops.rounding import make_discretizer
 
-MODES = ("calibrate", "fixed", "fp32")
+MODES = ("calibrate", "calibrate_train", "fixed", "learn", "fp32")
+TRAINING_MODES = ("learn", "calibrate_train")
 
 
 def preparing(module: nn.Module) -> bool:
     """Whether ``module`` runs in the forward of nn/bake.prepare_inference,
     which stores each fixed-mode constant where it is first computed."""
     return getattr(module, "_preparing", False)
+
+
+def set_quant_noise(model: nn.Module,
+                    generator: Optional[torch.Generator]) -> None:
+    """Give every quantizer of ``model`` the generator that stochastic
+    rounding draws from in the training modes (None: round to nearest)."""
+    for m in model.modules():
+        if isinstance(m, Quantizer):
+            m.noise_generator = generator
 
 
 def channel_major_view(x: torch.Tensor, channel_axis: Optional[int]) -> torch.Tensor:
@@ -75,16 +104,30 @@ class Quantizer(nn.Module):
             self.register_buffer("est_" + k, v)
         self.register_buffer("qprep", None)
         self.register_buffer("kprep", None)
+        self.noise_generator: Optional[torch.Generator] = None
+
+    def make_range_trainable(self, names=None) -> None:
+        """Turn the state entries ``names`` (by default those that
+        ``trainable_param_names`` names) into parameters of the same names
+        and values."""
+        for name in (q.trainable_param_names(self.spec) if names is None
+                     else names):
+            if name in self._buffers:
+                value = self._buffers.pop(name)
+                self.register_parameter(name, nn.Parameter(value.clone()))
 
     def state(self) -> q.QuantState:
-        return {k: getattr(self, k) for k in self.state_keys}
+        """The quantizer's state, detached (what fixed mode and the kernels
+        read)."""
+        return {k: getattr(self, k).detach() for k in self.state_keys}
 
     def est_state(self) -> est.EstState:
         return {k[4:]: v for k, v in self.named_buffers(recurse=False)
                 if k.startswith("est_")}
 
+    @torch.no_grad()
     def load_state(self, state: dict, est_state: Optional[dict] = None) -> None:
-        """Copy quantizer (and estimator) values into the buffers in place."""
+        """Copy quantizer (and estimator) values into the state in place."""
         for k, v in state.items():
             buf = getattr(self, k)
             buf.copy_(torch.as_tensor(v).to(buf.dtype).reshape(buf.shape))
@@ -118,13 +161,15 @@ class Quantizer(nn.Module):
         if mode == "fp32":
             return x
         if mode not in MODES:
-            raise NotImplementedError(f"quantizer mode {mode!r} is not ported "
-                                      "yet (QAT modes come with QAT)")
-        if mode == "calibrate" and update_range:
+            raise ValueError(f"quantizer mode must be one of {MODES}, not "
+                             f"{mode!r}")
+        if mode in ("calibrate", "calibrate_train") and update_range:
             self._calibrate(x)
-        state = self.state()
+        state = (self.state() if mode != "learn" else
+                 {k: getattr(self, k) for k in self.state_keys})
         if out == "state":
             return x, state
+        disc = self._discretizer(mode)
         if mode == "fixed" and preparing(self):
             self.qprep = q.fixed_consts(self.spec, state)
         if mode == "fixed" and self.qprep is not None:
@@ -133,5 +178,19 @@ class Quantizer(nn.Module):
                                     factored=out == "factored")
         if out == "factored":
             return q.apply_factored(self.spec, state, x,
-                                    channel_axis=self.channel_axis)
-        return q.apply(self.spec, state, x, channel_axis=self.channel_axis)
+                                    channel_axis=self.channel_axis,
+                                    discretizer=disc)
+        return q.apply(self.spec, state, x, channel_axis=self.channel_axis,
+                       discretizer=disc)
+
+    def _discretizer(self, mode: str):
+        """The rounding of the spec's gradient estimator (JAX
+        ``Quantizer._discretizer``)."""
+        spec = self.spec
+        training = mode in TRAINING_MODES and (
+            spec.grad_estimator != "stoch_round" or self.noise_generator is not None)
+        return make_discretizer(spec.grad_estimator,
+                                scaling_factor=spec.ewgs_scaling,
+                                alpha=spec.ss_alpha,
+                                generator=self.noise_generator,
+                                training=training)

@@ -3,7 +3,8 @@
 Mirrors ``fp8_quantization_tpu/ops/fp8.py``: ``quantize_to_fp8`` with the
 exact exponent read (``impl='bitcast'``, there lines 86-182), including
 ``normalized=True``; ``default_fp8_maxval``, ``fp8_set_quant_range`` and the
-grid oracles ``generate_all_values_fp`` / ``get_max_value``.
+grid oracles ``generate_all_values_fp`` / ``generate_all_float_values_scaled``
+/ ``get_max_value``.
 
 FP8 quantization is INT quantization with per-element power-of-two scales
 ``2^(floor(log2|x|) + bias) - M - bias)`` derived from a (per-channel)
@@ -11,8 +12,9 @@ FP8 quantization is INT quantization with per-element power-of-two scales
 IEEE exponent field of ``|x| * 2^frac(bias)`` through an int32 view, never
 by a transcendental ``log2`` (which can pick the wrong bin within an ulp of
 a power of two).  Gradients w.r.t. ``x``, ``maxval`` and ``mantissa_bits``
-follow the JAX package: the bin choice is detached and rounding is
-straight-through.
+follow the JAX package: the bin choice is detached and rounding takes the
+gradient estimator of its discretizer (``ops/rounding``; straight-through
+by default).
 
 ``fp8_consts`` / ``fp8_quantize_prepared`` freeze the scalar algebra of a
 fixed quantizer into a ``(6, C)`` tensor that the CUDA kernels read (see
@@ -26,6 +28,8 @@ from itertools import product
 
 import numpy as np
 import torch
+
+from fp8_quantization_tpu_torch.ops.rounding import Discretizer, round_ste
 
 
 def generate_all_values_fp(num_total_bits: int = 8, num_exponent_bits: int = 4,
@@ -47,6 +51,16 @@ def generate_all_values_fp(num_total_bits: int = 8, num_exponent_bits: int = 4,
                 f_eff = f_enc * 2.0 ** -num_fraction_bits + 1 - is_subnormal
                 values.append(sign * 2.0 ** (e_enc - bias + is_subnormal) * f_eff)
     return np.sort(np.array(values))
+
+
+def generate_all_float_values_scaled(num_total_bits: int, num_exp_bits: int,
+                                     exp_bias: int,
+                                     range_limit_fp: float) -> np.ndarray:
+    """The format's grid rescaled so that its largest magnitude is
+    ``range_limit_fp``."""
+    grid = generate_all_values_fp(num_total_bits, num_exp_bits, exp_bias)
+    float_max_abs_val = np.max(np.abs(grid))
+    return grid / (float_max_abs_val / range_limit_fp)
 
 
 def get_max_value(num_exponent_bits: int = 4, bias: int = 8) -> float:
@@ -94,12 +108,13 @@ def _balanced(a: torch.Tensor, ans: torch.Tensor, b: torch.Tensor) -> torch.Tens
 
 
 class _QuantizeToFP8(torch.autograd.Function):
-    """FP8 fake-quant with round half to even and straight-through gradients.
+    """FP8 fake-quant, rounding by a discretizer (``ops/rounding``).
 
     The backward is written out as the JAX package's autodiff computes it:
     the same operations in the same order (its quotient rule
     ``-((ct * y^-2) * x)``, ``log(2) * ct * ans`` for exp2 and pow, balanced
-    max/min ties).  torch's own autograd rounds some of these steps in other
+    max/min ties), with the discretizer's own backward on the rounding.
+    torch's own autograd rounds some of these steps in other
     places, and the range-parameter gradients cancel nearly equal terms, so
     only this gives gradients w.r.t. x, maxval and mantissa_bits that are
     bit-exact per element.
@@ -107,7 +122,7 @@ class _QuantizeToFP8(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, maxval, mantissa_bits, sign_bits_f, n_bits: int,
-                normalized: bool):
+                normalized: bool, disc):
         hi_m = float(n_bits) - sign_bits_f
         m_round = torch.round(mantissa_bits)
         m_lo = torch.maximum(torch.ones_like(m_round), m_round)
@@ -134,8 +149,8 @@ class _QuantizeToFP8(torch.autograd.Function):
         pow2 = _exp2_int_exact(log_scales + (-M - two_pow_E + 1.0))
         factor = maxval / grid_top
         scales = pow2 * factor
-        m = torch.round(xc / scales)
-        ctx.normalized = normalized
+        m, ctx.disc_saved = disc.forward(xc / scales)
+        ctx.normalized, ctx.disc = normalized, disc
         ctx.save_for_backward(x, maxval, mantissa_bits, sign_bits_f, hi_m,
                               m_round, m_lo, M, two_pow_E, two_pow_negM,
                               grid_top, minval, x_lo, xc, pow2,
@@ -147,8 +162,9 @@ class _QuantizeToFP8(torch.autograd.Function):
         (x, maxval, mantissa_bits, sign_bits_f, hi_m, m_round, m_lo, M,
          two_pow_E, two_pow_negM, grid_top, minval, x_lo, xc, pow2,
          factor, scales, m) = ctx.saved_tensors
-        # out = m * (pow2 or scales), m = round_ste(xc / scales)
-        ct_u = ct * (pow2 if ctx.normalized else scales)
+        # out = m * (pow2 or scales), m = disc(xc / scales)
+        ct_u = ctx.disc.backward(ctx.disc_saved,
+                                 ct * (pow2 if ctx.normalized else scales))
         ct_scales_div = -((ct_u * (1.0 / (scales * scales))) * xc)
         ct_xc = ct_u / scales
         if ctx.normalized:
@@ -178,19 +194,21 @@ class _QuantizeToFP8(torch.autograd.Function):
                    * _balanced(m_round, m_lo, torch.ones_like(m_round)))
         return (grad_x.sum_to_size(x.shape),
                 ct_maxval.sum_to_size(maxval.shape),
-                grad_mb.sum_to_size(mantissa_bits.shape), None, None, None)
+                grad_mb.sum_to_size(mantissa_bits.shape), None, None, None,
+                None)
 
 
 def quantize_to_fp8(x: torch.Tensor, maxval: torch.Tensor,
                     mantissa_bits: torch.Tensor, n_bits: int = 8,
-                    sign_bits=1, normalized: bool = False) -> torch.Tensor:
+                    sign_bits=1, normalized: bool = False,
+                    discretizer: Discretizer = round_ste) -> torch.Tensor:
     """Fake-quantize ``x`` onto the FP8 grid of (maxval, mantissa_bits).
 
     ``maxval`` broadcasts against ``x`` (the caller owns the channel axis).
     ``mantissa_bits`` is a float tensor, rounded and clamped to
-    ``[1, n_bits - sign_bits]`` on every call.  Rounding is half to even with
-    straight-through gradients (the stochastic and EWGS estimators come with
-    QAT).  ``normalized=True`` returns the value on the pure binary grid (an
+    ``[1, n_bits - sign_bits]`` on every call.  Rounding is
+    ``discretizer``'s (``ops/rounding``): half to even with straight-through
+    gradients by default.  ``normalized=True`` returns the value on the pure binary grid (an
     (M+1)-bit significand times a power of two, exact in bfloat16); the
     full-scale value is that times ``maxval / (2 - 2^-M)``.
     """
@@ -199,7 +217,7 @@ def quantize_to_fp8(x: torch.Tensor, maxval: torch.Tensor,
     mantissa_bits = torch.as_tensor(mantissa_bits, dtype=torch.float32, device=dev)
     sign_bits_f = torch.as_tensor(sign_bits, device=dev).to(torch.float32)
     return _QuantizeToFP8.apply(x, maxval, mantissa_bits, sign_bits_f, n_bits,
-                                normalized)
+                                normalized, discretizer)
 
 
 # Row order of the (6, C) constant tensor the kernels read; keep in step

@@ -1,10 +1,13 @@
 """Functional quantizer: static spec + state dict + pure transforms.
 
-Mirrors ``fp8_quantization_tpu/ops/quantizer.py`` (lines 103-285):
-``QMethod``, ``QuantizerSpec``, ``init_state``, ``apply``,
-``apply_factored``, ``fixed_consts``, ``apply_prepared`` and
-``set_quant_range`` for ``fp_quantizer`` and the uniform methods
-(``ops/uniform.py``).  ``fixed_consts`` freezes a fixed FP8 quantizer's
+Mirrors ``fp8_quantization_tpu/ops/quantizer.py``: ``QMethod``,
+``QuantizerSpec``, ``init_state``, ``apply``, ``apply_factored``,
+``fixed_consts``, ``apply_prepared``, ``set_quant_range``,
+``trainable_param_names`` (the state QAT learns) and the host-side
+``quantizer_grid`` for ``fp_quantizer`` and the uniform methods
+(``ops/uniform.py``).  Rounding takes a discretizer (``ops/rounding``):
+the straight-through round by default, or the QAT estimator that the
+spec's ``grad_estimator`` names (chosen by nn/quantizers.py).  ``fixed_consts`` freezes a fixed FP8 quantizer's
 scalar algebra into the ``(6, C)`` layout of ``ops/fp8.fp8_consts``, which
 the kernels also read; the IEEE-f8 cast constants of JAX's
 ``cast_fastpath`` are not ported (nn/config.py raises for those flags).  Uniform state is ``delta`` with
@@ -23,6 +26,7 @@ import dataclasses
 import enum
 from typing import Dict
 
+import numpy as np
 import torch
 
 from fp8_quantization_tpu_torch.ops import fp8 as fp8_ops
@@ -38,18 +42,27 @@ class QMethod(str, enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class QuantizerSpec:
-    """Static quantizer configuration (the PTQ subset of the JAX spec)."""
+    """Static quantizer configuration (the JAX spec without its TPU cast
+    fast paths)."""
 
     method: QMethod = QMethod.fp_quantizer
     n_bits: int = 8
     per_channel: bool = False
     scale_domain: str = "linear"         # uniform methods: "linear" | "log"
+    grad_scaling: bool = False           # uniform methods: LSQ gradient scale
     eps: float = 1e-8
     mantissa_bits: int = 4
     maxval: float | None = None          # None -> format default maxval
     set_maxval: bool = False
+    learn_maxval: bool = False           # QAT: maxval trainable
+    learn_mantissa_bits: bool = False    # QAT: mantissa_bits trainable
     mse_include_mantissa_bits: bool = True   # the MSE search's mantissa sweep
     allow_unsigned: bool = False
+    # QAT gradient estimator of the rounding (ops/rounding.GradientEstimator):
+    # "ste" | "stoch_round" | "ewgs" | "stacked_sigmoid"
+    grad_estimator: str = "ste"
+    ewgs_scaling: float = 0.2
+    ss_alpha: float = 1.0
 
     def replace(self, **kw) -> "QuantizerSpec":
         return dataclasses.replace(self, **kw)
@@ -98,11 +111,14 @@ def broadcast(param: torch.Tensor, x_ndim: int, channel_axis: int) -> torch.Tens
 
 
 def apply(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
-          channel_axis: int = -1) -> torch.Tensor:
+          channel_axis: int = -1, discretizer=round_ste) -> torch.Tensor:
     """Fake-quantize ``x`` (quantize -> dequantize)."""
     if not spec.is_fp8:
         delta = broadcast(state["delta"], x.ndim, channel_axis)
-        kw = dict(scale_domain=spec.scale_domain, eps=spec.eps)
+        kw = dict(scale_domain=spec.scale_domain, eps=spec.eps,
+                  grad_scaling=spec.grad_scaling,
+                  per_channel=spec.per_channel, channel_axis=channel_axis,
+                  discretizer=discretizer)
         if spec.method == QMethod.symmetric_uniform:
             return uniform_ops.quantize_uniform_symmetric(
                 x, delta, state["signed"], spec.n_bits, **kw)
@@ -112,11 +128,11 @@ def apply(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
     return fp8_ops.quantize_to_fp8(
         x, broadcast(state["maxval"], x.ndim, channel_axis),
         state["mantissa_bits"], n_bits=spec.n_bits,
-        sign_bits=state["sign_bits"])
+        sign_bits=state["sign_bits"], discretizer=discretizer)
 
 
 def apply_factored(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
-                   channel_axis: int = -1):
+                   channel_axis: int = -1, discretizer=round_ste):
     """``(x_norm, factor)`` with ``fake_quant(x) == x_norm * factor`` and
     ``x_norm`` exact in bfloat16: the engines' decomposition."""
     if not spec.is_fp8:
@@ -125,11 +141,13 @@ def apply_factored(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
         if spec.method == QMethod.symmetric_uniform:
             int_min, int_max = uniform_ops.symmetric_int_bounds(
                 spec.n_bits, state["signed"])
-            return uniform_ops._clip(round_ste(x / scale), int_min, int_max), scale
+            return uniform_ops._clip(discretizer(uniform_ops._div(x, scale)),
+                                     int_min, int_max), scale
         int_min, int_max = uniform_ops.asymmetric_int_bounds(spec.n_bits)
         zero_float = broadcast(state["zero_float"], x.ndim, channel_axis)
         zp = uniform_ops._clip(torch.round(zero_float), int_min, int_max)
-        x_int = uniform_ops._clip(round_ste(x / scale) + zp, int_min, int_max)
+        x_int = uniform_ops._clip(
+            discretizer(uniform_ops._div(x, scale)) + zp, int_min, int_max)
         return x_int - zp, scale
     maxval = broadcast(state["maxval"], x.ndim, channel_axis)
     sign_bits_f = state["sign_bits"].to(torch.float32)
@@ -137,7 +155,7 @@ def apply_factored(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
                             round_ste)
     x_norm = fp8_ops.quantize_to_fp8(
         x, maxval, state["mantissa_bits"], n_bits=spec.n_bits,
-        sign_bits=state["sign_bits"], normalized=True)
+        sign_bits=state["sign_bits"], normalized=True, discretizer=discretizer)
     return x_norm, maxval / (2.0 - 2.0 ** -M)
 
 
@@ -194,3 +212,41 @@ def set_quant_range(spec: QuantizerSpec, state: QuantState, x_min,
     new["sign_bits"] = sign_bits.reshape(())
     new["initialized"] = torch.ones((), dtype=torch.bool, device=maxval.device)
     return new
+
+
+def trainable_param_names(spec: QuantizerSpec) -> tuple[str, ...]:
+    """The state entries that QAT's learn mode trains: ``maxval`` and
+    ``mantissa_bits`` as the spec's learn flags say (FP8), ``delta`` and,
+    asymmetric, ``zero_float`` (uniform)."""
+    if spec.is_fp8:
+        return tuple(name for name, learn in (
+            ("maxval", spec.learn_maxval),
+            ("mantissa_bits", spec.learn_mantissa_bits)) if learn)
+    if spec.method == QMethod.symmetric_uniform:
+        return ("delta",)
+    return ("delta", "zero_float")
+
+
+def quantizer_grid(spec: QuantizerSpec, state: QuantState) -> np.ndarray:
+    """Every value of a per-tensor quantizer's current grid, host side (the
+    analytical study's grid and the tests' oracle)."""
+    def scalar(v):
+        return np.asarray(v.detach().cpu() if isinstance(v, torch.Tensor) else v)
+
+    if spec.is_fp8:
+        sign_bits = int(scalar(state["sign_bits"]))
+        mbits = int(np.clip(int(np.round(scalar(state["mantissa_bits"]))), 1,
+                            spec.n_bits - sign_bits))
+        ebits = spec.n_bits - sign_bits - mbits
+        maxval = float(scalar(state["maxval"]).reshape(-1)[0])
+        return fp8_ops.generate_all_float_values_scaled(
+            spec.n_bits, ebits, 2 ** (ebits - 1), maxval)
+    delta = float(scalar(state["delta"]).reshape(-1)[0])
+    if spec.method == QMethod.symmetric_uniform:
+        return uniform_ops.symmetric_grid(delta, bool(scalar(state["signed"])),
+                                          spec.n_bits, spec.scale_domain)
+    zf = float(scalar(state["zero_float"]).reshape(-1)[0])
+    int_min, int_max = 0.0, 2.0 ** spec.n_bits - 1.0
+    zp = np.clip(np.round(zf), int_min, int_max)
+    scale = np.exp(delta) if spec.scale_domain == "log" else max(delta, spec.eps)
+    return scale * (np.arange(int_min, int_max + 1) - zp)

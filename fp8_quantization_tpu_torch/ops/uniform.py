@@ -1,10 +1,13 @@
 """Uniform (INT) affine quantizers.
 
-Mirrors ``fp8_quantization_tpu/ops/uniform.py`` (lines 22-134):
-``_scale_from_delta``, the integer bounds, ``quantize_uniform_asymmetric`` /
-``quantize_uniform_symmetric`` (round half to even, straight-through
-gradient), ``tensorize_min_max`` and the two ``set_quant_range`` functions.
-``delta`` / ``zero_float`` must already broadcast against ``x``.
+Mirrors ``fp8_quantization_tpu/ops/uniform.py``: ``_scale_from_delta``,
+the integer bounds, ``lsq_grad_scale``, ``quantize_uniform_asymmetric`` /
+``quantize_uniform_symmetric`` (round half to even with the discretizer's
+gradient estimator, straight-through by default; with ``grad_scaling`` the
+LSQ scale on the step's and zero point's gradients), ``tensorize_min_max``,
+the two ``set_quant_range`` functions and the host-side
+``symmetric_grid``.  ``delta`` / ``zero_float`` must already broadcast
+against ``x``.
 
 ``int_asym_consts`` / ``int_sym_consts`` / ``int_quantize_prepared`` freeze
 a fixed quantizer into the ``(6, C)`` constant tensor that the CUDA kernels
@@ -14,29 +17,52 @@ the arithmetic of the Pallas tiles ``_int_asym_quantize_tile`` and
 
 Clipping is ``torch.minimum(torch.maximum(x, lo), hi)`` on tensors, as
 ``jnp.clip`` is: both split the gradient in half on a tie with a bound, so
-the gradient w.r.t. x is bit-exact too.  The LSQ gradient scaling
-(``grad_scaling=True``; JAX ``lsq_grad_scale``) comes with QAT and
-raises.
+the gradient w.r.t. x is bit-exact too.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
-from fp8_quantization_tpu_torch.ops.rounding import round_ste
+from fp8_quantization_tpu_torch.ops.rounding import round_ste, scale_gradient
 
 _EPS = 1e-8
 
 
-def _qat_only() -> NotImplementedError:
-    return NotImplementedError("LSQ gradient scaling comes with QAT and is "
-                               "not ported yet")
+class _Div(torch.autograd.Function):
+    """``x / y`` whose backward is JAX's quotient rule (``ct / y`` and
+    ``-((ct * (1 / (y * y))) * x)``): torch's own rounds the second
+    otherwise, and the step's gradient must be bit-exact."""
+
+    @staticmethod
+    def forward(ctx, x, y):
+        ctx.save_for_backward(x, y)
+        return x / y
+
+    @staticmethod
+    def backward(ctx, ct):
+        x, y = ctx.saved_tensors
+        gx = gy = None
+        if ctx.needs_input_grad[0]:
+            gx = (ct / y).sum_to_size(x.shape)
+        if ctx.needs_input_grad[1]:
+            gy = (-((ct * (1.0 / (y * y))) * x)).sum_to_size(y.shape)
+        return gx, gy
+
+
+def _div(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    return _Div.apply(x, y)
 
 
 def _scale_from_delta(delta: torch.Tensor, scale_domain: str,
                       eps: float = _EPS) -> torch.Tensor:
     if scale_domain == "linear":
-        return torch.clamp(delta, min=eps)
+        # maximum, not clamp: JAX's clip halves the gradient on a tie
+        return torch.maximum(delta, torch.tensor(eps, dtype=delta.dtype,
+                                                 device=delta.device))
     if scale_domain == "log":
         return torch.exp(delta)
     raise ValueError(f"scale_domain must be 'linear' or 'log', got {scale_domain}")
@@ -62,29 +88,67 @@ def symmetric_int_bounds(n_bits: int, signed):
     return int_min, int_max
 
 
+@functools.lru_cache(maxsize=1)
+def _libm_powf():
+    import ctypes
+    import ctypes.util
+    powf = ctypes.CDLL(ctypes.util.find_library("m")).powf
+    powf.restype, powf.argtypes = ctypes.c_float, [ctypes.c_float, ctypes.c_float]
+    return powf
+
+
+def _powf(x: float, y: float) -> float:
+    """float32 ``x ** y`` by libm's ``powf``, which XLA's CPU ``power``
+    calls (torch's float32 pow takes other roundings)."""
+    return float(_libm_powf()(x, y))
+
+
+def lsq_grad_scale(x: torch.Tensor, int_max, per_channel: bool,
+                   channel_axis: int = -1) -> float:
+    """The LSQ gradient scale ``(int_max * numel)^-1/2``; per channel the
+    count leaves out the channel axis (``channel_axis`` 0 for the port's
+    OIHW / (out, in) weights where JAX's HWIO ones take -1).  A Python
+    ``int_max`` gives a Python float, as in JAX; a tensor one (the
+    symmetric grid's) the float32 value JAX computes."""
+    num_elements = float(np.prod(x.shape))
+    if per_channel and x.ndim:
+        num_elements /= x.shape[channel_axis]
+    if not isinstance(int_max, torch.Tensor):
+        return (int_max * num_elements) ** -0.5
+    prod = np.float32(float(int_max)) * np.float32(num_elements)
+    return _powf(float(prod), -0.5)
+
+
 def quantize_uniform_asymmetric(x, delta, zero_float, n_bits: int, *,
                                 scale_domain: str = "linear", eps: float = _EPS,
-                                grad_scaling: bool = False, discretizer=round_ste):
+                                grad_scaling: bool = False,
+                                per_channel: bool = False,
+                                channel_axis: int = -1, discretizer=round_ste):
     """``scale * (clip(round(x/scale) + zp) - zp)``."""
-    if grad_scaling:
-        raise _qat_only()
     int_min, int_max = asymmetric_int_bounds(n_bits)
     scale = _scale_from_delta(delta, scale_domain, eps)
     zero_point = _clip(discretizer(zero_float), int_min, int_max)
-    x_int = discretizer(x / scale) + zero_point
+    if grad_scaling:
+        gs = lsq_grad_scale(x, int_max, per_channel, channel_axis)
+        scale = scale_gradient(scale, gs)
+        zero_point = scale_gradient(zero_point, gs)
+    x_int = discretizer(_div(x, scale)) + zero_point
     x_int = _clip(x_int, int_min, int_max)
     return scale * (x_int - zero_point)
 
 
 def quantize_uniform_symmetric(x, delta, signed, n_bits: int, *,
                                scale_domain: str = "linear", eps: float = _EPS,
-                               grad_scaling: bool = False, discretizer=round_ste):
+                               grad_scaling: bool = False,
+                               per_channel: bool = False,
+                               channel_axis: int = -1, discretizer=round_ste):
     """``scale * clip(round(x/scale))`` (zero point 0)."""
-    if grad_scaling:
-        raise _qat_only()
     int_min, int_max = symmetric_int_bounds(n_bits, signed)
     scale = _scale_from_delta(delta, scale_domain, eps)
-    x_int = _clip(discretizer(x / scale), int_min, int_max)
+    if grad_scaling:
+        scale = scale_gradient(scale, lsq_grad_scale(x, int_max, per_channel,
+                                                     channel_axis))
+    x_int = _clip(discretizer(_div(x, scale)), int_min, int_max)
     return scale * x_int
 
 
@@ -119,6 +183,17 @@ def symmetric_set_quant_range(x_min, x_max, n_bits: int, *,
     if scale_domain == "log":
         delta = torch.log(delta)
     return delta, signed
+
+
+def symmetric_grid(delta: float, signed: bool, n_bits: int,
+                   scale_domain: str = "linear") -> np.ndarray:
+    """The symmetric integer lattice times its step, host side (the
+    analytical study's grid)."""
+    signed = bool(signed)
+    int_min = -(2.0 ** (n_bits - 1)) if signed else 0.0
+    int_max = 2.0 ** (n_bits - int(signed)) - 1.0
+    scale = np.exp(delta) if scale_domain == "log" else max(float(delta), _EPS)
+    return scale * np.arange(int_min, int_max + 1)
 
 
 # Row order of the (6, C) constants of an integer quantizer that the kernels

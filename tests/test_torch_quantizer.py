@@ -160,14 +160,17 @@ def test_grid_oracles_match():
 
 
 def test_not_ported_methods_raise():
-    """What still raises: LSQ gradient scaling (QAT) in the uniform
-    quantizers, which are ported for PTQ, and the QAT flags of
-    make_layer_config."""
+    """What still raises: the TPU deployment flags of make_layer_config.
+    QAT's flags and LSQ gradient scaling are ported (and held against JAX
+    in tests/test_torch_rounding.py)."""
     from fp8_quantization_tpu_torch.nn.config import make_layer_config
     from fp8_quantization_tpu_torch.ops import uniform as tuni
-    with pytest.raises(NotImplementedError, match="QAT"):
-        tuni.quantize_uniform_symmetric(torch.ones(3), torch.tensor(0.1),
+    y = tuni.quantize_uniform_symmetric(torch.ones(3), torch.tensor(0.1),
                                         torch.tensor(1), 8, grad_scaling=True)
-    for flag in ("fp8_learn_maxval", "fp8_learn_mantissa_bits"):
-        with pytest.raises(NotImplementedError, match="QAT"):
+    assert torch.equal(y, torch.ones(3))
+    for flag in ("fp8_learn_maxval", "fp8_learn_mantissa_bits", "grad_scaling"):
+        make_layer_config(**{flag: True})
+    for flag in ("deploy_cast_quant", "deploy_act_f8", "deploy_cast_ieee",
+                 "conv_out_bf16", "int8_assume_signed"):
+        with pytest.raises(NotImplementedError, match="not ported"):
             make_layer_config(**{flag: True})
