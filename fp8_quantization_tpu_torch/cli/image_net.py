@@ -3,7 +3,10 @@
 Mirrors ``validate-quantized`` of ``cli/image_net.py`` (lines 247-334):
 calibrate -> freeze -> bake -> evaluate, printing the same JSON metrics
 line.  The flag names are the JAX CLI's, plus ``--device {cuda,cpu}`` and
-``--engine {parity,bf16,fused}``.  Three differences: ``--bake-weights`` is
+``--engine {parity,bf16,fused}``; ``--deploy-cast-quant``,
+``--conv-out-bf16`` and ``--deploy-act-f8`` are JAX's deployment flags
+(there lines 107-122; ``deploy_cast_ieee`` and ``int8_assume_signed`` are
+config-only there and here).  Three differences: ``--bake-weights`` is
 on by default (the fused engine's kernels for the stem, the 3x3 convs, the
 depthwise convs and the MobileNetV2 blocks need baked weights); after the
 bake the ``bf16`` and ``fused`` engines run the prepare pass
@@ -134,6 +137,15 @@ def _quant_options(p: argparse.ArgumentParser) -> None:
     _bool_flag(p, "int8-mxu", False,
                "symmetric weights x asymmetric input quant: the s8 x s8 -> "
                "s32 datapath (with --quantize-input)")
+    _bool_flag(p, "deploy-cast-quant", False,
+               "fixed-mode FP8 fake-quant as one saturating IEEE f8 cast "
+               "(bit-exact; ops/fp8.fp8_quantize_cast)")
+    _bool_flag(p, "conv-out-bf16", False,
+               "composed convs/linears whose output is re-quantized at once "
+               "store it in bf16")
+    _bool_flag(p, "deploy-act-f8", False,
+               "store factored activations as the IEEE 1-byte array (below "
+               "the smallest normal on the IEEE subnormal grid)")
     _bool_flag(p, "bake-weights", True,
                "bake the quantized weights before evaluating (default on)")
     p.add_argument("--max-eval-batches", type=int, default=None)
@@ -238,7 +250,9 @@ def build_model(args):
         grad_scaling=getattr(args, "grad_scaling", False),
         grad_estimator=args.grad_estimator,
         quantize_input=args.quantize_input, int8_mxu=args.int8_mxu,
-        bn_mode=args.bn_mode, engine=args.engine)
+        bn_mode=args.bn_mode, engine=args.engine,
+        deploy_cast_quant=args.deploy_cast_quant,
+        conv_out_bf16=args.conv_out_bf16, deploy_act_f8=args.deploy_act_f8)
     arch, device = args.architecture, resolve_device(args.device)
     checkpoint = (convert.load_torch_state_dict(args.model_dir)
                   if args.model_dir else None)

@@ -31,7 +31,7 @@ from torch import nn
 
 from fp8_quantization_tpu_torch.nn.layers import (
     QuantConv, QuantizedActivation, QuantizedLayerBase, QuantLayerNorm)
-from fp8_quantization_tpu_torch.ops.fp8 import FP8_CONST_ROWS
+from fp8_quantization_tpu_torch.ops.fp8 import CAST_CONST_ROWS, FP8_CONST_ROWS
 
 Arrays = Dict[str, np.ndarray]
 
@@ -328,23 +328,37 @@ def _copy(dst: torch.Tensor, value) -> None:
     dst.copy_(v)
 
 
+# JAX's cast_probe dtype (a zero-dim array of the IEEE format) -> M
+_CAST_PROBE_MBITS = {"float8_e5m2": 2, "float8_e4m3": 3, "float8_e3m4": 4}
+
+
 def _load_quantizer(quantizer, tree, prep=None) -> None:
     """The quantizer's ``q`` and ``est`` state, and its ``qprep`` constants
     (the dict of ops/fp8.FP8_CONST_ROWS, each broadcast to the maxval's
-    shape) as the (6, C) ``qprep`` buffer, None where JAX has none."""
+    shape) as the (6, C) ``qprep`` buffer, None where JAX has none.  A
+    dict with the cast path's constants (``cast_probe``, whose dtype names
+    the format, and ``cast_scale`` ... ``cast_magic``) gives the (12, C)
+    buffer of ops/quantizer.fixed_consts."""
     if tree is None:
         return
     quantizer.load_state({k: np.array(v) for k, v in tree.get("q", {}).items()},
                          {k: np.array(v) for k, v in tree.get("est", {}).items()})
     c = (prep or {}).get("c")
     if c is None:
-        quantizer.qprep = None
+        quantizer.qprep = quantizer.cast_m = None
         return
+    c = dict(c)
+    names = FP8_CONST_ROWS
+    quantizer.cast_m = None
+    if "cast_probe" in c:
+        quantizer.cast_m = _CAST_PROBE_MBITS[np.asarray(c["cast_probe"]).dtype.name]
+        c["cast_mbits"] = float(quantizer.cast_m)
+        names += CAST_CONST_ROWS
     shape = quantizer.maxval.reshape(-1).shape
     quantizer.qprep = torch.stack([
         torch.broadcast_to(torch.as_tensor(np.array(c[k]), dtype=torch.float32)
                            .reshape(-1), shape)
-        for k in FP8_CONST_ROWS]).to(quantizer.maxval.device).contiguous()
+        for k in names]).to(quantizer.maxval.device).contiguous()
 
 
 def _load_int8_bake(mod, tree) -> None:

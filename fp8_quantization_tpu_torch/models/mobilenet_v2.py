@@ -41,7 +41,7 @@ from torch import nn
 from fp8_quantization_tpu_torch.device import resolve_device
 from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
 from fp8_quantization_tpu_torch.nn.factored import (
-    Factored, fadd, fmean, materialize, split)
+    Factored, fadd, fmean, materialize, split, storage_dtype)
 from fp8_quantization_tpu_torch.nn.layers import (
     QuantConv, QuantizedActivation, QuantLinear, layer_weight_spec)
 from fp8_quantization_tpu_torch.nn.quantizers import preparing
@@ -154,7 +154,9 @@ class QuantInvertedResidual(nn.Module):
             std["scale"].contiguous(), std["shift"].contiguous(),
             stp["scale"].contiguous(), stp["shift"].contiguous(),
             x_factor=xf if self.use_res else None, cfg=cfg)
-        return Factored(y, final["factor"]) if emit else y
+        # the kernel emits bfloat16, so this store changes nothing: it
+        # mirrors JAX's storage_dtype at the same place
+        return Factored(storage_dtype(y), final["factor"]) if emit else y
 
 
 class QuantizedMobileNetV2(nn.Module):

@@ -44,7 +44,7 @@ from torch import nn
 from fp8_quantization_tpu_torch.device import resolve_device
 from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
 from fp8_quantization_tpu_torch.nn.factored import (
-    Factored, fadd, fmax_pool, fmean, materialize)
+    Factored, fadd, fmax_pool, fmean, materialize, storage_dtype)
 from fp8_quantization_tpu_torch.nn.layers import (
     QuantConv, QuantizedActivation, QuantLinear, layer_weight_spec)
 from fp8_quantization_tpu_torch.ops.kernels import qstem
@@ -159,7 +159,9 @@ class QuantizedResNet(nn.Module):
         y = qstem.fused_quant_stem(x.contiguous(), self.stem.stem_operand(),
                                    st["a_consts"], st["scale"].contiguous(),
                                    st["shift"].contiguous(), cfg=kcfg)
-        return Factored(y, st["a_consts"][5, 0]) if emit else y
+        # the kernel emits bfloat16, so this store changes nothing: it
+        # mirrors JAX's storage_dtype at the same place
+        return Factored(storage_dtype(y), st["factor"]) if emit else y
 
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False):

@@ -19,7 +19,10 @@ lines 159-205, 284-291).  Under ``fused`` in fixed mode the attention runs
 ``qmatmul``; everywhere else the attention is the float32 chain (JAX lines
 117-125).  The patch embed and mlp1 (gelu) take the composed path on every
 engine, as in JAX.  In a prepared model (nn/bake.prepare_inference) the
-quantizers apply their stored constants (``qprep``) in fixed mode.
+quantizers apply their stored constants (``qprep``) in fixed mode.  Under
+``deploy_act_f8`` the token path carries 1-byte norms, which every reader
+(the LayerNorms, the residual adds, the cls slice, the linears) takes
+through ``factored.split`` / ``materialize``, exactly upcast.
 
 Not ported: the int8 stream layout (``seq_len``/``n_real``, the key mask,
 ``PrequantS8``, ``_i8_fast``; building the ViT under the int8 datapath

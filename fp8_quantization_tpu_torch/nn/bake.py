@@ -27,7 +27,9 @@ var = 1 - eps.  In float32 ``(1 - 1e-5) + 1e-5 == 1``, so the fold after
 the bake multiplies by exactly 1 and the shift is beta: the identity.
 
 ``bake_int8_weights`` mirrors the JAX function of that name (there lines
-135-175) for the int8 datapath.  Under an ``int8_mxu`` config the JAX
+135-175) for the int8 datapath; under ``int8_assume_signed`` (the model's
+config) it checks the claim against the baked signedness and raises with
+JAX's message for any unsigned grid.  Under an ``int8_mxu`` config the JAX
 ``bake_weights`` bakes nothing (its int8 route sows only ``baked_int8``),
 so evaluating afterwards with ``quant_w=False`` runs unquantized weights
 (ROADMAP.md, section C); the int8 bake is the one to use there, and the
@@ -38,7 +40,9 @@ model is evaluated with ``quant_w=True`` as before.
 an example input, with the ``quant_w`` / ``quant_a`` the deployment will
 use, stores every layer's fixed-mode scalar algebra (nn/layers.py,
 nn/quantizers.py) so that later forwards read it instead of recomputing
-it, with bit-identical results.  ``prepare_for_deployment`` is the bake,
+it, with bit-identical results; the cast path's constants
+(``deploy_cast_quant`` and the activation flags) are computed there, on
+the host values, as JAX computes them eagerly.  ``prepare_for_deployment`` is the bake,
 the prepare pass (``quant_w=False``) and nothing else;
 ``prepare_for_deployment_host`` runs it on the host CPU and puts the model
 back on its device.  Calibrating afterwards leaves the prepared constants
@@ -94,10 +98,21 @@ def bake_int8_weights(model: nn.Module) -> nn.Module:
     ``w_signed``), straight from its weight quantizer; returns the model.
     The layers then take these whatever ``quant_w`` is; evaluate with
     ``quant_w=True``."""
-    for layer in model.modules():
+    baked = []
+    for name, layer in model.named_modules():
         if (isinstance(layer, QuantizedLayerBase) and layer.config.quant_w
                 and int8_datapath(layer.config)):
             layer.w_int8, layer.w_delta, layer.w_signed = layer.int8_weights()
+            baked.append((name, layer))
+    cfg = getattr(model, "config", None)
+    if cfg is not None and getattr(cfg, "int8_assume_signed", False):
+        bad = [name.replace(".", "/") for name, layer in baked
+               if float(layer.w_signed) != 1.0]
+        if bad:
+            raise ValueError(
+                "int8_assume_signed=True but unsigned weight grids were "
+                f"baked for: {bad} — drop the flag or the offending "
+                "layers' unsigned ranges")
     return model
 
 

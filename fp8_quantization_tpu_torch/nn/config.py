@@ -3,9 +3,14 @@
 Mirrors ``fp8_quantization_tpu/nn/config.py`` (``LayerQuantConfig``,
 ``make_layer_config``) for FP8 and INT8 PTQ and QAT (``grad_scaling``,
 ``fp8_learn_maxval``, ``fp8_learn_mantissa_bits``, ``grad_estimator`` with
-its EWGS scaling and stacked-sigmoid alpha).  The TPU deployment flags of
-the JAX package that this port does not carry raise instead of being
-ignored.
+its EWGS scaling and stacked-sigmoid alpha) and the deployment flags:
+``deploy_cast_quant`` (weight and activation quantizers quantize by the
+IEEE cast once prepared, bit-exact), ``deploy_cast_ieee`` and
+``deploy_act_f8`` (activation quantizers: the cast is the whole
+quantizer, stored in bfloat16 or as the 1-byte array), ``conv_out_bf16``
+(a composed product re-quantized at once is stored in bfloat16) and
+``int8_assume_signed`` (the int8 route drops the unsigned-grid terms;
+nn/bake.bake_int8_weights checks the claim), with JAX's defaults, all off.
 """
 
 from __future__ import annotations
@@ -42,6 +47,12 @@ class LayerQuantConfig:
     ``bn_mode``: 'fp32_after' keeps BN after the quantized product;
     'folded' multiplies the BN scale into the weights before they are
     quantized and keeps only the folded shift (an inference-time mode).
+    ``conv_out_bf16``: in fixed mode a composed conv or linear whose output
+    its own quantizer re-quantizes at once into a ``Factored`` tensor
+    stores the float32 product in bfloat16, and the ops/int8 route returns
+    bfloat16 (JAX ``_conv_out_dtype``; the kernels ignore it, as JAX's do).
+    ``int8_assume_signed``: the int8 route takes every weight grid as
+    signed and drops its ``s_w`` terms (``ops/int8``).
     """
 
     weight_quant: QuantizerSpec = QuantizerSpec()
@@ -54,6 +65,8 @@ class LayerQuantConfig:
     engine: str = "parity"
     int8_mxu: bool = False
     bn_mode: str = "fp32_after"
+    conv_out_bf16: bool = False
+    int8_assume_signed: bool = False
 
     def __post_init__(self):
         if self.engine not in ENGINES:
@@ -72,15 +85,6 @@ class LayerQuantConfig:
 
     def fp32_acts(self) -> "LayerQuantConfig":
         return self.replace(quant_a=False)
-
-
-_NOT_PORTED = {
-    "deploy_cast_quant": "the IEEE-f8 cast fast path",
-    "deploy_act_f8": "f8 activation storage",
-    "deploy_cast_ieee": "the IEEE-f8 cast fast path",
-    "conv_out_bf16": "bf16 conv stores",
-    "int8_assume_signed": "the static signed-grid elision of the int8 route",
-}
 
 
 def make_layer_config(
@@ -111,19 +115,20 @@ def make_layer_config(
     int8_mxu: bool = False,
     bn_mode: str = "fp32_after",
     engine: str = "parity",
-    **not_ported,
+    conv_out_bf16: bool = False,
+    deploy_cast_quant: bool = False,
+    deploy_act_f8: bool = False,
+    int8_assume_signed: bool = False,
+    deploy_cast_ieee: bool = False,
 ) -> LayerQuantConfig:
     """Build a LayerQuantConfig from the JAX package's flag values; the same
     qmethod and FP8 options feed weight and act quantizers.  The MSE grid
     has ``num_candidates`` points for the weights and
     ``act_num_candidates`` (else ``num_candidates``) for the activations,
-    111 when neither is given."""
-    for name, value in not_ported.items():
-        if name not in _NOT_PORTED:
-            raise TypeError(f"unknown option {name!r}")
-        if value:
-            raise NotImplementedError(f"{name}: {_NOT_PORTED[name]} is not "
-                                      "ported yet")
+    111 when neither is given.  ``deploy_cast_quant`` sets both specs'
+    ``cast_fastpath``; ``deploy_cast_ieee`` and ``deploy_act_f8`` set the
+    activation spec's ``cast_fastpath`` with ``cast_ieee_subnorm`` or
+    ``store_f8`` (JAX there lines 152-162)."""
     qmethod = QMethod(qmethod)
     act_qmethod = QMethod(act_qmethod) if act_qmethod else qmethod
 
@@ -137,13 +142,19 @@ def make_layer_config(
                              learn_mantissa_bits=fp8_learn_mantissa_bits,
                              mse_include_mantissa_bits=fp8_mse_include_mantissa_bits,
                              allow_unsigned=fp8_allow_unsigned,
+                             cast_fastpath=deploy_cast_quant,
                              grad_estimator=GradientEstimator(grad_estimator).value,
                              ewgs_scaling=ewgs_scaling, ss_alpha=ss_alpha)
 
     act_kwargs = {} if act_momentum is None else {"momentum": act_momentum}
+    act_spec = _qspec(act_qmethod, n_bits_act or n_bits, False)
+    if deploy_cast_ieee:
+        act_spec = act_spec.replace(cast_fastpath=True, cast_ieee_subnorm=True)
+    if deploy_act_f8:
+        act_spec = act_spec.replace(cast_fastpath=True, store_f8=True)
     return LayerQuantConfig(
         weight_quant=_qspec(qmethod, n_bits, per_channel_weights),
-        act_quant=_qspec(act_qmethod, n_bits_act or n_bits, False),
+        act_quant=act_spec,
         weight_range=EstimatorSpec(kind=RangeEstimators(weight_range_method),
                                    percentile=percentile,
                                    num_candidates=num_candidates),
@@ -152,4 +163,5 @@ def make_layer_config(
                                 num_candidates=act_num_candidates or num_candidates,
                                 **act_kwargs),
         quantize_input=quantize_input, engine=engine, int8_mxu=int8_mxu,
-        bn_mode=bn_mode)
+        bn_mode=bn_mode, conv_out_bf16=conv_out_bf16,
+        int8_assume_signed=int8_assume_signed)

@@ -1,8 +1,8 @@
 """Factored activations: the engines' inter-layer interchange.
 
-Mirrors ``fp8_quantization_tpu/nn/factored.py`` (``Factored``, ``split``,
-``materialize``, ``fadd``, ``fmax_pool``, ``fmean``) with bf16 storage; the
-IEEE-f8 storage of ``deploy_act_f8`` is not ported.
+Mirrors ``fp8_quantization_tpu/nn/factored.py`` (``Factored``,
+``storage_dtype``, ``split``, ``materialize``, ``fadd``, ``fmax_pool``,
+``fmean``).
 
 A fake-quantized tensor is exactly ``norm * factor``: ``norm`` lies on the
 quantizer's normalized grid (an <= 8-bit significand for FP8, the integer
@@ -10,6 +10,14 @@ quantizer's normalized grid (an <= 8-bit significand for FP8, the integer
 exact in bfloat16) and ``factor`` is a per-tensor float32 scalar.  In fixed mode under the
 bf16 and fused engines layers exchange ``Factored`` pairs, so the next
 product runs on ``norm`` with no rounding and folds ``factor`` in after.
+
+``norm`` is stored in bfloat16, or under ``deploy_act_f8`` as the 1-byte
+array of the IEEE cast (ops/fp8.ieee_store): ``torch.float8_e5m2``,
+``torch.float8_e4m3fn``, or E3M4 codes in ``torch.bits8``, whose dtype
+is the format mark and takes no arithmetic.  Every reader goes through
+``upcast`` (``split``, ``materialize`` and the helpers here), an exact
+conversion to bfloat16; the kernels read bfloat16, as JAX's Pallas
+kernels take the f8 input upcast.
 """
 
 from __future__ import annotations
@@ -19,28 +27,47 @@ from typing import NamedTuple, Optional, Sequence, Tuple, Union
 import torch
 import torch.nn.functional as F
 
+from fp8_quantization_tpu_torch.ops.fp8 import ieee_decode
+
 
 class Factored(NamedTuple):
     """A fake-quantized NHWC tensor in normalized form: value == norm * factor."""
 
-    norm: torch.Tensor      # bfloat16, values on the normalized grid
+    norm: torch.Tensor      # bfloat16 or 1-byte (see the module docstring)
     factor: torch.Tensor    # float32 scalar
 
 
 MaybeFactored = Union[torch.Tensor, Factored]
 
 
+def storage_dtype(norm: torch.Tensor) -> torch.Tensor:
+    """The storage of a quantizer's normalized output: a 1-byte array as it
+    is, anything else in bfloat16 (JAX ``storage_dtype``)."""
+    if norm.element_size() == 1:
+        return norm
+    return norm.to(torch.bfloat16)
+
+
+def upcast(norm: torch.Tensor) -> torch.Tensor:
+    """A stored norm as exact bfloat16 (1-byte arrays decoded), others as
+    they are."""
+    if norm.element_size() == 1:
+        return ieee_decode(norm)
+    return norm
+
+
 def split(x: MaybeFactored) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """(operand, factor or None): the layer-entry unpacking."""
     if isinstance(x, Factored):
-        return x.norm, x.factor
+        return upcast(x.norm), x.factor
     return x, None
 
 
 def materialize(x: MaybeFactored) -> torch.Tensor:
-    """Full-scale float32 value."""
+    """Full-scale float32 value of a Factored tensor; a plain tensor as it
+    is."""
     if isinstance(x, Factored):
-        return x.norm.to(torch.float32) * x.factor
+        return upcast(x.norm).to(torch.float32) * x.factor
     return x
 
 
@@ -58,9 +85,11 @@ def max_pool_nhwc(x: torch.Tensor, window: int, stride: int,
 
 def fmax_pool(x: MaybeFactored, window: int, stride: int,
               padding: int) -> MaybeFactored:
-    """Max pool that stays factored: factor > 0, so max commutes with it."""
+    """Max pool that stays factored: factor > 0, so max commutes with it;
+    a 1-byte norm is upcast first, as in JAX."""
     if isinstance(x, Factored):
-        return Factored(max_pool_nhwc(x.norm, window, stride, padding), x.factor)
+        return Factored(max_pool_nhwc(upcast(x.norm), window, stride, padding),
+                        x.factor)
     return max_pool_nhwc(x, window, stride, padding)
 
 

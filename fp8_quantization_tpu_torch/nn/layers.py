@@ -84,9 +84,21 @@ the int8 route: there lines 845-847).  Under ``s2d='input'`` the input
 arrives s2d'd, (N, H/2, W/2, 4C), and the weight keeps its (F, C, 7, 7)
 geometry.
 
-Not ported, and rejected where they would be selected: cast fast paths, f8
-storage, grouped convs other than depthwise, the int8 datapath with
-depthwise convs (nn/config.py or the layers raise).
+The deployment flags (nn/config.py): the output quant stores its norm
+through ``factored.storage_dtype`` (1 byte under ``deploy_act_f8``) and
+every layer reads a ``Factored`` input through ``factored.split`` /
+``materialize``, which upcast it exactly; under ``conv_out_bf16`` a
+composed conv or linear whose output goes straight into its own output
+quant as a ``Factored`` tensor rounds its float32 product to bfloat16 and
+takes it back to float32 before the epilogue (JAX ``_conv_out_dtype``
+and its ``astype(float32)``, there lines 285-299, 1024-1030, 1241-1242),
+and the ops/int8 route returns bfloat16 with ``int8_assume_signed``
+passed on (there lines 969-970, 1213-1214).  The kernels ignore these
+flags, as the Pallas kernels do: they quantize on the exact grid, read
+bfloat16 and store a bfloat16 norm (the int8 kernels float32).
+
+Not ported, and rejected where they would be selected: grouped convs other
+than depthwise, the int8 datapath with depthwise convs (the layers raise).
 """
 
 from __future__ import annotations
@@ -162,17 +174,39 @@ def stage_state(config: LayerQuantConfig, quantizer: Quantizer,
                 factored_ok=factored_act_ok(config))
 
 
+def quantizes_output(config: LayerQuantConfig, quant_a: bool) -> bool:
+    """Whether a layer quantizes its output (not its input instead)."""
+    return quant_a and config.quant_a and not config.quantize_input
+
+
+def emits_factored(config: LayerQuantConfig, quant_a: bool, out: str) -> bool:
+    """Whether a layer's output quant emits a ``Factored`` tensor."""
+    return (quantizes_output(config, quant_a) and out == "factored"
+            and factored_act_ok(config))
+
+
 def quant_output(config: LayerQuantConfig, quantizer: Quantizer, y, mode,
                  quant_a: bool, out: str):
     """A layer's output quant (JAX ``_quant_out`` after the activation):
     ``Factored`` under ``out='factored'`` where the config allows it, the
     fake-quantized value otherwise, ``y`` itself when the layer quantizes
     its input instead or does not quantize."""
-    if quant_a and config.quant_a and not config.quantize_input:
-        if out == "factored" and factored_act_ok(config):
-            norm, factor = quantizer(y, mode=mode, out="factored")
-            return Factored(norm.to(torch.bfloat16), factor)
+    if emits_factored(config, quant_a, out):
+        norm, factor = quantizer(y, mode=mode, out="factored")
+        return Factored(factored.storage_dtype(norm), factor)
+    if quantizes_output(config, quant_a):
         return quantizer(y, mode=mode)
+    return y
+
+
+def round_conv_out(config: LayerQuantConfig, y, mode, quant_a: bool, out: str):
+    """A composed product ``y`` (float32) as the layer stores it: rounded to
+    bfloat16 under ``conv_out_bf16`` when the output goes straight into the
+    layer's own output quant as a ``Factored`` tensor in fixed mode (JAX
+    ``_conv_out_dtype``), then float32 again, as JAX casts it back before
+    the epilogue."""
+    if config.conv_out_bf16 and mode == "fixed" and emits_factored(config, quant_a, out):
+        return y.to(torch.bfloat16).to(torch.float32)
     return y
 
 
@@ -468,14 +502,19 @@ class QuantizedLayerBase(nn.Module):
         a = self._int8_args()
         if self._int8_fused():
             return qmatmul_int8.fused_quant_matmul_int8(
-                x2d.contiguous(), a["w"], a["w_delta"], a["w_scalars"],
-                a["a_scalars"], a["scale"], a["shift"],
+                x2d.to(torch.float32).contiguous(), a["w"], a["w_delta"],
+                a["w_scalars"], a["a_scalars"], a["scale"], a["shift"],
                 cfg=qmatmul_int8.Int8MatmulConfig(**a["kernel_cfg"]))
         return int8_ops.int8_matmul(
             x2d, self._int8_grid(a["w"], a["w_delta"], a["signed"]),
             a["w_delta"], a["signed"], a["a_delta"], a["a_zero"],
             self.config.act_quant.n_bits, scale=a["scale"], shift=a["shift"],
-            act_fn=get_activation(self.activation))
+            act_fn=get_activation(self.activation), **self._int8_flags())
+
+    def _int8_flags(self) -> dict:
+        """The ops/int8 route's deployment flags (JAX there lines 969-970)."""
+        return dict(out_bf16=self.config.conv_out_bf16,
+                    signed_static=self.config.int8_assume_signed)
 
     def _operand(self, kind: str, make):
         """A kernel weight operand derived from ``_kernel()``, rebuilt when
@@ -664,8 +703,9 @@ class QuantConv(QuantizedLayerBase):
                 enabled=True, allow_tf32=self.config.engine != "parity"):
             y = F.conv2d(xm.permute(0, 3, 1, 2), wm, stride=s, padding=p,
                          groups=self.groups)
-        y = self._affine_epilogue(y.permute(0, 2, 3, 1), w_factor, x_factor,
-                                  mode, train_bn)
+        y = round_conv_out(self.config, y.permute(0, 2, 3, 1), mode, quant_a,
+                           out)
+        y = self._affine_epilogue(y, w_factor, x_factor, mode, train_bn)
         return self._quant_out(y, mode, quant_a, out)
 
     def _s2d_applies(self, x) -> bool:
@@ -693,8 +733,8 @@ class QuantConv(QuantizedLayerBase):
         if (self._int8_fused() and k == 3 and p == 1 and s in (1, 2)
                 and cin % 16 == 0 and self.features % 16 == 0):
             return qconv_int8.fused_quant_conv3x3_int8(
-                x.contiguous(), a["w"], a["w_delta"], a["w_scalars"],
-                a["a_scalars"], a["scale"], a["shift"],
+                x.to(torch.float32).contiguous(), a["w"], a["w_delta"],
+                a["w_scalars"], a["a_scalars"], a["scale"], a["shift"],
                 cfg=qconv_int8.Int8ConvConfig(stride=s, **a["kernel_cfg"]))
         wsg = self._int8_grid(a["w"], a["w_delta"], a["signed"])
         return int8_ops.int8_conv(
@@ -702,7 +742,7 @@ class QuantConv(QuantizedLayerBase):
             a["w_delta"], a["signed"], a["a_delta"], a["a_zero"],
             self.config.act_quant.n_bits, stride=s, padding=p,
             scale=a["scale"], shift=a["shift"],
-            act_fn=get_activation(self.activation))
+            act_fn=get_activation(self.activation), **self._int8_flags())
 
     def _fused_conv3x3(self, x, quant_a, x_factor, out):
         """The qconv kernel route (JAX ``_pallas_conv3x3``)."""
@@ -775,7 +815,8 @@ class QuantLinear(QuantizedLayerBase):
         if x_factor is None:
             x, x_factor = self._quant_in_engine(x, mode, quant_a)
         xm, wm, w_factor = self._engine_operands(x, mode, quant_w)
-        y = xm.to(torch.float32) @ wm.t()
+        y = round_conv_out(self.config, xm.to(torch.float32) @ wm.t(), mode,
+                           quant_a, out)
         y = self._affine_epilogue(y, w_factor, x_factor, mode, train_bn)
         return self._quant_out(y, mode, quant_a, out)
 
@@ -844,6 +885,6 @@ class QuantizedActivation(nn.Module):
                 norm, factor = self.act_q(x, mode=mode,
                                           update_range=update_range,
                                           out="factored")
-                return Factored(norm.to(torch.bfloat16), factor)
+                return Factored(factored.storage_dtype(norm), factor)
             return self.act_q(x, mode=mode, update_range=update_range)
         return x

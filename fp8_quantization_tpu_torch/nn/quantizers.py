@@ -19,7 +19,11 @@ quantizer that the kernels take as their output quant (``act_consts``).
 Each is stored where the prepare pass's fixed-mode forward first computes
 it (``preparing``), so only the quantizers that forward uses are
 prepared, and both hold bit for bit what the unprepared path computes on
-every call.  Calibrating afterwards updates the state but not these
+every call.  A spec with ``cast_fastpath`` gets the cast constants in
+``qprep`` too (``(12, C)``, ``ops/quantizer.fixed_consts``), so its
+prepared fixed mode quantizes by the IEEE cast (the deployment flags of
+nn/config.py); ``kprep`` stays on the exact grid, as the JAX kernels
+quantize on it whatever the flags.  Calibrating afterwards updates the state but not these
 buffers: the prepared constants are then stale until the prepare pass runs
 again.
 
@@ -47,6 +51,9 @@ without its ``quant_noise`` stream.
 
 Outputs: ``out='apply'`` the fake-quantized tensor, ``'factored'``
 ``(x_norm, factor)`` on the normalized grid, ``'state'`` ``(x, state)``.
+A bfloat16 input is promoted to float32 first: in JAX its product with
+the float32 state is float32, where torch would keep bfloat16 for a
+0-dim operand.
 """
 
 from __future__ import annotations
@@ -58,6 +65,7 @@ from torch import nn
 
 from fp8_quantization_tpu_torch.calibration import estimators as est
 from fp8_quantization_tpu_torch.ops import quantizer as q
+from fp8_quantization_tpu_torch.ops.fp8 import cast_mbits as fp8_cast_mbits
 from fp8_quantization_tpu_torch.ops.kernels.common import pack_act_consts
 from fp8_quantization_tpu_torch.ops.rounding import make_discretizer
 
@@ -105,6 +113,9 @@ class Quantizer(nn.Module):
         self.register_buffer("qprep", None)
         self.register_buffer("kprep", None)
         self.noise_generator: Optional[torch.Generator] = None
+        # the cast format M of ``qprep``, recorded where it is set; None
+        # without the cast path
+        self.cast_m: Optional[int] = None
 
     def make_range_trainable(self, names=None) -> None:
         """Turn the state entries ``names`` (by default those that
@@ -160,6 +171,8 @@ class Quantizer(nn.Module):
                 update_range: bool = True, out: str = "apply"):
         if mode == "fp32":
             return x
+        if x.dtype in (torch.bfloat16, torch.float16):
+            x = x.to(torch.float32)
         if mode not in MODES:
             raise ValueError(f"quantizer mode must be one of {MODES}, not "
                              f"{mode!r}")
@@ -172,16 +185,28 @@ class Quantizer(nn.Module):
         disc = self._discretizer(mode)
         if mode == "fixed" and preparing(self):
             self.qprep = q.fixed_consts(self.spec, state)
+            self._record_cast_m()
         if mode == "fixed" and self.qprep is not None:
             return q.apply_prepared(self.spec, self.qprep, x,
                                     channel_axis=self.channel_axis,
-                                    factored=out == "factored")
+                                    factored=out == "factored",
+                                    cast_mbits=self.cast_m)
         if out == "factored":
             return q.apply_factored(self.spec, state, x,
                                     channel_axis=self.channel_axis,
                                     discretizer=disc)
         return q.apply(self.spec, state, x, channel_axis=self.channel_axis,
                        discretizer=disc)
+
+    def _record_cast_m(self) -> None:
+        """Record ``cast_m`` from ``qprep`` (one host read)."""
+        self.cast_m = (fp8_cast_mbits(self.qprep[6:])
+                       if self.qprep is not None
+                       and q.uses_cast(self.spec, self.qprep) else None)
+
+    def _load_from_state_dict(self, *args, **kwargs):
+        super()._load_from_state_dict(*args, **kwargs)
+        self._record_cast_m()
 
     def _discretizer(self, mode: str):
         """The rounding of the spec's gradient estimator (JAX

@@ -20,6 +20,19 @@ by default).
 fixed quantizer into a ``(6, C)`` tensor that the CUDA kernels read (see
 ``csrc/fq_epilogue.cuh``); the per-element arithmetic is the same as
 ``quantize_to_fp8``'s, so both give identical values.
+
+The deployment cast path (JAX lines 186-305): ``fp8_cast_consts`` /
+``fp8_quantize_cast`` evaluate the fixed quantizer as a division by
+``cast_scale = maxval / f8_max``, one saturating cast to the IEEE 1-byte
+format with M mantissa bits and, below its smallest normal, a
+magic-constant round; bit-exact against the exact pipeline, ties included.
+The formats (``IEEE_F8``): E5M2 is ``torch.float8_e5m2``; E4M3 is stored
+in ``torch.float8_e4m3fn``, whose grid below 240 is IEEE E4M3's, behind
+the clip at +-240 (the constants are IEEE's: ``finfo(float8_e4m3fn).max``
+is 448); E3M4 has no torch dtype, so it is rounded by exponent-field
+arithmetic and stored as its IEEE codes (the bytes of JAX's
+``float8_e3m4``) in ``torch.bits8``, a dtype that takes no arithmetic:
+``ieee_decode`` is the only way back to numbers.
 """
 
 from __future__ import annotations
@@ -294,3 +307,146 @@ def fp8_set_quant_range(x_min, x_max, *, allow_unsigned: bool = False):
     else:
         sign_bits = torch.ones((), dtype=torch.int32, device=x_min.device)
     return maxval, sign_bits
+
+
+# IEEE-style 1-byte formats (inf and nan at the top exponent code) by
+# mantissa bits: (f8_max, smallest_normal, storage dtype); JAX
+# ``fp8_cast_dtype``'s float8_e5m2, float8_e4m3 and float8_e3m4
+IEEE_F8 = {2: (57344.0, 2.0 ** -14, torch.float8_e5m2),
+           3: (240.0, 2.0 ** -6, torch.float8_e4m3fn),
+           4: (15.5, 2.0 ** -2, torch.bits8)}
+# rows of the cast constants, after the six FP8_CONST_ROWS of a prepared
+# quantizer that opts into the cast path (ops/quantizer.fixed_consts)
+CAST_CONST_ROWS = ("cast_scale", "cast_lo", "cast_hi", "cast_sn",
+                   "cast_magic", "cast_mbits")
+
+
+def fp8_cast_consts(maxval: torch.Tensor, mantissa_bits, n_bits: int = 8,
+                    sign_bits=1):
+    """The cast path's constants as a ``(6, C)`` float32 tensor (rows
+    ``CAST_CONST_ROWS``), or None where the path does not apply: n_bits
+    other than 8, an unsigned grid, or M outside {2, 3, 4}.  Eligibility
+    reads the values on the host (JAX checks concrete values too).
+
+    ``cast_scale = maxval / f8_max`` equals the exact pipeline's factor
+    over a power of two, so a division by it (never a reciprocal multiply,
+    which flips about 2% of ties) rounds on the same mantissa; the IEEE
+    grid covers every binade but the region below ``smallest_normal``,
+    where the paper's grid is uniform with step ``h = sn * 2^-(M+1)`` and
+    ``(y + 1.5*2^23*h) - 1.5*2^23*h`` rounds to it, ties to even."""
+    if n_bits != 8 or int(torch.as_tensor(sign_bits)) != 1:
+        return None
+    mb = int(round(float(torch.as_tensor(mantissa_bits))))
+    if mb not in IEEE_F8:
+        return None
+    f8_max, sn, _ = IEEE_F8[mb]
+    maxval = torch.as_tensor(maxval, dtype=torch.float32).reshape(-1)
+    h = sn * 2.0 ** -(mb + 1)
+    rows = [torch.full_like(maxval, v) for v in (
+        f8_max, -f8_max, f8_max, sn, 1.5 * 2.0 ** 23 * h, float(mb))]
+    # a tensor divisor: CUDA divides by a Python number as a multiply by
+    # its reciprocal, which is an ulp off the exact factor over 2^k
+    rows[0] = maxval / rows[0]
+    return torch.stack(rows).contiguous()
+
+
+def cast_mbits(c: torch.Tensor) -> int:
+    """The mantissa bits of cast constants ``c`` (a host read)."""
+    return int(c[5, 0])
+
+
+def _e3m4_round(y: torch.Tensor) -> torch.Tensor:
+    """y (float32, within +-15.5) rounded to the IEEE E3M4 grid, ties to
+    even: the step is 2^(e - 4) in binade e >= -2 and the subnormal step
+    2^-6 below; every operation but the round is exact."""
+    e = torch.clamp(_floor_log2_exact(torch.abs(y)), min=-2.0)
+    step = _exp2_int_exact(e - 4.0)
+    return torch.round(y / step) * step
+
+
+def _e3m4_encode(q: torch.Tensor) -> torch.Tensor:
+    """E3M4 grid values (float32) -> their IEEE codes as ``torch.bits8``:
+    sign, the exponent biased by 3, four mantissa bits; subnormals
+    (below 2^-2) have exponent code 0 and mantissa q * 64."""
+    sign = (q.view(torch.int32) >> 24) & 0x80
+    a = torch.abs(q)
+    bits = a.view(torch.int32)
+    normal = (((bits >> 23) - 124) << 4) | ((bits >> 19) & 0xF)
+    code = torch.where(a >= 0.25, normal, (a * 64.0).to(torch.int32)) | sign
+    return code.to(torch.uint8).view(torch.bits8)
+
+
+_E3M4_TABLES = {}
+
+
+def _e3m4_table(device) -> torch.Tensor:
+    """The 256 E3M4 code values as float32 on ``device`` (built once)."""
+    key = str(device)
+    if key not in _E3M4_TABLES:
+        codes = np.arange(256)
+        e, m = (codes >> 4) & 7, (codes & 15).astype(np.float64)
+        v = np.where(e == 0, m * 2.0 ** -6, 2.0 ** (e - 3.0) * (1.0 + m / 16))
+        v = np.where(e == 7, np.where(m == 0, np.inf, np.nan), v)
+        v = np.where(codes & 0x80, -v, v)
+        _E3M4_TABLES[key] = torch.tensor(v, dtype=torch.float32, device=device)
+    return _E3M4_TABLES[key]
+
+
+def ieee_decode(norm: torch.Tensor) -> torch.Tensor:
+    """A 1-byte cast-path tensor as exact bfloat16 values (E3M4 codes
+    through the code table, the torch f8 dtypes by their own cast)."""
+    if norm.dtype == torch.bits8:
+        codes = norm.view(torch.uint8).to(torch.int64)
+        return _e3m4_table(norm.device)[codes].to(torch.bfloat16)
+    return norm.to(torch.bfloat16)
+
+
+def ieee_store(y: torch.Tensor, mbits: int) -> torch.Tensor:
+    """float32 y (within +-f8_max) as the 1-byte IEEE format with ``mbits``
+    mantissa bits, rounded to nearest even: JAX ``y.astype(f8)``."""
+    if mbits == 4:
+        return _e3m4_encode(_e3m4_round(y))
+    return y.to(IEEE_F8[mbits][2])
+
+
+def ieee_round(y: torch.Tensor, mbits: int) -> torch.Tensor:
+    """``ieee_store`` read back as float32 values."""
+    if mbits == 4:
+        return _e3m4_round(y)
+    return y.to(IEEE_F8[mbits][2]).to(torch.float32)
+
+
+def fp8_quantize_cast(x: torch.Tensor, c: torch.Tensor, *,
+                      channel_axis: int = -1, normalized: bool = False,
+                      store_f8: bool = False, ieee_subnorm: bool = False,
+                      mbits=None):
+    """Fixed FP8 fake-quant of float32 ``x`` by the saturating IEEE cast,
+    from ``fp8_cast_consts`` output ``c`` (per channel along
+    ``channel_axis`` when ``c`` has C > 1 columns); ``mbits``, when given,
+    spares the host read of ``c``'s format.
+
+    ``normalized`` returns ``fake_quant(x) / cast_scale`` in bfloat16 (an
+    <= (M+1)-bit significand, exact) with ``factor = cast_scale``.
+    ``store_f8`` (with ``normalized``) returns the 1-byte array itself
+    (``ieee_store``): values below ``smallest_normal`` then land on the IEEE
+    subnormal grid, whose step is twice the paper grid's bottom step.
+    ``ieee_subnorm``: the same values as ``store_f8``, stored as the other
+    modes store them."""
+    mbits = cast_mbits(c) if mbits is None else mbits
+    c = c.to(x.device)   # a CPU 0-dim divisor would be a reciprocal multiply
+    if c.shape[1] > 1:
+        shape = [1] * x.ndim
+        shape[channel_axis] = c.shape[1]
+        scale, lo, hi, sn, magic = (r.reshape(shape) for r in c[:5])
+    else:
+        scale, lo, hi, sn, magic = c[:5, 0]
+    y = torch.clamp(x / scale, lo, hi)
+    if store_f8:
+        assert normalized, "store_f8 is a normalized-storage mode"
+        return ieee_store(y, mbits)
+    q = ieee_round(y, mbits)
+    if not ieee_subnorm:
+        q = torch.where(torch.abs(y) < sn, (y + magic) - magic, q)
+    if normalized:
+        return q.to(torch.bfloat16)
+    return q * scale

@@ -1,8 +1,8 @@
 """The s8 x s8 -> s32 convolution and matmul as torch functions.
 
 Mirrors ``fp8_quantization_tpu/ops/int8.py`` (``int8_conv``,
-``int8_matmul``, lines 41-227) without ``signed_static``, ``emit_s8``,
-``out_bf16`` and ``prequant_s8`` (TPU deploy levers), and
+``int8_matmul``, lines 41-227, with ``out_bf16`` and ``signed_static``;
+without the ViT's ``emit_s8`` and ``prequant_s8``), and
 ``int8_shifted_grid`` of ``ops/pallas/qmatmul.py`` (lines 123-134).  The
 JAX package runs these through XLA on its 'parity' and 'bf16' engines; here
 they are the CPU reference and, under 'fused', the ResNet stem's route.
@@ -21,6 +21,12 @@ are exact: in float32 with TF32 off where every partial sum stays below
 cuDNN has no Winograd or FFT algorithm for it, which would not be exact);
 in float64 elsewhere.  The float32 epilogue then follows the JAX order
 (there lines 149-158 and 206-220), so the results equal JAX's.
+
+``out_bf16`` (config ``conv_out_bf16``) returns the result as a bfloat16
+tensor, as JAX does; its consumers promote it to float32 where JAX's
+would (nn/quantizers.py).  ``signed_static`` (config
+``int8_assume_signed``, checked by nn/bake.bake_int8_weights) drops the
+``S_w`` terms, zero for a signed grid.
 """
 
 from __future__ import annotations
@@ -64,13 +70,15 @@ def _exact_dtype(k: int, strided: bool = True) -> torch.dtype:
     return torch.float32 if k * 2 ** 14 < 2 ** 24 and strided else torch.float64
 
 
-def _epilogue(y, delta_x, w_delta, scale, shift, act_fn):
+def _epilogue(y, delta_x, w_delta, scale, shift, act_fn, out_bf16):
     y = y * (delta_x * torch.clamp(w_delta, min=1e-8))
     if scale is not None:
         y = y * scale
     if shift is not None:
         y = y + shift
-    return act_fn(y) if act_fn is not None else y
+    if act_fn is not None:
+        y = act_fn(y)
+    return y.to(torch.bfloat16) if out_bf16 else y
 
 
 def int8_conv(x: torch.Tensor, wsg: torch.Tensor, w_delta: torch.Tensor,
@@ -78,14 +86,15 @@ def int8_conv(x: torch.Tensor, wsg: torch.Tensor, w_delta: torch.Tensor,
               a_bits: int, stride: int = 1, padding: int = 1,
               scale: Optional[torch.Tensor] = None,
               shift: Optional[torch.Tensor] = None,
-              act_fn: Optional[Callable] = None) -> torch.Tensor:
+              act_fn: Optional[Callable] = None, out_bf16: bool = False,
+              signed_static: bool = False) -> torch.Tensor:
     """Convolution equal to the fake-quant chain.
 
     x: (N, H, W, Cin) float32.  wsg: (Cout, Cin, kh, kw) int8 on the
     recentred grid.  w_delta: (Cout,) weight step; signed: 0/1 float scalar;
     a_delta / a_zero: the asymmetric activation quantizer's step and zero;
     scale / shift: the folded BN or bias, ``y*scale + shift``; act_fn last.
-    Returns float32 (N, Ho, Wo, Cout)."""
+    Returns float32 (N, Ho, Wo, Cout), bfloat16 under ``out_bf16``."""
     cout, cin, kh, kw = wsg.shape
     delta_x, zp = act_int_params(a_delta, a_zero, a_bits)
     xs = quantize_act(x, delta_x, zp, a_bits).permute(0, 3, 1, 2)
@@ -94,17 +103,23 @@ def int8_conv(x: torch.Tensor, wsg: torch.Tensor, w_delta: torch.Tensor,
     xs = F.pad(xs - pad0, (padding,) * 4) + pad0
     k_taps = kh * kw * cin
     dt = _exact_dtype(k_taps, strided=stride > 1)
-    ones = torch.ones((1, 1, kh, kw), dtype=dt, device=x.device)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         acc = F.conv2d(xs.to(dt), wsg.to(dt), stride=stride)
-        rows = F.conv2d(xs.sum(dim=1, keepdim=True).to(dt), ones, stride=stride)
     acc = acc.to(torch.float32).permute(0, 2, 3, 1)
-    rows = rows.to(torch.float32).permute(0, 2, 3, 1)
     colsum = wsg.to(torch.int32).sum(dim=(1, 2, 3)).to(torch.float32)
-    s_w = 128.0 * (1.0 - signed)
-    y = (acc + s_w * rows + (128.0 - zp) * colsum
-         + float(k_taps) * (128.0 - zp) * s_w)
-    return _epilogue(y, delta_x, w_delta, scale, shift, act_fn).contiguous()
+    if signed_static:
+        y = acc + (128.0 - zp) * colsum
+    else:
+        ones = torch.ones((1, 1, kh, kw), dtype=dt, device=x.device)
+        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+            rows = F.conv2d(xs.sum(dim=1, keepdim=True).to(dt), ones,
+                            stride=stride)
+        rows = rows.to(torch.float32).permute(0, 2, 3, 1)
+        s_w = 128.0 * (1.0 - signed)
+        y = (acc + s_w * rows + (128.0 - zp) * colsum
+             + float(k_taps) * (128.0 - zp) * s_w)
+    return _epilogue(y, delta_x, w_delta, scale, shift, act_fn,
+                     out_bf16).contiguous()
 
 
 def int8_matmul(x2d: torch.Tensor, wsg: torch.Tensor, w_delta: torch.Tensor,
@@ -112,10 +127,11 @@ def int8_matmul(x2d: torch.Tensor, wsg: torch.Tensor, w_delta: torch.Tensor,
                 a_zero: torch.Tensor, a_bits: int,
                 scale: Optional[torch.Tensor] = None,
                 shift: Optional[torch.Tensor] = None,
-                act_fn: Optional[Callable] = None) -> torch.Tensor:
+                act_fn: Optional[Callable] = None, out_bf16: bool = False,
+                signed_static: bool = False) -> torch.Tensor:
     """(M, K) x (K, N) on the recentred grid; ``wsg`` is (N, K) int8 (torch's
     Linear layout).  Arguments otherwise as ``int8_conv``; returns float32
-    (M, N)."""
+    (M, N), bfloat16 under ``out_bf16``."""
     k = x2d.shape[-1]
     delta_x, zp = act_int_params(a_delta, a_zero, a_bits)
     xs = quantize_act(x2d, delta_x, zp, a_bits)
@@ -125,7 +141,8 @@ def int8_matmul(x2d: torch.Tensor, wsg: torch.Tensor, w_delta: torch.Tensor,
         acc = xs.to(dt) @ wsg.to(dt).t()
     colsum = wsg.to(torch.int32).sum(dim=1).to(torch.float32)
     y = acc.to(torch.float32) + (128.0 - zp) * colsum
-    s_w = 128.0 * (1.0 - signed)
-    rowsum = s_w * xs.to(torch.int32).sum(dim=-1).to(torch.float32)
-    y = y + rowsum[:, None] + k * (128.0 - zp) * s_w
-    return _epilogue(y, delta_x, w_delta, scale, shift, act_fn)
+    if not signed_static:
+        s_w = 128.0 * (1.0 - signed)
+        rowsum = s_w * xs.to(torch.int32).sum(dim=-1).to(torch.float32)
+        y = y + rowsum[:, None] + k * (128.0 - zp) * s_w
+    return _epilogue(y, delta_x, w_delta, scale, shift, act_fn, out_bf16)

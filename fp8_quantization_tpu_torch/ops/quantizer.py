@@ -9,8 +9,10 @@ Mirrors ``fp8_quantization_tpu/ops/quantizer.py``: ``QMethod``,
 the straight-through round by default, or the QAT estimator that the
 spec's ``grad_estimator`` names (chosen by nn/quantizers.py).  ``fixed_consts`` freezes a fixed FP8 quantizer's
 scalar algebra into the ``(6, C)`` layout of ``ops/fp8.fp8_consts``, which
-the kernels also read; the IEEE-f8 cast constants of JAX's
-``cast_fastpath`` are not ported (nn/config.py raises for those flags).  Uniform state is ``delta`` with
+the kernels also read; a spec that opts into the deployment cast path
+(``cast_fastpath``, JAX lines 211-248) gets the six rows of
+``ops/fp8.fp8_cast_consts`` below them where it is eligible, and
+``apply_prepared`` then quantizes by the cast.  Uniform state is ``delta`` with
 ``signed`` (symmetric) or ``zero_float`` (asymmetric); ``apply_factored``
 gives the bare integers ``x_int`` (symmetric) or ``x_int - zp``
 (asymmetric), exact in bfloat16, and the step as the factor.
@@ -42,8 +44,7 @@ class QMethod(str, enum.Enum):
 
 @dataclasses.dataclass(frozen=True)
 class QuantizerSpec:
-    """Static quantizer configuration (the JAX spec without its TPU cast
-    fast paths)."""
+    """Static quantizer configuration (the JAX spec)."""
 
     method: QMethod = QMethod.fp_quantizer
     n_bits: int = 8
@@ -58,6 +59,16 @@ class QuantizerSpec:
     learn_mantissa_bits: bool = False    # QAT: mantissa_bits trainable
     mse_include_mantissa_bits: bool = True   # the MSE search's mantissa sweep
     allow_unsigned: bool = False
+    # deployment, fixed mode, prepared: quantize by one saturating cast to
+    # the IEEE 1-byte format (ops/fp8.fp8_quantize_cast), bit-exact against
+    # the exact pipeline; n_bits 8, signed, M in {2, 3, 4}, else exact
+    cast_fastpath: bool = False
+    # activations (with cast_fastpath): factored outputs stored as the
+    # 1-byte array itself; below smallest_normal the IEEE subnormal grid
+    store_f8: bool = False
+    # activations (with cast_fastpath): the cast is the whole quantizer,
+    # store_f8's values in bfloat16 storage
+    cast_ieee_subnorm: bool = False
     # QAT gradient estimator of the rounding (ops/rounding.GradientEstimator):
     # "ste" | "stoch_round" | "ewgs" | "stacked_sigmoid"
     grad_estimator: str = "ste"
@@ -162,28 +173,62 @@ def apply_factored(spec: QuantizerSpec, state: QuantState, x: torch.Tensor, *,
 def fixed_consts(spec: QuantizerSpec, state: QuantState):
     """The scalar algebra of a fixed FP8 quantizer, computed once: a ``(6,
     C)`` float32 tensor (rows ``ops/fp8.FP8_CONST_ROWS``, ``C`` = 1 per
-    tensor), or None for the uniform methods (JAX prepares FP8 only)."""
+    tensor), with the six ``ops/fp8.CAST_CONST_ROWS`` below (``(12, C)``)
+    when the spec opts into the cast path and the state is eligible; None
+    for the uniform methods (JAX prepares FP8 only)."""
     if not spec.is_fp8:
         return None
-    return fp8_ops.fp8_consts(state["maxval"], state["mantissa_bits"],
-                              spec.n_bits, state["sign_bits"])
+    consts = fp8_ops.fp8_consts(state["maxval"], state["mantissa_bits"],
+                                spec.n_bits, state["sign_bits"])
+    if spec.cast_fastpath:
+        cast = fp8_ops.fp8_cast_consts(state["maxval"], state["mantissa_bits"],
+                                       spec.n_bits, state["sign_bits"])
+        if cast is not None:
+            consts = torch.cat([consts, cast.expand(-1, consts.shape[1])])
+    return consts
+
+
+def uses_cast(spec: QuantizerSpec, consts: torch.Tensor) -> bool:
+    """Whether ``apply_prepared`` quantizes by the cast: the spec opts in
+    and ``consts`` carry the cast rows."""
+    return spec.cast_fastpath and consts.shape[0] == 12
 
 
 def apply_prepared(spec: QuantizerSpec, consts: torch.Tensor, x: torch.Tensor,
-                   *, channel_axis: int = -1, factored: bool = False):
+                   *, channel_axis: int = -1, factored: bool = False,
+                   cast_mbits=None):
     """Fixed-mode FP8 fake-quant from ``fixed_consts`` output: the values of
     ``apply`` (or, with ``factored``, ``apply_factored``) on the same
     state, with no scalar algebra per call.  The factor of a per-tensor
     quantizer is a scalar, of a per-channel one ``(C,)`` broadcast along
-    ``channel_axis``."""
+    ``channel_axis``.  Where ``uses_cast``, the cast path
+    (``ops/fp8.fp8_quantize_cast``; ``cast_mbits`` spares its host read of
+    the format): the same values, but a factored output's norm and factor
+    are the exact ones scaled by a power of two, ``store_f8`` stores the
+    norm in one byte and ``cast_ieee_subnorm`` rounds to the IEEE grid
+    below its smallest normal."""
     assert spec.is_fp8, "the prepared path is FP8 only"
+    if uses_cast(spec, consts):
+        c = consts[6:]
+        kw = dict(channel_axis=channel_axis, ieee_subnorm=spec.cast_ieee_subnorm,
+                  mbits=cast_mbits)
+        if not factored:
+            return fp8_ops.fp8_quantize_cast(x, c, **kw)
+        return (fp8_ops.fp8_quantize_cast(x, c, normalized=True,
+                                          store_f8=spec.store_f8, **kw),
+                _row(c, 0, x.ndim, channel_axis))
     if not factored:
         return fp8_ops.fp8_quantize_prepared(x, consts, channel_axis=channel_axis)
     x_norm = fp8_ops.fp8_quantize_prepared(x, consts, channel_axis=channel_axis,
                                            normalized=True)
-    factor = consts[5, 0] if consts.shape[1] == 1 else broadcast(
-        consts[5], x.ndim, channel_axis)
-    return x_norm, factor
+    return x_norm, _row(consts, 5, x.ndim, channel_axis)
+
+
+def _row(consts, i, x_ndim, channel_axis):
+    """Row ``i`` of prepared constants: a scalar per tensor, else ``(C,)``
+    broadcast along ``channel_axis``."""
+    return consts[i, 0] if consts.shape[1] == 1 else broadcast(
+        consts[i], x_ndim, channel_axis)
 
 
 def set_quant_range(spec: QuantizerSpec, state: QuantState, x_min,

@@ -160,9 +160,10 @@ def test_grid_oracles_match():
 
 
 def test_not_ported_methods_raise():
-    """What still raises: the TPU deployment flags of make_layer_config.
-    QAT's flags and LSQ gradient scaling are ported (and held against JAX
-    in tests/test_torch_rounding.py)."""
+    """Nothing of make_layer_config raises any more: QAT's flags and LSQ
+    gradient scaling (held against JAX in tests/test_torch_rounding.py) and
+    the deployment flags (tests/test_torch_deploy_flags.py) build; an
+    unknown option is a TypeError."""
     from fp8_quantization_tpu_torch.nn.config import make_layer_config
     from fp8_quantization_tpu_torch.ops import uniform as tuni
     y = tuni.quantize_uniform_symmetric(torch.ones(3), torch.tensor(0.1),
@@ -172,5 +173,7 @@ def test_not_ported_methods_raise():
         make_layer_config(**{flag: True})
     for flag in ("deploy_cast_quant", "deploy_act_f8", "deploy_cast_ieee",
                  "conv_out_bf16", "int8_assume_signed"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            make_layer_config(**{flag: True})
+        cfg = make_layer_config(**{flag: True})
+        assert cfg != make_layer_config(), flag
+    with pytest.raises(TypeError):
+        make_layer_config(no_such_flag=True)
