@@ -15,8 +15,11 @@ bench.py's five rows with their deployment flags on 'bf16' and 'fused'.  Every
 slice deploys
 through the CLI's prepare pass (nn/bake.prepare_inference), and every phase
 that runs a slice's models after it (fused against bf16, throughput,
-profile) runs the prepared forward.  Phases, one JSON line each (a failed phase
-prints "ok": false and the script exits 1 without the final result line):
+profile) runs the prepared forward.  Every phase but the last runs under the
+kernel gate's 'always' mode (ops/kernels/autotune.py: each kernel of its path
+launches, as before the gate); the last, gate, runs the user's default,
+'auto'.  Phases, one JSON line each (a failed phase prints "ok": false and
+the script exits 1 without the final result line):
 
 1. env        - card name and power limit (nvidia-smi), torch and nvcc
                 versions, the kernels' build from csrc/ (one nvcc per
@@ -295,9 +298,28 @@ prints "ok": false and the script exits 1 without the final result line):
                 the 'bf16' ones, images/s against the float32 forward
                 (quantization off, bf16 images) at the same batch, peak
                 memory, the card's name and power limit.
+20. gate       - the kernel gate's default, 'auto', from an empty live cache
+                (a temporary file): ResNet-18 FP8, MobileNetV2
+                FP8 fp32_after, ViT-S/16 FP8 and ResNet-18 INT8 input
+                quant (GATE_MODELS) through validate-quantized at batch 64,
+                whose first evaluation batch races each kernel against its
+                composed route at each new shape.  One line per model: the
+                launches of the evaluation batches and of one prepared
+                forward equal what the gates' answers imply, whatever the
+                verdicts (the launches inside the races and the prepare
+                pass apart); the prepare passes race and record nothing;
+                the prepared fused logits bit-equal to the unprepared ones
+                and held against bf16 as the slice phases hold them;
+                images/s under auto, always and bf16, in turns (on the
+                INT8 row, auto's images/s over always's in the same round
+                at least 0.9, the median of the rounds); the host
+                microseconds of one forward's warm gate calls.  Then the
+                cache file reloaded answers the four prepared forwards with
+                zero races and the same verdicts; one line per verdict
+                (kernel and composed ms) and the phase's line.
 
 Then a {"kernels": [...]} line (launches: the sum over the main-path runs
-of phases 4, 5, 8, 9, 10, 12, 13, 15 and 19; times: the FP8 forwards of
+of phases 4, 5, 8, 9, 10, 12, 13, 15, 19 and 20 (outside the races); times: the FP8 forwards of
 phases 6, 8 and 9; max_abs_err over every check, phase 19's replays
 included), the nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {...}}.  The plain versions run with TF32 off.
@@ -3572,12 +3594,324 @@ def phase_deploy_rows(results):
     return ok
 
 
+# the kernel gate's default (phase gate): one model each, its CLI args,
+# its head layer, how fused is held against bf16 (GATE_JUDGES) and whether
+# it evaluates with quant_w (the int8 bake)
+GATE_MODELS = (("resnet18", CLI_ARGS, "fc", "step", False),
+               ("mnv2_fp32_after", mnv2_cli_args("fp32_after"), "classifier", "step",
+                False),
+               ("vit", VIT_CLI_ARGS, "head", "floor", False),
+               ("resnet18_int8", INT8_CLI_ARGS, "fc", "int8", True))
+# each gate of ops/kernels/autotune.py and the kernel its "kernel" answer launches
+GATE_KERNELS = {"pallas_wins": "qmatmul", "int8_matmul_wins": "qmatmul_int8",
+                "conv3_group": "qconv3x3", "conv3_int8_group": "qconv3x3_int8",
+                "dw_group": "qdwconv3x3", "stem_group": "qstem", "attn_wins": "flash_mha",
+                "ir_group": "qblock"}
+GATE_MODES = ("auto", "always", "bf16")        # the throughput turns' order
+GATE_TURNS = 4                     # pairs of turns (THROUGHPUT_TURNS' 2 spread too wide)
+GATE_ITERS = 10                    # forwards per timed turn
+# auto's images/s on the INT8 row may fall below always's by at most this
+# share (median of the rounds' ratios): the two run the same routes where
+# every verdict is "kernel", and the ratio of identical routes read
+# 1.00-1.08 in its medians (PERF.md §6, runs R1, R2); a route the gate
+# wrongly kept off the card, as JAX's unraced int8 1x1 rule did, cost 17%
+GATE_INT8_SLACK = 0.10
+
+
+def gate_of(key):
+    """The gate whose cache key ``key`` is (ops/kernels/autotune.py's key
+    forms)."""
+    if not isinstance(key[0], str):
+        return "pallas_wins"
+    tags = (("irb", "ir_group"), ("ig", "conv3_int8_group"), ("im", "int8_matmul_wins"),
+            ("c", "conv3_group"), ("d", "dw_group"), ("s", "stem_group"),
+            ("a", "attn_wins"))
+    return next(gate for tag, gate in tags if key[0].startswith(tag))
+
+
+class GateWatch:
+    """While active: tallies, per kernel, the gates' "kernel" answers given
+    outside a race (``kernel``: the launches those answers imply), counts
+    the races (``races``, a block's race holding its layers' races) and the
+    kernel launches made inside them (``race_launches``), the gate calls
+    made outside a race and the host seconds spent in them (``calls``,
+    ``gate_s``), and records each prepare pass's races, new verdicts and
+    launches (``prepares``)."""
+
+    def __enter__(self):
+        from fp8_quantization_tpu_torch.nn import bake
+        from fp8_quantization_tpu_torch.ops import kernels
+        from fp8_quantization_tpu_torch.ops.kernels import autotune
+        self.kernel = dict.fromkeys(kernels.WRAPPERS, 0)
+        self.races = self.depth = self.calls = 0
+        self.gate_s = 0.0
+        self.race_launches = dict.fromkeys(kernels.WRAPPERS, 0)
+        self.prepares = []
+        self.saved = []
+
+        def patch(mod, attr, make):
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+            setattr(mod, attr, make(fn))
+
+        def tally(kname):
+            def make(gate):
+                def run(*a, **kw):
+                    if self.depth:          # a gate inside a block's race
+                        return gate(*a, **kw)
+                    races, t0 = self.races, time.perf_counter()
+                    answer = gate(*a, **kw)
+                    if self.races == races:     # a warm call, no race in it
+                        self.gate_s += time.perf_counter() - t0
+                        self.calls += 1
+                    first = answer[0] if isinstance(answer, tuple) else answer
+                    self.kernel[kname] += int(bool(first))
+                    return answer
+                return run
+            return make
+
+        def race(fn):
+            def run(*a, **kw):
+                before = kernels.launch_counts()
+                self.depth += 1
+                try:
+                    win = fn(*a, **kw)
+                finally:
+                    self.depth -= 1
+                self.races += 1
+                if not self.depth:
+                    for k, n in kernels.launch_counts().items():
+                        self.race_launches[k] += n - before[k]
+                return win
+            return run
+
+        def prepare(fn):
+            def run(*a, **kw):
+                import torch
+                races, known = self.races, autotune.decisions()
+                before = kernels.launch_counts()
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+                self.prepares.append({
+                    "races": self.races - races,
+                    "new_verdicts": len(autotune.decisions()) - len(known),
+                    "launches": {k: n - before[k]
+                                 for k, n in kernels.launch_counts().items()}})
+                return out
+            return run
+
+        for gate, kname in GATE_KERNELS.items():
+            patch(autotune, gate, tally(kname))
+        patch(autotune, "_race", race)
+        patch(bake, "prepare_inference", prepare)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, attr, fn in reversed(self.saved):
+            setattr(mod, attr, fn)
+
+
+def gate_judge(kind, head_q, fused, bf16, xs, quant_w):
+    """(ok, line fields): the prepared fused logits against bf16's to the
+    slice phases' bounds: "step" as phase 4 (top-1 >= 99%, >= 98% within
+    one step of the head's output quantizer), "int8" as phase 5 (top-1 >=
+    99%, >= 98% within rtol = atol = 1e-3), "floor" as vit_slice (the rms
+    gap over the logits' spread at most twice the one-ulp floor of bf16)."""
+    import torch
+    with torch.no_grad():
+        a = torch.cat([fused(x, mode="fixed", quant_w=quant_w) for x in xs])
+        b = torch.cat([bf16(x, mode="fixed", quant_w=quant_w) for x in xs])
+        finite = bool(torch.isfinite(a).all())
+        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        if kind == "floor":
+            b_ulp = torch.cat([bf16(torch.nextafter(x, torch.full_like(x, math.inf)),
+                                    mode="fixed", quant_w=quant_w) for x in xs])
+            gap, floor = logit_gap(a, b), logit_gap(b_ulp, b)
+            return finite and gap <= 2 * floor, {
+                "top1_agree_vs_bf16": agree, "logit_gap_vs_bf16": gap,
+                "bf16_one_ulp_floor": floor}
+        tol = (logit_step(head_q, a, b) if kind == "step"
+               else 1e-3 + 1e-3 * b.abs())
+        within = float(((a - b).abs() <= tol).float().mean())
+    return finite and agree >= 0.99 and within >= 0.98, {
+        "top1_agree_vs_bf16": agree, "logits_within_bound_vs_bf16": within}
+
+
+def gate_throughput(fused, bf16, x, quant_w):
+    """Images/s of the prepared fused model under the gate's auto and always
+    modes and of bf16, in turns (auto, always, bf16, bf16, always, auto, ...)
+    as phase_throughput takes them; from the median of the turns and from
+    the best turn (``*_best_images_per_s``).  ``auto_over_always``: the
+    median over the rounds of auto's images/s over always's in the same
+    round, where the two turns sit side by side, so that a shared host's
+    slow spells touch both."""
+    import statistics
+
+    from fp8_quantization_tpu_torch.ops.kernels import autotune
+    turns = {m: [] for m in GATE_MODES}
+    for order in (1, -1) * GATE_TURNS:
+        for mode in GATE_MODES[::order]:
+            autotune.MODE = "auto" if mode == "bf16" else mode
+            model = bf16 if mode == "bf16" else fused
+            turns[mode].append(time_ms(lambda: model(x, mode="fixed", quant_w=quant_w),
+                                       iters=GATE_ITERS))
+    autotune.MODE = "auto"
+    rates = {f"{m}_images_per_s": x.shape[0] / statistics.median(ms) * 1e3
+             for m, ms in turns.items()}
+    rates.update({f"{m}_best_images_per_s": x.shape[0] / min(ms) * 1e3
+                  for m, ms in turns.items()})
+    rates["auto_over_always"] = statistics.median(
+        b / a for a, b in zip(turns["auto"], turns["always"]))
+    return rates
+
+
+def gate_model(results, label, cli, head, kind, quant_w, watch):
+    """One model of phase gate: (ok, line, the prepared fused model, one
+    batch)."""
+    import copy
+
+    import torch
+    from fp8_quantization_tpu_torch.cli import image_net
+    from fp8_quantization_tpu_torch.nn.bake import (
+        bake_int8_weights, bake_weights, prepare_inference)
+    from fp8_quantization_tpu_torch.ops import kernels
+
+    # the main path: the first evaluation batch races each new shape
+    kernels.reset_launch_counts()
+    tallied, race_launches = dict(watch.kernel), dict(watch.race_launches)
+    with Forwards() as fw:
+        metrics = image_net.validate_quantized(image_net.build_parser().parse_args(cli))
+    torch.cuda.synchronize()
+    counts = kernels.launch_counts()
+    outside_races = {k: n - (watch.race_launches[k] - race_launches[k])
+                     for k, n in counts.items()}
+    cli_prepare = watch.prepares[-1]
+    eval_launches = {k: n - cli_prepare["launches"][k] for k, n in outside_races.items()}
+    implied = {k: watch.kernel[k] - tallied[k] for k in counts}
+    add_launches(results, outside_races)
+    cli_ok = (math.isfinite(metrics["loss"]) and fw.baked == EVAL_BATCHES + 1
+              and eval_launches == implied and cli_prepare["races"] == 0
+              and cli_prepare["new_verdicts"] == 0)
+
+    # the same state on fused and bf16, baked and prepared (the verdicts
+    # of the main path's shapes are known now: no race from here on)
+    batches, fused, bf16 = engine_pair(cli)
+    races = watch.races
+    for model in (fused, bf16):
+        (bake_int8_weights if quant_w else bake_weights)(model)
+    unprepared = copy.deepcopy(fused)
+    xs = [torch.as_tensor(x, device="cuda") for x, _ in batches]
+    example = torch.zeros((1,) + tuple(xs[0].shape[1:]), device="cuda")
+    for model in (fused, bf16):
+        prepare_inference(model, example, quant_w=quant_w)
+    prep = watch.prepares[-2:]
+    with torch.no_grad():
+        equal = [bool(torch.equal(unprepared(x, mode="fixed", quant_w=quant_w),
+                                  fused(x, mode="fixed", quant_w=quant_w))) for x in xs]
+        torch.cuda.synchronize()
+        kernels.reset_launch_counts()
+        tallied, calls, gate_s = dict(watch.kernel), watch.calls, watch.gate_s
+        fused(xs[0], mode="fixed", quant_w=quant_w)
+        torch.cuda.synchronize()
+    per_forward = kernels.launch_counts()
+    gate_calls, gate_us = watch.calls - calls, (watch.gate_s - gate_s) * 1e6
+    implied_fwd = {k: watch.kernel[k] - tallied[k] for k in per_forward}
+    judged, judge_line = gate_judge(kind, getattr(fused, head).act_q, fused, bf16, xs,
+                                    quant_w)
+    rates = gate_throughput(fused, bf16, xs[0], quant_w)
+    # the INT8 row: auto keeps no route off the card that always would win
+    # with (JAX's unraced int8 1x1 rule did)
+    fast = kind != "int8" or rates["auto_over_always"] >= 1 - GATE_INT8_SLACK
+    ok = (cli_ok and all(equal) and per_forward == implied_fwd and watch.races == races
+          and all(p["races"] == 0 and p["new_verdicts"] == 0 for p in prep) and judged
+          and fast)
+    auto_ms = xs[0].shape[0] / rates["auto_images_per_s"] * 1e3
+    line = {"model": label, "ok": ok, "metrics": metrics,
+            "launches_per_forward": per_forward,
+            "launches_the_verdicts_imply": implied_fwd,
+            "main_path_eval_launches": eval_launches,
+            "main_path_launches_implied": implied,
+            "prepare_passes": [cli_prepare] + prep,
+            "prepared_logits_bit_equal": equal, **judge_line, **rates,
+            "auto_not_below_always": fast,
+            "gate_calls_per_forward": gate_calls,
+            "gate_host_us_per_forward": gate_us,
+            "gate_host_share_of_auto_forward": gate_us / 1e3 / auto_ms}
+    return ok, line, fused, xs[0]
+
+
+def phase_gate(results):
+    """The kernel gate's default (ops/kernels/autotune.py, mode auto) on the
+    card, with an empty live cache in a temporary file: ResNet-18 FP8, MobileNetV2 FP8 fp32_after,
+    ViT-S/16 FP8 and ResNet-18 INT8 input quant (GATE_MODELS) through
+    validate-quantized at batch 64, the first evaluation batch racing each
+    kernel against its composed route.  Per model: the launches of the two
+    evaluation batches, and of one prepared forward, equal what the gates'
+    answers imply (GateWatch), whatever the verdicts; the prepare passes
+    race and record nothing; the prepared fused logits bit-equal to the
+    unprepared ones and held against bf16 (gate_judge); images/s under
+    auto, always and bf16 (gate_throughput), the INT8 row's auto within
+    GATE_INT8_SLACK of always; the host time of the warm gate calls of
+    one forward.  Then the cache file reloaded
+    into an empty in-process cache answers every gate of the four prepared
+    forwards with zero races and the same verdicts.  One line per verdict
+    (the gate's key, kernel and composed ms, the verdict)."""
+    import shutil
+    import tempfile
+
+    import torch
+    from fp8_quantization_tpu_torch.ops.kernels import autotune
+
+    tmp = tempfile.mkdtemp(prefix="fp8tpu_gate_")
+    saved = (autotune._CACHE_PATH, autotune._CACHE, autotune._TIMES,
+             autotune._DISK_LOADED)
+    autotune._CACHE_PATH = os.path.join(tmp, "live.json")
+    autotune._CACHE, autotune._TIMES, autotune._DISK_LOADED = {}, {}, False
+    autotune.MODE = "auto"
+    ok, kept = True, []
+    try:
+        with GateWatch() as watch:
+            for label, cli, head, kind, quant_w in GATE_MODELS:
+                m_ok, line, fused, x = gate_model(results, label, cli, head, kind,
+                                                  quant_w, watch)
+                emit({"phase": "gate_model", "nvidia_smi": smi_line(), **line})
+                ok &= m_ok
+                kept.append((fused, x, quant_w))
+            verdicts, table = autotune.decisions(), autotune.decision_table()
+            with open(autotune._CACHE_PATH) as f:
+                file_verdicts = json.load(f)
+            autotune._CACHE, autotune._DISK_LOADED = {}, False
+            races = watch.races
+            with torch.no_grad():
+                for fused, x, quant_w in kept:
+                    fused(x, mode="fixed", quant_w=quant_w)
+            reload_ok = (watch.races == races and autotune.decisions() == verdicts
+                         and file_verdicts == table)
+        times = autotune.races()
+        for key, verdict in verdicts.items():
+            t_kernel, t_composed = times[key]
+            emit({"phase": "gate_verdict", "gate": gate_of(key),
+                  "key": autotune.key_name(key),
+                  "kernel_ms": t_kernel * 1e3, "composed_ms": t_composed * 1e3,
+                  "verdict": "kernel" if verdict else "composed"})
+        ok &= reload_ok and len(times) == len(verdicts)
+        emit({"phase": "gate", "ok": ok, "races": len(times),
+              "kernel_verdicts": sum(bool(v) for v in verdicts.values()),
+              "composed_verdicts": sum(not v for v in verdicts.values()),
+              "reload_zero_races_same_verdicts": reload_ok})
+    finally:
+        (autotune._CACHE_PATH, autotune._CACHE, autotune._TIMES,
+         autotune._DISK_LOADED) = saved
+        shutil.rmtree(tmp, ignore_errors=True)
+    return ok
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
         return 2
-    from fp8_quantization_tpu_torch.ops.kernels import build
+    from fp8_quantization_tpu_torch.ops.kernels import autotune, build
     from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
 
     ok_all = True
@@ -3689,9 +4023,13 @@ def main():
                ("qat_check", phase_qat_check),
                ("sqnr_study", phase_sqnr_study),
                ("cast_check", phase_cast_check),
-               ("deploy_rows", lambda: phase_deploy_rows(results))]
+               ("deploy_rows", lambda: phase_deploy_rows(results)),
+               ("gate", lambda: phase_gate(results))]
     for name, fn in phases:
         t0 = time.perf_counter()
+        # every phase but gate launches each kernel of its path, as before
+        # the gate: the gate's research escape hatch (phase_gate sets auto)
+        autotune.MODE = "always"
         try:
             with no_tf32():
                 ok = bool(fn())

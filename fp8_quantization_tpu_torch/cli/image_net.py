@@ -29,6 +29,13 @@ inputs) the bake is ``bake_int8_weights`` and the model is evaluated with
 ``bake_weights`` bakes nothing there and then evaluates unquantized
 weights (ROADMAP.md, section C).
 
+The ``fused`` engine's kernels sit behind the kernel gate
+(ops/kernels/autotune.py).  As in JAX there is no flag: the mode is
+``FP8TPU_PALLAS_AUTOTUNE`` (``auto`` by default: each kernel is raced
+against its composed route on the card the first time a shape is seen,
+and kept if it wins by 25%; ``always``; ``never``), and the verdicts are
+logged at INFO after the evaluation.
+
     python -m fp8_quantization_tpu_torch.cli.image_net validate-quantized \\
         --device cpu --engine fused --per-channel --fp8-set-maxval \\
         --num-est-batches 1 --max-eval-batches 1 --batch-size 4
@@ -365,10 +372,14 @@ def deploy_and_evaluate(model, args, cal_data, val_data, device) -> dict:
     """Bake, prepare and evaluate ``model`` as ``validate-quantized``
     deploys it (on the engine it was built for)."""
     from fp8_quantization_tpu_torch.calibration.calibrate import evaluate
+    from fp8_quantization_tpu_torch.ops.kernels import autotune
     quant_w = bake_for_eval(model, args.weight_quant, args.bake_weights)
     prepare_for_eval(model, cal_data, device, quant_w, args.act_quant)
-    return evaluate(model, val_data, device=device, quant_w=quant_w,
-                    quant_a=args.act_quant, max_batches=args.max_eval_batches)
+    metrics = evaluate(model, val_data, device=device, quant_w=quant_w,
+                       quant_a=args.act_quant, max_batches=args.max_eval_batches)
+    log.info("kernel gate (mode %s): %s", autotune.MODE,
+             json.dumps(autotune.decision_table()))
+    return metrics
 
 
 def _oscillation_config(args, total_steps: int):

@@ -18,14 +18,15 @@ layer's module path to its weight spec under the preset (JAX there lines
 other than 1 and the untied avgpool of the ``LSQ_paper`` preset.
 
 Under ``engine='fused'`` in fixed mode a block whose stages are all baked
-runs ``ops/kernels/qblock`` as one kernel (there lines 86-190, without the
-measured gate), each stage with its own output quant (FP8, int_asym or
-none): each stage's scale comes from the layer's own ``_fold``
+runs ``ops/kernels/qblock`` as one kernel where ``autotune.ir_group`` says
+so (there lines 86-190), each stage with its own output quant (FP8,
+int_asym or none): each stage's scale comes from the layer's own ``_fold``
 with the upstream factor folded in (the block input's factor to expand, or
 to dw in a t=1 block; the expand output's factor to dw; dw's to project).
 Otherwise, and under folded BN (``fused_state`` returns None there, JAX
-nn/layers.py:795-799), the block runs layer by layer: the 1x1 convs on
-``qmatmul``, the depthwise convs on ``qdwconv``.  The stem (Cin = 3) stays
+nn/layers.py:795-799), the block runs layer by layer, each layer behind
+its own gate: the 1x1 convs on ``qmatmul``, the depthwise convs on
+``qdwconv``.  The stem (Cin = 3) stays
 on the composed path, as in JAX.  A prepared block
 (nn/bake.prepare_inference) keeps its stages' constants as one ``(6, 4)``
 buffer.
@@ -33,6 +34,7 @@ buffer.
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -43,9 +45,10 @@ from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
 from fp8_quantization_tpu_torch.nn.factored import (
     Factored, fadd, fmean, materialize, split, storage_dtype)
 from fp8_quantization_tpu_torch.nn.layers import (
-    QuantConv, QuantizedActivation, QuantLinear, layer_weight_spec)
+    QuantConv, QuantizedActivation, QuantLinear, gated_route,
+    layer_weight_spec)
 from fp8_quantization_tpu_torch.nn.quantizers import preparing
-from fp8_quantization_tpu_torch.ops.kernels import qblock
+from fp8_quantization_tpu_torch.ops.kernels import autotune, qblock
 
 # (expand ratio t, channels c, repeats n, stride s), the reference's table
 INVERTED_RESIDUAL_SETTING = (
@@ -92,22 +95,34 @@ class QuantInvertedResidual(nn.Module):
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False,
                 out: str = "value"):
-        if mode == "fixed" and not train_bn and self.config.engine == "fused":
-            y = self._fused_forward(x, quant_w, quant_a, out)
-            if y is not None:
-                return y
         kw = dict(mode=mode, quant_w=quant_w, quant_a=quant_a,
                   train_bn=train_bn, out=out)
-        y = x
-        if self.expand is not None:
-            y = self.expand(y, **kw)
-        y = self.project(self.dw(y, **kw), **kw)
-        if self.use_res:
-            y = self.block_act(fadd(x, y), mode=mode, quant_a=quant_a, out=out)
-        return y
+
+        def layers():
+            y = x
+            if self.expand is not None:
+                y = self.expand(y, **kw)
+            y = self.project(self.dw(y, **kw), **kw)
+            if self.use_res:
+                y = self.block_act(fadd(x, y), mode=mode, quant_a=quant_a,
+                                   out=out)
+            return y
+
+        if mode == "fixed" and not train_bn and self.config.engine == "fused":
+            launch = self._fused_forward(x, quant_w, quant_a, out)
+            if launch is not None:
+                xv = split(x)[0]
+                n, h, _, cin = xv.shape
+                return gated_route(self, partial(
+                    autotune.ir_group, n, h, cin, self.dw.features,
+                    self.project.features, 1, stride=self.stride,
+                    expand=self.expand is not None, use_res=self.use_res,
+                    like=xv), launch, layers)
+        return layers()
 
     def _fused_forward(self, x, quant_w, quant_a, out):
-        """The qblock kernel route, or None for the per-layer path."""
+        """The qblock kernel route as a call, or None where the per-layer
+        path is the only one."""
         xv, xf = split(x)
         if xv.ndim != 4 or xv.shape[-1] < 8:
             return None
@@ -127,7 +142,12 @@ class QuantInvertedResidual(nn.Module):
         if stp is None:
             return None
         stb = self.block_act.fused_state(quant_a) if self.use_res else None
-        stages = (st1, std, stp, stb)
+        return lambda: self._launch(xv, xf, (st1, std, stp, stb), out)
+
+    def _launch(self, xv, xf, stages, out):
+        """qblock on the input norms ``xv`` (factor ``xf``) with the stages'
+        fused states."""
+        st1, std, stp, stb = stages
         final = stb if self.use_res else stp
         emit = (out == "factored" and final["a_method"] != "none"
                 and final["factored_ok"])

@@ -11,7 +11,8 @@ variables carry over by path (models/convert.load_jax_variables).
 
 Under ``engine='fused'`` in fixed mode the stem (conv7x7/2 + BN + relu +
 maxpool + quant, FP8 or int_asym) runs the qstem kernel once it is baked
-(there lines 132-173); under ``quantize_input`` it takes the layer path,
+and where ``autotune.stem_group`` says so (there lines 132-173), else the
+layer path and the pool; under ``quantize_input`` it takes the layer path,
 as in JAX (``_conv_fused_state`` returns None).  Under the int8 datapath (nn/layers.int8_datapath) the stem takes
 the layer route (``ops/int8.int8_conv``) and ``fmax_pool`` instead, as the
 JAX model does when ``_conv_fused_state`` returns None (there lines
@@ -46,8 +47,9 @@ from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
 from fp8_quantization_tpu_torch.nn.factored import (
     Factored, fadd, fmax_pool, fmean, materialize, storage_dtype)
 from fp8_quantization_tpu_torch.nn.layers import (
-    QuantConv, QuantizedActivation, QuantLinear, layer_weight_spec)
-from fp8_quantization_tpu_torch.ops.kernels import qstem
+    QuantConv, QuantizedActivation, QuantLinear, gated_route,
+    layer_weight_spec)
+from fp8_quantization_tpu_torch.ops.kernels import autotune, qstem
 
 
 class BasicBlockFeatures(nn.Module):
@@ -146,7 +148,8 @@ class QuantizedResNet(nn.Module):
         return layer_weight_spec(self)
 
     def _fused_stem(self, x, mode, quant_w, quant_a, train_bn, out):
-        """The qstem kernel route, or None for the layer + pool path."""
+        """The qstem kernel route as a call, or None where the layer + pool
+        path is the only one."""
         if (mode != "fixed" or train_bn or self.config.engine != "fused"
                 or isinstance(x, Factored) or self.stem_s2d or x.ndim != 4
                 or x.shape[1] != x.shape[2] or x.shape[-1] > 4):
@@ -154,14 +157,19 @@ class QuantizedResNet(nn.Module):
         st = self.stem.fused_state(quant_w, quant_a)
         if st is None:
             return None
-        emit = out == "factored" and st["a_method"] != "none" and st["factored_ok"]
-        kcfg = qstem.FusedStemConfig(act_method=st["a_method"], emit_norm=emit)
-        y = qstem.fused_quant_stem(x.contiguous(), self.stem.stem_operand(),
-                                   st["a_consts"], st["scale"].contiguous(),
-                                   st["shift"].contiguous(), cfg=kcfg)
-        # the kernel emits bfloat16, so this store changes nothing: it
-        # mirrors JAX's storage_dtype at the same place
-        return Factored(storage_dtype(y), st["factor"]) if emit else y
+
+        def launch():
+            emit = (out == "factored" and st["a_method"] != "none"
+                    and st["factored_ok"])
+            kcfg = qstem.FusedStemConfig(act_method=st["a_method"],
+                                         emit_norm=emit)
+            y = qstem.fused_quant_stem(
+                x.contiguous(), self.stem.stem_operand(), st["a_consts"],
+                st["scale"].contiguous(), st["shift"].contiguous(), cfg=kcfg)
+            # the kernel emits bfloat16, so this store changes nothing: it
+            # mirrors JAX's storage_dtype at the same place
+            return Factored(storage_dtype(y), st["factor"]) if emit else y
+        return launch
 
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False):
@@ -170,10 +178,17 @@ class QuantizedResNet(nn.Module):
         if mode == "fixed" and self.config.engine in ("bf16", "fused"):
             out = kw["out"] = "factored"
 
-        xs = self._fused_stem(x, mode, quant_w, quant_a, train_bn, out)
-        if xs is None:
-            xs = fmax_pool(self.stem(x, **kw), 3, 2, 1)
-        x = xs
+        def layer_path():
+            return fmax_pool(self.stem(x, **kw), 3, 2, 1)
+
+        launch = self._fused_stem(x, mode, quant_w, quant_a, train_bn, out)
+        if launch is None:
+            x = layer_path()
+        else:
+            n, s, _, cin = x.shape
+            x = gated_route(self, lambda **routes: autotune.stem_group(
+                n, s, cin, self.stem.features, 1, like=x, **routes)[0] > 0,
+                launch, layer_path)
 
         last_q = None
         for name in self.block_names:

@@ -14,10 +14,10 @@ the JAX scope names (``patch_embed``, ``cls_token``, ``pos_embed``,
 In fixed mode under ``bf16`` and ``fused`` the LayerNorms, the gelu MLP
 layer and the block quantizers emit ``Factored`` tensors, as in JAX (there
 lines 159-205, 284-291).  Under ``fused`` in fixed mode the attention runs
-``ops/kernels/attention.flash_mha`` on views of the qkv output (JAX lines
-108-116, without the measured gate) and qkv, proj, mlp2 and the head run
-``qmatmul``; everywhere else the attention is the float32 chain (JAX lines
-117-125).  The patch embed and mlp1 (gelu) take the composed path on every
+``ops/kernels/attention.flash_mha`` on views of the qkv output where
+``autotune.attn_wins`` says so (JAX lines 108-116) and qkv, proj, mlp2 and
+the head run ``qmatmul`` where ``autotune.pallas_wins`` says so;
+everywhere else the attention is the float32 chain (JAX lines 117-125).  The patch embed and mlp1 (gelu) take the composed path on every
 engine, as in JAX.  In a prepared model (nn/bake.prepare_inference) the
 quantizers apply their stored constants (``qprep``) in fixed mode.  Under
 ``deploy_act_f8`` the token path carries 1-byte norms, which every reader
@@ -32,6 +32,7 @@ where JAX ignores them (ROADMAP.md, section C).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -42,8 +43,8 @@ from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
 from fp8_quantization_tpu_torch.nn.factored import Factored, fadd, split
 from fp8_quantization_tpu_torch.nn.layers import (
     QuantConv, QuantizedActivation, QuantLayerNorm, QuantLinear,
-    int8_datapath)
-from fp8_quantization_tpu_torch.ops.kernels import attention
+    gated_route, int8_datapath)
+from fp8_quantization_tpu_torch.ops.kernels import attention, autotune
 
 
 def composed_attention(q, k, v) -> torch.Tensor:
@@ -75,7 +76,11 @@ class QuantSelfAttention(nn.Module):
         q, k, v = (qkv.reshape(b, n, 3, h, hd)[:, :, i].transpose(1, 2)
                    for i in range(3))
         if mode == "fixed" and self.config.engine == "fused":
-            y = attention.flash_mha(q, k, v, sm_scale=1.0 / float(hd) ** 0.5)
+            y = gated_route(
+                self, partial(autotune.attn_wins, b, h, n, hd, like=q),
+                lambda: attention.flash_mha(q, k, v,
+                                            sm_scale=1.0 / float(hd) ** 0.5),
+                lambda: composed_attention(q, k, v))
         else:
             y = composed_attention(q, k, v)
         return self.proj(y.transpose(1, 2).reshape(b, n, self.dim), **kw)

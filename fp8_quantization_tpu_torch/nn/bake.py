@@ -40,7 +40,13 @@ model is evaluated with ``quant_w=True`` as before.
 an example input, with the ``quant_w`` / ``quant_a`` the deployment will
 use, stores every layer's fixed-mode scalar algebra (nn/layers.py,
 nn/quantizers.py) so that later forwards read it instead of recomputing
-it, with bit-identical results; the cast path's constants
+it, with bit-identical results.  Its example input is one image, at shapes
+no evaluation uses, so it asks no kernel gate (ops/kernels/autotune.py)
+unless the gate's mode settles the route: at each gated site it runs both
+the kernel and the composed route (nn/layers.gated_route), so that
+whichever a later forward's verdict picks finds its constants, and it
+records no verdict (JAX keeps its gates out of the host transform with
+``_pallas_gates_off``, there lines 34-53); the cast path's constants
 (``deploy_cast_quant`` and the activation flags) are computed there, on
 the host values, as JAX computes them eagerly.  ``prepare_for_deployment`` is the bake,
 the prepare pass (``quant_w=False``) and nothing else;

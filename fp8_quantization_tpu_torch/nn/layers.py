@@ -27,10 +27,23 @@ per channel along dim 0.  Engines (``config.engine``):
   runs ``ops/kernels/qstem`` (models/resnet.py), each with its output
   quant (FP8 or int_asym) in the epilogue.  Under ``quantize_input`` the
   3x3 and depthwise convs and the stem take the bf16 path, as in JAX
-  (there lines 901-903, 987, 795-799).  There is no autotune gate: the
-  kernels always launch on the card.  Elsewhere the bf16 path runs, so
+  (there lines 901-903, 987, 795-799).  Elsewhere the bf16 path runs, so
   QAT's modes (``learn``, ``calibrate_train``, with ``train_bn``) train on
   the bf16 route, as JAX's ``pallas`` engine does (there lines 268-272).
+
+The kernel gate (ops/kernels/autotune.py, JAX's ops/pallas/autotune.py):
+where a ``fused`` layer may take a kernel, the kernel runs only if its
+gate says so (``gated_route``), and otherwise the layer's own ``bf16``
+route: the 1x1 convs and linears behind ``pallas_wins(M, K, N)`` with M
+the rows of the product (JAX ``_pallas_wins``, there lines 301-313), the
+3x3 convs behind ``conv3_group`` (there lines 919-941), the depthwise 3x3
+convs behind ``dw_group`` (there lines 976-991) and the int8 3x3 convs
+behind ``conv3_int8_group``, the int8 1x1 convs and linears behind
+``int8_matmul_wins``; the stem, the MobileNetV2 block and the ViT
+attention behind ``stem_group``, ``ir_group`` and ``attn_wins`` in their
+models.  By default (``auto``) a gate races the kernel against the
+composed route on the card the first time it sees a shape and keeps the
+winner; on CPU tensors it answers "kernel" (the plain version).
 
 The int8 datapath (``int8_datapath``: ``int8_mxu`` + ``quantize_input``,
 symmetric-uniform weights, per-tensor asymmetric-uniform inputs, <= 8
@@ -39,10 +52,12 @@ bits) takes every fixed-mode layer on every engine, as the JAX package's
 ``Factored`` input is materialized and re-quantized by the layer's own
 input quantizer.  On ``parity`` and ``bf16`` it runs ``ops/int8``; on
 ``fused`` the 3x3 convs (Cin, Cout divisible by 16) run
-``ops/kernels/qconv_int8``, the 1x1 convs and linears
-``ops/kernels/qmatmul_int8`` and anything else (the stem) ``ops/int8``.
-Weights baked by ``nn/bake.bake_int8_weights`` (``w_int8``, ``w_delta``,
-``w_signed``) are taken whatever ``quant_w`` is.
+``ops/kernels/qconv_int8`` where ``conv3_int8_group`` says so, the 1x1
+convs and linears ``ops/kernels/qmatmul_int8`` where ``int8_matmul_wins``
+says so (JAX takes ops/int8 there unraced outside ``always``, there lines
+857, 1187), and everything else ``ops/int8``.  Weights baked by ``nn/bake.bake_int8_weights``
+(``w_int8``, ``w_delta``, ``w_signed``) are taken whatever ``quant_w``
+is.
 
 Folded BN (``config.bn_mode == 'folded'``, JAX ``_bn_folded_kernel``,
 there lines 315-334): the BN scale multiplies the weights per output
@@ -52,7 +67,7 @@ shift ``beta - mean*inv`` follows the product (``_kernel``, ``_fold``).
 Depthwise convs (``groups == in_features == features``) run
 ``F.conv2d(groups=C)``; under ``fused`` in fixed mode a baked depthwise 3x3
 (stride 1 or 2, SAME padding, C >= 32) runs ``ops/kernels/qdwconv`` (the
-static conditions of JAX lines 976-987, without the measured gate).
+static conditions of JAX lines 976-987) where ``dw_group`` says so.
 ``QuantConv.fused_state`` hands a MobileNetV2 block its stages' baked
 operands for ``ops/kernels/qblock`` (models/mobilenet_v2.py).
 
@@ -65,7 +80,9 @@ quantizes the norm with this layer's step (ROADMAP.md section C).
 
 Prepared layers (nn/bake.prepare_inference, JAX nn/bake.py:199-263): the
 prepare pass runs one fixed-mode forward in which each layer stores the
-scalar algebra it computes, and later fixed-mode forwards read it back:
+scalar algebra it computes (at a gated site both routes' unless the
+gate's mode settles the route, ``gated_route``), and later fixed-mode
+forwards read it back:
 the quantizers' constants (nn/quantizers.py: ``qprep``, ``kprep``), the
 fold ``(scale, shift)`` (``prep_fold``, taken only when the layer sees the
 same kind of weight and input factor as in the prepare pass), the
@@ -103,6 +120,7 @@ than depthwise, the int8 datapath with depthwise convs (the layers raise).
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Optional
 
 import torch
@@ -118,7 +136,7 @@ from fp8_quantization_tpu_torch.ops import int8 as int8_ops
 from fp8_quantization_tpu_torch.ops import s2d as s2d_ops
 from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
 from fp8_quantization_tpu_torch.ops.kernels import (
-    qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8, qstem)
+    autotune, qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8, qstem)
 from fp8_quantization_tpu_torch.ops.quantizer import QMethod
 from fp8_quantization_tpu_torch.ops.uniform import (
     _scale_from_delta, int_sym_consts)
@@ -208,6 +226,22 @@ def round_conv_out(config: LayerQuantConfig, y, mode, quant_a: bool, out: str):
     if config.conv_out_bf16 and mode == "fixed" and emits_factored(config, quant_a, out):
         return y.to(torch.bfloat16).to(torch.float32)
     return y
+
+
+def gated_route(module: nn.Module, gate, kernel, composed):
+    """A gated kernel site (ops/kernels/autotune.py): ``kernel()`` where
+    ``gate(kernel=kernel, composed=composed)`` says so, else
+    ``composed()``; a gate that races times those two calls.  In the
+    prepare pass (nn/bake.prepare_inference) of a mode that does not settle
+    every answer (``autotune.settled``), the gate is not asked: both routes
+    run, the composed one first, and the kernel's output goes on, so that
+    each route stores its prepared constants whatever verdict a later
+    forward meets, and no verdict is raced or recorded at the prepare
+    pass's shapes."""
+    if preparing(module) and not autotune.settled():
+        composed()
+        return kernel()
+    return kernel() if gate(kernel=kernel, composed=composed) else composed()
 
 
 class QuantizedLayerBase(nn.Module):
@@ -498,18 +532,30 @@ class QuantizedLayerBase(nn.Module):
 
     def _int8_matmul(self, x2d):
         """An (M, K) float32 input through the int8 matmul: the kernel under
-        ``fused``, ``ops/int8.int8_matmul`` elsewhere."""
+        ``fused`` where ``autotune.int8_matmul_wins`` says so,
+        ``ops/int8.int8_matmul`` otherwise (JAX nn/layers.py:857, 1187 takes
+        the s8 composed route unraced outside ``always``; on the H100 the
+        kernel wins there, so the port races it)."""
         a = self._int8_args()
-        if self._int8_fused():
-            return qmatmul_int8.fused_quant_matmul_int8(
+
+        def composed():
+            return int8_ops.int8_matmul(
+                x2d, self._int8_grid(a["w"], a["w_delta"], a["signed"]),
+                a["w_delta"], a["signed"], a["a_delta"], a["a_zero"],
+                self.config.act_quant.n_bits, scale=a["scale"],
+                shift=a["shift"], act_fn=get_activation(self.activation),
+                **self._int8_flags())
+
+        if not self._int8_fused():
+            return composed()
+        return gated_route(
+            self, partial(autotune.int8_matmul_wins, x2d.shape[0],
+                          x2d.shape[1], self.features, like=x2d),
+            lambda: qmatmul_int8.fused_quant_matmul_int8(
                 x2d.to(torch.float32).contiguous(), a["w"], a["w_delta"],
                 a["w_scalars"], a["a_scalars"], a["scale"], a["shift"],
-                cfg=qmatmul_int8.Int8MatmulConfig(**a["kernel_cfg"]))
-        return int8_ops.int8_matmul(
-            x2d, self._int8_grid(a["w"], a["w_delta"], a["signed"]),
-            a["w_delta"], a["signed"], a["a_delta"], a["a_zero"],
-            self.config.act_quant.n_bits, scale=a["scale"], shift=a["shift"],
-            act_fn=get_activation(self.activation), **self._int8_flags())
+                cfg=qmatmul_int8.Int8MatmulConfig(**a["kernel_cfg"])),
+            composed)
 
     def _int8_flags(self) -> dict:
         """The ops/int8 route's deployment flags (JAX there lines 969-970)."""
@@ -661,29 +707,56 @@ class QuantConv(QuantizedLayerBase):
             x = factored.materialize(x)     # re-quantized, as on parity
         x, x_factor = factored.split(x)
         k, s, p = self.kernel_size, self.stride, self.padding
-        cin = x.shape[-1]
+        n, h, cin = x.shape[0], x.shape[1], x.shape[-1]
+        args = (mode, quant_w, quant_a, train_bn, out)
+
+        def composed():
+            return self._composed(x, x_factor, *args)
+
         if self._fused_ok(mode, train_bn):
             # the 3x3 and depthwise kernels take baked weights and quantize
-            # outputs only (JAX deploy_ok, there lines 901-903, 987)
+            # outputs only (JAX deploy_ok, there lines 901-903, 987); each
+            # kernel sits behind its gate (there lines 857-871, 919-941,
+            # 976-991)
             deploy = self._baked(quant_w) and not self.config.quantize_input
             if self.depthwise:
                 if (k == 3 and p == 1 and s in (1, 2) and deploy
                         and cin >= 32
                         and (s == 1 or (x.shape[1] % 2 == 0
                                         and x.shape[2] % 2 == 0))):
-                    return self._fused_dwconv3x3(x, quant_a, x_factor, out)
+                    return gated_route(
+                        self, partial(autotune.dw_group, n, h, cin, 1,
+                                      stride=s, like=x),
+                        lambda: self._fused_dwconv3x3(x, quant_a, x_factor,
+                                                      out), composed)
             elif k == 1 and p == 0:
                 xs = x if s == 1 else x[:, ::s, ::s, :]
-                n, h, w_, c = xs.shape
-                y = self._fused_matmul(xs.reshape(-1, c), self.features, mode,
-                                       quant_w, quant_a, x_factor, out)
-                if isinstance(y, Factored):
-                    return Factored(y.norm.reshape(n, h, w_, -1), y.factor)
-                return y.reshape(n, h, w_, -1)
+                return gated_route(
+                    self, partial(autotune.pallas_wins, xs.shape[:-1].numel(),
+                                  cin, self.features, like=x),
+                    lambda: self._fused_1x1(xs, x_factor, *args), composed)
             if (k == 3 and p == 1 and s in (1, 2) and deploy
                     and cin % 8 == 0 and self.features % 8 == 0):
-                return self._fused_conv3x3(x, quant_a, x_factor, out)
+                return gated_route(
+                    self, partial(autotune.conv3_group, n, h, cin,
+                                  self.features, 1, stride=s, like=x),
+                    lambda: self._fused_conv3x3(x, quant_a, x_factor, out),
+                    composed)
+        return composed()
 
+    def _fused_1x1(self, xs, x_factor, mode, quant_w, quant_a, train_bn, out):
+        """A 1x1 conv on ``xs`` (the input, strided) through qmatmul."""
+        n, h, w_, c = xs.shape
+        y = self._fused_matmul(xs.reshape(-1, c), self.features, mode,
+                               quant_w, quant_a, x_factor, out)
+        if isinstance(y, Factored):
+            return Factored(y.norm.reshape(n, h, w_, -1), y.factor)
+        return y.reshape(n, h, w_, -1)
+
+    def _composed(self, x, x_factor, mode, quant_w, quant_a, train_bn, out):
+        """The conv off the kernels: the engine's product, the epilogue and
+        the output quant."""
+        s, p = self.stride, self.padding
         if x_factor is None:
             x, x_factor = self._quant_in_engine(x, mode, quant_a)
         xm, wm, w_factor = self._engine_operands(x, mode, quant_w)
@@ -724,18 +797,36 @@ class QuantConv(QuantizedLayerBase):
         """The int8 routes of a conv (x float32 NHWC): qconv_int8, the int8
         matmul for a 1x1, ``ops/int8.int8_conv`` for anything else."""
         k, s, p = self.kernel_size, self.stride, self.padding
-        cin = x.shape[-1]
+        n, h, cin = x.shape[0], x.shape[1], x.shape[-1]
         if self._int8_fused() and k == 1 and p == 0:
             xs = x if s == 1 else x[:, ::s, ::s, :]
             n, h, w_, c = xs.shape
             return self._int8_matmul(xs.reshape(-1, c)).reshape(n, h, w_, -1)
-        a = self._int8_args()
         if (self._int8_fused() and k == 3 and p == 1 and s in (1, 2)
                 and cin % 16 == 0 and self.features % 16 == 0):
-            return qconv_int8.fused_quant_conv3x3_int8(
-                x.to(torch.float32).contiguous(), a["w"], a["w_delta"],
-                a["w_scalars"], a["a_scalars"], a["scale"], a["shift"],
-                cfg=qconv_int8.Int8ConvConfig(stride=s, **a["kernel_cfg"]))
+            return gated_route(
+                self, partial(autotune.conv3_int8_group, n, h, cin,
+                              self.features, 1,
+                              prequant=self.w_int8 is not None, stride=s,
+                              like=x),
+                lambda: self._int8_conv3x3(x), lambda: self._int8_xla(x))
+        return self._int8_xla(x)
+
+    def _int8_conv3x3(self, x):
+        """The qconv_int8 kernel route."""
+        a = self._int8_args()
+        return qconv_int8.fused_quant_conv3x3_int8(
+            x.to(torch.float32).contiguous(), a["w"], a["w_delta"],
+            a["w_scalars"], a["a_scalars"], a["scale"], a["shift"],
+            cfg=qconv_int8.Int8ConvConfig(stride=self.stride,
+                                          **a["kernel_cfg"]))
+
+    def _int8_xla(self, x):
+        """``ops/int8.int8_conv``, the composed s8 route (JAX's XLA-native
+        int8 datapath)."""
+        k, s, p = self.kernel_size, self.stride, self.padding
+        cin = x.shape[-1]
+        a = self._int8_args()
         wsg = self._int8_grid(a["w"], a["w_delta"], a["signed"])
         return int8_ops.int8_conv(
             x, wsg.reshape(self.features, k, k, cin).permute(0, 3, 1, 2),
@@ -805,13 +896,31 @@ class QuantLinear(QuantizedLayerBase):
         if self._quantizes_input(quant_a):
             x = factored.materialize(x)     # re-quantized, as on parity
         x, x_factor = factored.split(x)
+        args = (mode, quant_w, quant_a, train_bn, out)
+
+        def composed():
+            return self._composed(x, x_factor, *args)
+
         if self._fused_ok(mode, train_bn):
-            lead = x.shape[:-1]
-            y = self._fused_matmul(x.reshape(-1, x.shape[-1]), self.features,
-                                   mode, quant_w, quant_a, x_factor, out)
-            if isinstance(y, Factored):
-                return Factored(y.norm.reshape(*lead, -1), y.factor)
-            return y.reshape(*lead, -1)
+            return gated_route(
+                self, partial(autotune.pallas_wins, x.shape[:-1].numel(),
+                              x.shape[-1], self.features, like=x),
+                lambda: self._fused_linear(x, x_factor, *args), composed)
+        return composed()
+
+    def _fused_linear(self, x, x_factor, mode, quant_w, quant_a, train_bn,
+                      out):
+        """The layer through qmatmul (JAX there lines 1222-1233)."""
+        lead = x.shape[:-1]
+        y = self._fused_matmul(x.reshape(-1, x.shape[-1]), self.features,
+                               mode, quant_w, quant_a, x_factor, out)
+        if isinstance(y, Factored):
+            return Factored(y.norm.reshape(*lead, -1), y.factor)
+        return y.reshape(*lead, -1)
+
+    def _composed(self, x, x_factor, mode, quant_w, quant_a, train_bn, out):
+        """The layer off the kernels: the engine's product, the epilogue and
+        the output quant."""
         if x_factor is None:
             x, x_factor = self._quant_in_engine(x, mode, quant_a)
         xm, wm, w_factor = self._engine_operands(x, mode, quant_w)

@@ -66,13 +66,20 @@ def _nvcc() -> str:
                        "machine with the CUDA toolkit")
 
 
-def _build_dir() -> Path:
+def build_hash() -> str:
+    """The identity of the kernel build: a hash of the flags and of every
+    source.  The build directory and the autotune cache (ops/kernels/
+    autotune.py) are keyed by it."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for p in sorted(CSRC.iterdir()):
         if p.suffix in (".cu", ".cuh"):
             h.update(p.name.encode())
             h.update(p.read_bytes())
-    return BUILD_ROOT / h.hexdigest()[:16]
+    return h.hexdigest()[:16]
+
+
+def _build_dir() -> Path:
+    return BUILD_ROOT / build_hash()
 
 
 def _lib_path(name: str) -> Path:

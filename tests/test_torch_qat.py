@@ -356,13 +356,17 @@ TRAIN_ARGS = ["train-quantized", "--device", "cpu",
 def test_cli_train_quantized_cpu(capsys, monkeypatch):
     """Training runs composed (no kernel wrapper), the deployed copy runs
     the fused route's plain versions: 17 qblock and 2 qmatmul a forward
-    (the prepare pass and one evaluation batch)."""
+    (the prepare pass and one evaluation batch); the prepare pass under the
+    kernel gate's default mode also runs each block's layers (nn/layers.
+    gated_route): 16 expand and 17 project qmatmul and 17 qdwconv3x3."""
     calls = {}
     _spy(monkeypatch, calls)
     image_net.main(TRAIN_ARGS)
     metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert metrics["num_examples"] == 2 and np.isfinite(metrics["loss"])
-    assert calls == {"fused_inverted_residual": 34, "fused_quant_matmul": 4}
+    assert calls == {"fused_inverted_residual": 34,
+                     "fused_quant_matmul": 4 + 16 + 17,
+                     "fused_quant_dwconv3x3": 17}
 
 
 def test_cli_train_quantized_options_and_errors(capsys, monkeypatch):
