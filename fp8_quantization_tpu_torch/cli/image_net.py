@@ -29,6 +29,21 @@ inputs) the bake is ``bake_int8_weights`` and the model is evaluated with
 ``bake_weights`` bakes nothing there and then evaluates unquantized
 weights (ROADMAP.md, section C).
 
+Checkpoints (utils/checkpoint.py, JAX there lines 142-150, 264-291,
+589-591): ``validate-quantized --save-checkpoint-dir`` saves the
+calibrated model right after calibration (before the BN re-estimation,
+the format search, the bake and the prepare pass), and ``--load-type
+quantized --load-checkpoint-dir`` restores it into the freshly built model
+instead of calibrating (``quantized`` without a directory is a usage
+error, as in JAX); ``train-quantized --save-checkpoint-dir`` saves the QAT
+state after each epoch's evaluation as step ``epoch``, keeping the newest.
+``--deterministic`` (both commands, off by default) seeds Python's
+``random``, numpy and torch from ``--seed``, as JAX seeds Python and numpy,
+and on the card also sets ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` where it is
+unset, ``torch.use_deterministic_algorithms(True)`` and
+``torch.backends.cudnn.benchmark = False``, each logged; the kernel gate's
+races are left as they are, as JAX's flag leaves its gate.
+
 The ``fused`` engine's kernels sit behind the kernel gate
 (ops/kernels/autotune.py).  As in JAX there is no flag: the mode is
 ``FP8TPU_PALLAS_AUTOTUNE`` (``auto`` by default: each kernel is raced
@@ -51,6 +66,14 @@ logged at INFO after the evaluation.
         --device cpu --architecture vit_small_quantized --engine fused \\
         --per-channel --fp8-set-maxval --num-est-batches 1 \\
         --max-eval-batches 1 --batch-size 2
+    python -m fp8_quantization_tpu_torch.cli.image_net validate-quantized \\
+        --device cpu --engine fused --per-channel --fp8-set-maxval \\
+        --num-est-batches 1 --max-eval-batches 1 --batch-size 4 \\
+        --save-checkpoint-dir /tmp/ck
+    python -m fp8_quantization_tpu_torch.cli.image_net validate-quantized \\
+        --device cpu --engine fused --per-channel --fp8-set-maxval \\
+        --max-eval-batches 1 --batch-size 4 --load-type quantized \\
+        --load-checkpoint-dir /tmp/ck
     python -m fp8_quantization_tpu_torch.cli.image_net validate-quantized \\
         --device cpu --engine fused --per-channel --fp8-set-maxval \\
         --weight-quant-method MSE --act-quant-method MSE \\
@@ -93,6 +116,14 @@ def _quant_options(p: argparse.ArgumentParser) -> None:
                    choices=["nearest", "bilinear", "bicubic", "lanczos", "box",
                             "hamming"])
     p.add_argument("--seed", type=int, default=10)
+    p.add_argument("--deterministic", dest="deterministic",
+                   action="store_true", default=False,
+                   help="seed Python's random, numpy and torch from --seed; "
+                        "on the card also deterministic algorithms, no cuDNN "
+                        "benchmark and CUBLAS_WORKSPACE_CONFIG=:4096:8 where "
+                        "unset")
+    p.add_argument("--nondeterministic", dest="deterministic",
+                   action="store_false", help="the default")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
     p.add_argument("--qmethod", default="fp_quantizer",
                    choices=["symmetric_uniform", "asymmetric_uniform",
@@ -167,6 +198,13 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("validate-quantized",
                        help="PTQ: calibrate ranges, freeze, bake, evaluate")
     _quant_options(p)
+    p.add_argument("--load-type", default="fp32", choices=["fp32", "quantized"],
+                   help="fp32: calibrate from scratch; quantized: restore a "
+                        "saved calibrated state and skip calibration")
+    p.add_argument("--load-checkpoint-dir", default=None,
+                   help="checkpoint directory for --load-type quantized")
+    p.add_argument("--save-checkpoint-dir", default=None,
+                   help="save the calibrated state after calibration")
     _bool_flag(p, "reestimate-bn-stats", False,
                "re-estimate BN statistics on 2% of the calibration batches "
                "after calibrating")
@@ -220,12 +258,46 @@ def build_parser() -> argparse.ArgumentParser:
                    help="batches of the BN re-estimation (JAX: 50)")
     _bool_flag(t, "grad-scaling", False, "LSQ gradient scaling (uniform)")
     t.add_argument("--save-checkpoint-dir", default=None,
-                   help="not ported yet (raises)")
+                   help="save the QAT state after each epoch (step = epoch)")
     t.add_argument("--tb-logging-dir", default=None,
                    help="metrics JSONL directory")
     t.add_argument("--max-train-batches", type=int, default=None,
                    help="cap the batches of each epoch")
+    parser.commands = {"validate-quantized": p, "train-quantized": t}
     return parser
+
+
+def usage_error(command: str, message: str):
+    """Exit with ``command``'s usage and ``message`` (status 2), as JAX's
+    ``click.UsageError`` does."""
+    build_parser().commands[command].error(message)
+
+
+def seed_run(args) -> None:
+    """The seeds of every run (numpy and torch from ``--seed``) and, under
+    ``--deterministic``, Python's ``random`` too and on the card the
+    deterministic settings, each logged (JAX ``_setup``)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    np.random.seed(args.seed)
+    torch.manual_seed(args.seed)
+    if not args.deterministic:
+        return
+    random.seed(args.seed)
+    log.info("deterministic run: python/numpy/torch RNGs seeded with %d",
+             args.seed)
+    if args.device != "cuda":
+        return
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    log.info("deterministic run: CUBLAS_WORKSPACE_CONFIG=%s",
+             os.environ["CUBLAS_WORKSPACE_CONFIG"])
+    torch.use_deterministic_algorithms(True)
+    log.info("deterministic run: torch.use_deterministic_algorithms(True)")
+    torch.backends.cudnn.benchmark = False
+    log.info("deterministic run: torch.backends.cudnn.benchmark = False")
 
 
 def build_model(args):
@@ -290,19 +362,15 @@ def bake_for_eval(model, quant_w: bool, bake: bool) -> bool:
     ``quant_w`` to evaluate with.  The int8 datapath bakes its int8 grid and
     keeps ``quant_w=True``; other configs bake the fake-quant weights and
     evaluate with ``quant_w=False``."""
-    from fp8_quantization_tpu_torch.nn.bake import (
-        bake_int8_weights, bake_weights)
-    from fp8_quantization_tpu_torch.nn.layers import int8_datapath
+    from fp8_quantization_tpu_torch.nn.bake import bake_for_inference
 
     if not (bake and quant_w):
         return quant_w
-    if int8_datapath(model.config):
-        bake_int8_weights(model)
-        log.info("int8 weights baked: the int8 routes take the stored grid")
-        return True
-    bake_weights(model)
-    log.info("weights baked: per-step weight quantization disabled")
-    return False
+    quant_w = bake_for_inference(model)
+    log.info("int8 weights baked: the int8 routes take the stored grid"
+             if quant_w else
+             "weights baked: per-step weight quantization disabled")
+    return quant_w
 
 
 def prepare_for_eval(model, cal_data, device, quant_w: bool,
@@ -337,16 +405,17 @@ def format_search(model, cal_data, args, device) -> None:
 
 
 def validate_quantized(args) -> dict:
-    import numpy as np
-    import torch
-
     from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
     from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
     from fp8_quantization_tpu_torch.device import resolve_device
+    from fp8_quantization_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
 
     device = resolve_device(args.device)
-    np.random.seed(args.seed)
-    torch.manual_seed(args.seed)
+    if args.load_type == "quantized" and not args.load_checkpoint_dir:
+        usage_error("validate-quantized",
+                    "--load-type quantized requires --load-checkpoint-dir")
+    seed_run(args)
     model = build_model(args)
     train_data, val_data = make_dataloaders(
         args.images_dir, batch_size=args.batch_size,
@@ -354,10 +423,18 @@ def validate_quantized(args) -> dict:
         interpolation=args.interpolation)
     cal_data = (list(islice(iter(val_data), args.num_est_batches))
                 if train_data is None else train_data)
-    calibrate(model, cal_data, device=device,
-              num_batches=args.num_est_batches, quant_w=args.weight_quant,
-              quant_a=args.act_quant)
-    log.info("calibration done (%d batches)", args.num_est_batches)
+    if args.load_type == "quantized":
+        restore_checkpoint(args.load_checkpoint_dir, model)
+        log.info("restored quantized state from %s (calibration skipped)",
+                 args.load_checkpoint_dir)
+    else:
+        calibrate(model, cal_data, device=device,
+                  num_batches=args.num_est_batches,
+                  quant_w=args.weight_quant, quant_a=args.act_quant)
+        log.info("calibration done (%d batches)", args.num_est_batches)
+    if args.save_checkpoint_dir:
+        save_checkpoint(args.save_checkpoint_dir, model)
+        log.info("calibrated state saved to %s", args.save_checkpoint_dir)
     if args.reestimate_bn_stats:
         from fp8_quantization_tpu_torch.training.qat import reestimate_bn_stats
         n = max(1, int(0.02 * len(cal_data)))   # 2% of the batches, as JAX
@@ -407,25 +484,17 @@ def train_quantized(args) -> dict:
     (JAX evaluates unbaked).  Returns the last epoch's metrics."""
     import copy
 
-    import numpy as np
-    import torch
-
     from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
     from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
     from fp8_quantization_tpu_torch.device import resolve_device
     from fp8_quantization_tpu_torch.training.qat import (
         init_qat_state, make_optimizer, make_train_step, reestimate_bn_stats,
         train_epoch)
+    from fp8_quantization_tpu_torch.utils.checkpoint import save_checkpoint
     from fp8_quantization_tpu_torch.utils.metrics import MetricsLogger
 
-    if args.save_checkpoint_dir:
-        raise NotImplementedError(
-            "--save-checkpoint-dir: checkpoints are not ported yet "
-            "(ROADMAP.md, section A, item \"Checkpoints, utilities and "
-            "preflight\")")
     device = resolve_device(args.device)
-    np.random.seed(args.seed)
-    torch.manual_seed(args.seed)
+    seed_run(args)
     model = build_model(args)
     train_data, val_data = make_dataloaders(
         args.images_dir, batch_size=args.batch_size,
@@ -473,6 +542,10 @@ def train_quantized(args) -> dict:
             val_metrics = deploy_and_evaluate(deployed, args, train_data,
                                               val_data, device)
             mlog.log(epoch, val_metrics, prefix="val/")
+            if args.save_checkpoint_dir:
+                save_checkpoint(args.save_checkpoint_dir, state, step=epoch)
+                log.info("QAT state saved to %s (step %d)",
+                         args.save_checkpoint_dir, epoch)
     return val_metrics
 
 

@@ -53,6 +53,12 @@ the prepare pass (``quant_w=False``) and nothing else;
 ``prepare_for_deployment_host`` runs it on the host CPU and puts the model
 back on its device.  Calibrating afterwards leaves the prepared constants
 stale: run the prepare pass again.
+
+``bake_for_inference`` is the bake of the CLI's ``--bake-weights`` (the
+int8 grid on the int8 datapath, else ``bake_weights``), shared with the
+serving export; ``is_baked`` and ``is_prepared`` tell whether a model has
+been through either pass (utils/checkpoint.py refuses to save such a
+model: JAX saves the calibrated variables before it bakes).
 """
 
 from __future__ import annotations
@@ -73,8 +79,10 @@ def bake_weights(model: nn.Module) -> nn.Module:
     for layer in model.modules():
         if isinstance(layer, QuantLayerNorm) and layer.config.quant_w:
             layer.weight.copy_(layer.weight_q(layer.weight, mode="fixed"))
+            layer.baked = True
         if not isinstance(layer, QuantizedLayerBase) or not layer.config.quant_w:
             continue
+        layer.baked = True
         kernel = layer._kernel()
         if layer.config.engine == "parity":
             layer.weight.copy_(layer.weight_q(kernel, mode="fixed"))
@@ -120,6 +128,33 @@ def bake_int8_weights(model: nn.Module) -> nn.Module:
                 f"baked for: {bad} — drop the flag or the offending "
                 "layers' unsigned ranges")
     return model
+
+
+def bake_for_inference(model: nn.Module) -> bool:
+    """Bake a calibrated model for inference: ``bake_int8_weights`` on the
+    int8 datapath (evaluate with ``quant_w=True``), else ``bake_weights``
+    (``quant_w=False``); returns the ``quant_w`` to evaluate with."""
+    if int8_datapath(model.config):
+        bake_int8_weights(model)
+        return True
+    bake_weights(model)
+    return False
+
+
+def is_baked(model: nn.Module) -> bool:
+    """Whether a bake has changed any layer of ``model``."""
+    return any(getattr(m, "baked", False)
+               or getattr(m, "w_factor", None) is not None
+               or getattr(m, "w_int8", None) is not None
+               for m in model.modules())
+
+
+def is_prepared(model: nn.Module) -> bool:
+    """Whether ``model`` holds constants of a prepare pass (``qprep``,
+    ``kprep``, ``prep_*``)."""
+    return any(n.rsplit(".", 1)[-1] in ("qprep", "kprep")
+               or n.rsplit(".", 1)[-1].startswith("prep_")
+               for n, _ in model.named_buffers())
 
 
 @torch.no_grad()

@@ -14,7 +14,8 @@ product runs on ``norm`` with no rounding and folds ``factor`` in after.
 ``norm`` is stored in bfloat16, or under ``deploy_act_f8`` as the 1-byte
 array of the IEEE cast (ops/fp8.ieee_store): ``torch.float8_e5m2``,
 ``torch.float8_e4m3fn``, or E3M4 codes in ``torch.bits8``, whose dtype
-is the format mark and takes no arithmetic.  Every reader goes through
+is the format mark and takes no arithmetic (``torch.uint8`` inside an
+exported program, ops/fp8.py).  Every reader goes through
 ``upcast`` (``split``, ``materialize`` and the helpers here), an exact
 conversion to bfloat16; the kernels read bfloat16, as JAX's Pallas
 kernels take the f8 input upcast.

@@ -86,11 +86,14 @@ forwards read it back:
 the quantizers' constants (nn/quantizers.py: ``qprep``, ``kprep``), the
 fold ``(scale, shift)`` (``prep_fold``, taken only when the layer sees the
 same kind of weight and input factor as in the prepare pass), the
-in-kernel weight quantizer's constants (``prep_w_consts``) and the int8
-routes' scalars (``prep_int8_w_delta``, ``prep_int8_scalars``).  Each is
-what the unprepared forward computes, so the logits stay bit-identical.
-Calibrating afterwards leaves them stale until the prepare pass runs
-again.  Under the int8 datapath the port also freezes the integer
+in-kernel weight quantizer's constants (``prep_w_consts``), the int8
+routes' scalars (``prep_int8_w_delta``, ``prep_int8_scalars``) and the
+kernels' weight operands (``prep_op_<kind>``: the bf16 matrices, taps and
+the unbaked int8 route's float32 matrix, ``_operand``), which an exported
+program (serving/export.py) then holds as constants.  Each is what the
+unprepared forward computes, so the logits stay bit-identical.
+Calibrating or baking afterwards leaves them stale until the prepare pass
+runs again.  Under the int8 datapath the port also freezes the integer
 constants, which JAX recomputes.
 
 The space-to-depth stem (``QuantConv(s2d=...)``, JAX there lines
@@ -120,6 +123,8 @@ than depthwise, the int8 datapath with depthwise convs (the layers raise).
 
 from __future__ import annotations
 
+import contextlib
+import math
 from functools import partial
 from typing import Optional
 
@@ -228,6 +233,26 @@ def round_conv_out(config: LayerQuantConfig, y, mode, quant_a: bool, out: str):
     return y
 
 
+@contextlib.contextmanager
+def route_log(model: nn.Module, mode: str):
+    """While active, each gated site of ``model`` (``gated_route``) records
+    (``"record"``) or replays (``"replay"``) its route, in its module's
+    ``_export_route``.  The serving export (serving/export.py) records one
+    real forward, then traces with the recorded routes: a gate asked on
+    fake tensors would race nothing and key on a symbolic batch."""
+    if mode not in ("record", "replay"):
+        raise ValueError(f"route_log mode must be 'record' or 'replay', not "
+                         f"{mode!r}")
+    modules = list(model.modules())
+    for m in modules:
+        m._route_log = mode
+    try:
+        yield
+    finally:
+        for m in modules:
+            m._route_log = None
+
+
 def gated_route(module: nn.Module, gate, kernel, composed):
     """A gated kernel site (ops/kernels/autotune.py): ``kernel()`` where
     ``gate(kernel=kernel, composed=composed)`` says so, else
@@ -237,11 +262,22 @@ def gated_route(module: nn.Module, gate, kernel, composed):
     run, the composed one first, and the kernel's output goes on, so that
     each route stores its prepared constants whatever verdict a later
     forward meets, and no verdict is raced or recorded at the prepare
-    pass's shapes."""
+    pass's shapes.  Under ``route_log`` the route taken is recorded, or
+    the recorded one replayed (a site with none raises)."""
+    log = getattr(module, "_route_log", None)
+    if log == "replay":
+        take = getattr(module, "_export_route", None)
+        if take is None:
+            raise RuntimeError(f"{type(module).__name__}: no route recorded "
+                               f"at this gated site")
+        return kernel() if take else composed()
     if preparing(module) and not autotune.settled():
         composed()
         return kernel()
-    return kernel() if gate(kernel=kernel, composed=composed) else composed()
+    take = bool(gate(kernel=kernel, composed=composed))
+    if log == "record":
+        module._export_route = take
+    return kernel() if take else composed()
 
 
 class QuantizedLayerBase(nn.Module):
@@ -563,9 +599,14 @@ class QuantizedLayerBase(nn.Module):
                     signed_static=self.config.int8_assume_signed)
 
     def _operand(self, kind: str, make):
-        """A kernel weight operand derived from ``_kernel()``, rebuilt when
-        the weight (or, under folded BN, the BN scale) changes: bake, load,
+        """A kernel weight operand derived from ``_kernel()``: in a prepared
+        layer the buffer ``prep_op_<kind>`` that the prepare pass stored
+        (an exported program holds it as a constant), else rebuilt when the
+        weight (or, under folded BN, the BN scale) changes: bake, load,
         device move."""
+        name = "prep_op_" + kind
+        if not preparing(self) and getattr(self, name, None) is not None:
+            return getattr(self, name)
         deps = [self.weight] + ([self.bn_weight, self.running_var]
                                 if self._folded() else [])
         key = (kind, self.weight.device,
@@ -575,6 +616,8 @@ class QuantizedLayerBase(nn.Module):
             with torch.no_grad():
                 hit = (key, make(self._kernel().detach()))
             self._operand_cache[kind] = hit
+        if preparing(self):
+            self.register_buffer(name, hit[1])
         return hit[1]
 
     def _w_kernel_consts(self, w2d, features, mode):
@@ -732,8 +775,9 @@ class QuantConv(QuantizedLayerBase):
             elif k == 1 and p == 0:
                 xs = x if s == 1 else x[:, ::s, ::s, :]
                 return gated_route(
-                    self, partial(autotune.pallas_wins, xs.shape[:-1].numel(),
-                                  cin, self.features, like=x),
+                    self, partial(autotune.pallas_wins,
+                                  math.prod(xs.shape[:-1]), cin,
+                                  self.features, like=x),
                     lambda: self._fused_1x1(xs, x_factor, *args), composed)
             if (k == 3 and p == 1 and s in (1, 2) and deploy
                     and cin % 8 == 0 and self.features % 8 == 0):
@@ -903,7 +947,7 @@ class QuantLinear(QuantizedLayerBase):
 
         if self._fused_ok(mode, train_bn):
             return gated_route(
-                self, partial(autotune.pallas_wins, x.shape[:-1].numel(),
+                self, partial(autotune.pallas_wins, math.prod(x.shape[:-1]),
                               x.shape[-1], self.features, like=x),
                 lambda: self._fused_linear(x, x_factor, *args), composed)
         return composed()

@@ -32,7 +32,10 @@ the clip at +-240 (the constants are IEEE's: ``finfo(float8_e4m3fn).max``
 is 448); E3M4 has no torch dtype, so it is rounded by exponent-field
 arithmetic and stored as its IEEE codes (the bytes of JAX's
 ``float8_e3m4``) in ``torch.bits8``, a dtype that takes no arithmetic:
-``ieee_decode`` is the only way back to numbers.
+``ieee_decode`` is the only way back to numbers.  ``torch.export.save``
+cannot serialize ``torch.bits8``, so while ``torch.export`` traces (the
+serving export, serving/export.py) the same codes are stored in
+``torch.uint8``, which ``ieee_decode`` reads alike.
 """
 
 from __future__ import annotations
@@ -365,37 +368,45 @@ def _e3m4_round(y: torch.Tensor) -> torch.Tensor:
 
 
 def _e3m4_encode(q: torch.Tensor) -> torch.Tensor:
-    """E3M4 grid values (float32) -> their IEEE codes as ``torch.bits8``:
-    sign, the exponent biased by 3, four mantissa bits; subnormals
-    (below 2^-2) have exponent code 0 and mantissa q * 64."""
+    """E3M4 grid values (float32) -> their IEEE codes as ``torch.bits8``
+    (``torch.uint8`` while ``torch.export`` traces): sign, the exponent
+    biased by 3, four mantissa bits; subnormals (below 2^-2) have exponent
+    code 0 and mantissa q * 64."""
     sign = (q.view(torch.int32) >> 24) & 0x80
     a = torch.abs(q)
     bits = a.view(torch.int32)
     normal = (((bits >> 23) - 124) << 4) | ((bits >> 19) & 0xF)
     code = torch.where(a >= 0.25, normal, (a * 64.0).to(torch.int32)) | sign
-    return code.to(torch.uint8).view(torch.bits8)
+    code = code.to(torch.uint8)
+    return code if torch.compiler.is_exporting() else code.view(torch.bits8)
 
 
 _E3M4_TABLES = {}
 
 
 def _e3m4_table(device) -> torch.Tensor:
-    """The 256 E3M4 code values as float32 on ``device`` (built once)."""
+    """The 256 E3M4 code values as float32 on ``device`` (built once, but
+    not kept when built while ``torch.export`` traces, where it would be a
+    fake tensor)."""
     key = str(device)
-    if key not in _E3M4_TABLES:
-        codes = np.arange(256)
-        e, m = (codes >> 4) & 7, (codes & 15).astype(np.float64)
-        v = np.where(e == 0, m * 2.0 ** -6, 2.0 ** (e - 3.0) * (1.0 + m / 16))
-        v = np.where(e == 7, np.where(m == 0, np.inf, np.nan), v)
-        v = np.where(codes & 0x80, -v, v)
-        _E3M4_TABLES[key] = torch.tensor(v, dtype=torch.float32, device=device)
-    return _E3M4_TABLES[key]
+    if key in _E3M4_TABLES:
+        return _E3M4_TABLES[key]
+    codes = np.arange(256)
+    e, m = (codes >> 4) & 7, (codes & 15).astype(np.float64)
+    v = np.where(e == 0, m * 2.0 ** -6, 2.0 ** (e - 3.0) * (1.0 + m / 16))
+    v = np.where(e == 7, np.where(m == 0, np.inf, np.nan), v)
+    v = np.where(codes & 0x80, -v, v)
+    table = torch.tensor(v, dtype=torch.float32, device=device)
+    if not torch.compiler.is_exporting():
+        _E3M4_TABLES[key] = table
+    return table
 
 
 def ieee_decode(norm: torch.Tensor) -> torch.Tensor:
-    """A 1-byte cast-path tensor as exact bfloat16 values (E3M4 codes
-    through the code table, the torch f8 dtypes by their own cast)."""
-    if norm.dtype == torch.bits8:
+    """A 1-byte cast-path tensor as exact bfloat16 values (E3M4 codes,
+    ``torch.bits8`` or ``torch.uint8``, through the code table, the torch f8
+    dtypes by their own cast)."""
+    if norm.dtype in (torch.bits8, torch.uint8):
         codes = norm.view(torch.uint8).to(torch.int64)
         return _e3m4_table(norm.device)[codes].to(torch.bfloat16)
     return norm.to(torch.bfloat16)

@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels, each beside its plain PyTorch version.
 
-Wrappers take the plain version for CPU tensors and launch the CUDA kernel
-for CUDA tensors (no fallback between the two); each wrapper counts its
-launches in its ``launches`` attribute.
+Each wrapper calls its torch op ``fp8tpu::<name>`` (ops/kernels/library.py,
+``<name>`` its key in ``WRAPPERS``), which takes the plain version for CPU
+tensors and launches the CUDA kernel for CUDA tensors (no fallback between
+the two); each wrapper counts its launches in its ``launches`` attribute.
 """
 
 from fp8_quantization_tpu_torch.ops.kernels.attention import flash_mha
@@ -17,6 +18,7 @@ from fp8_quantization_tpu_torch.ops.kernels.qmatmul import fused_quant_matmul
 from fp8_quantization_tpu_torch.ops.kernels.qmatmul_int8 import (
     fused_quant_matmul_int8)
 from fp8_quantization_tpu_torch.ops.kernels.qstem import fused_quant_stem
+from fp8_quantization_tpu_torch.ops.kernels import library  # noqa: F401,E402
 
 WRAPPERS = {"qstem": fused_quant_stem, "qconv3x3": fused_quant_conv3x3,
             "qmatmul": fused_quant_matmul,

@@ -100,13 +100,23 @@ def flash_mha_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               sm_scale: float) -> torch.Tensor:
     """softmax(q k^T * sm_scale) v for (B, H, S, D) float32 or bf16 operands
-    (any strides with the last one 1); float32 (B, H, S, D).  CPU tensors
-    take ``flash_mha_plain``; CUDA tensors launch the kernel."""
+    (any strides with the last one 1); float32 (B, H, S, D), a view of a
+    (B, S, H, D) tensor.  Calls the op ``fp8tpu::flash_mha``
+    (ops/kernels/library.py): CPU tensors take ``flash_mha_plain``; CUDA
+    tensors launch the kernel (``flash_mha_cuda``)."""
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be (B, H, S, D) of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    if not on_card(q, k, v):
-        return flash_mha_plain(q, k, v, sm_scale=sm_scale)
+    return torch.ops.fp8tpu.flash_mha(q, k, v, float(sm_scale)).permute(
+        0, 2, 1, 3)
+
+
+def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   sm_scale: float) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors (op ``fp8tpu::flash_mha``,
+    ops/kernels/library.py): float32 (B, S, H, D); raises where it cannot
+    launch."""
+    on_card(q, k, v)
     b, h, s, d = q.shape
     if d != HEAD_DIM:
         raise ValueError(f"flash_mha on the card takes head width "
@@ -130,7 +140,7 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         float(sm_scale), stream_ptr(q))
     build.check(err, "flash_mha")
     flash_mha.launches += 1
-    return out.permute(0, 2, 1, 3)
+    return out
 
 
 flash_mha.launches = 0

@@ -272,7 +272,8 @@ def fused_inverted_residual(x: torch.Tensor, w1: Optional[torch.Tensor],
       scale*/shift*: (hid,) or (Cout,) float32 folded epilogues, each stage's
         scale carrying its upstream stage's factor.
       x_factor: () float32, the input's factor (residual blocks).
-    CPU tensors take ``qblock_plain``; CUDA tensors launch the kernel.
+    Calls the op ``fp8tpu::qblock`` (ops/kernels/library.py): CPU tensors
+    take ``qblock_plain``; CUDA tensors launch the kernel (``qblock_cuda``).
     """
     n, h, w, cin = x.shape
     hid = wd.shape[-1]
@@ -293,11 +294,22 @@ def fused_inverted_residual(x: torch.Tensor, w1: Optional[torch.Tensor],
     if x_factor is None:
         x_factor = torch.ones((), device=x.device)
     x_factor = x_factor.reshape(()).to(torch.float32)
+    return torch.ops.fp8tpu.qblock(
+        x, w1, wd, w2, a_consts, scale1, shift1, scale_d, shift_d, scale2,
+        shift2, x_factor, cfg.expand, cfg.stride, cfg.use_res, cfg.emit_norm,
+        ",".join(cfg.methods))
+
+
+def qblock_cuda(x, w1, wd, w2, a_consts, scale1, shift1, scale_d, shift_d,
+                scale2, shift2, x_factor, cfg: FusedBlockConfig):
+    """The kernel's launch on CUDA tensors (op ``fp8tpu::qblock``,
+    ops/kernels/library.py); raises where it cannot launch."""
+    n, h, w, cin = x.shape
+    hid = wd.shape[-1]
+    cout = w2.shape[-1]
     opt = [t for t in (w1, scale1, shift1) if t is not None]
-    if not on_card(x, wd, w2, a_consts, scale_d, shift_d, scale2, shift2,
-                   x_factor, *opt):
-        return qblock_plain(x, w1, wd, w2, a_consts, scale1, shift1, scale_d,
-                            shift_d, scale2, shift2, x_factor, cfg)
+    on_card(x, wd, w2, a_consts, scale_d, shift_d, scale2, shift2, x_factor,
+            *opt)
     require(x, "x", (torch.bfloat16,))
     require(wd, "wd", (torch.float32,))
     require(w2, "w2", (torch.bfloat16,))

@@ -133,8 +133,9 @@ def fused_quant_conv3x3(x: torch.Tensor, w: torch.Tensor,
     ``weight_matrix`` w (Cout, 9*Cin) bf16; ``a_consts`` (6, 1) for the
     output quant, ``scale``/``shift`` (Cout,) float32, ``residual``
     (N, Ho, Wo, Cout) added after scale/shift (cast to bf16 under emit_norm,
-    float32 otherwise, as the JAX wrapper does).  CPU tensors take
-    ``qconv3x3_plain``; CUDA tensors launch the kernel."""
+    float32 otherwise, as the JAX wrapper does).  Calls the op
+    ``fp8tpu::qconv3x3`` (ops/kernels/library.py): CPU tensors take
+    ``qconv3x3_plain``; CUDA tensors launch the kernel (``qconv3x3_cuda``)."""
     n, h, wd, cin = x.shape
     cout = w.shape[0]
     if w.shape != (cout, 9 * cin):
@@ -149,9 +150,22 @@ def fused_quant_conv3x3(x: torch.Tensor, w: torch.Tensor,
                              f"{(n, ho, wo, cout)}")
         residual = residual.to(torch.bfloat16 if cfg.emit_norm
                                else torch.float32).contiguous()
+    return torch.ops.fp8tpu.qconv3x3(
+        x, w, a_consts, scale, shift, residual, cfg.act_method,
+        cfg.activation, cfg.emit_norm, cfg.stride)
+
+
+def qconv3x3_cuda(x: torch.Tensor, w: torch.Tensor, a_consts,
+                  scale: torch.Tensor, shift: torch.Tensor,
+                  residual: Optional[torch.Tensor],
+                  cfg: FusedConvConfig) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors (op ``fp8tpu::qconv3x3``,
+    ops/kernels/library.py); raises where it cannot launch."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[0]
+    ho, wo = out_hw(h, wd, cfg.stride)
     extra = [t for t in (a_consts, residual) if t is not None]
-    if not on_card(x, w, scale, shift, *extra):
-        return qconv3x3_plain(x, w, a_consts, scale, shift, residual, cfg)
+    on_card(x, w, scale, shift, *extra)
     aq = cfg.act_method != "none"
     if aq and a_consts is None:
         raise ValueError(f"act_method={cfg.act_method!r} needs a_consts")

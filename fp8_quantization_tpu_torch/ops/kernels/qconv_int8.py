@@ -140,16 +140,30 @@ def fused_quant_conv3x3_int8(x: torch.Tensor, w: torch.Tensor,
                              cfg: Int8ConvConfig) -> torch.Tensor:
     """y (N, Ho, Wo, Cout) float32 for x (N, H, W, Cin) float32 and the
     ``weight_matrix`` w (Cout, 9*Cin), int8 grid or float32; the scalars as
-    ``fused_quant_matmul_int8``'s.  CPU tensors take
-    ``qconv3x3_int8_plain``; CUDA tensors launch the kernel."""
+    ``fused_quant_matmul_int8``'s.  Calls the op ``fp8tpu::qconv3x3_int8``
+    (ops/kernels/library.py): CPU tensors take ``qconv3x3_int8_plain``;
+    CUDA tensors launch the kernel (``qconv3x3_int8_cuda``)."""
     n, h, wd, cin = x.shape
     cout = w.shape[0]
     if tuple(w.shape) != (cout, 9 * cin):
         raise ValueError(f"w must be (Cout, 9*Cin) = (*, {9 * cin}), "
                          f"got {tuple(w.shape)}")
+    return torch.ops.fp8tpu.qconv3x3_int8(
+        x, w, w_delta, w_scalars, a_scalars, scale, shift, cfg.activation,
+        cfg.n_bits, cfg.act_n_bits, cfg.stride)
+
+
+def qconv3x3_int8_cuda(x: torch.Tensor, w: torch.Tensor,
+                       w_delta: torch.Tensor, w_scalars: torch.Tensor,
+                       a_scalars: torch.Tensor, scale: torch.Tensor,
+                       shift: torch.Tensor,
+                       cfg: Int8ConvConfig) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors (op ``fp8tpu::qconv3x3_int8``,
+    ops/kernels/library.py); raises where it cannot launch."""
+    n, h, wd, cin = x.shape
+    cout = w.shape[0]
     args = (w_delta, w_scalars, a_scalars, scale, shift)
-    if not on_card(x, w, *args):
-        return qconv3x3_int8_plain(x, w, *args, cfg)
+    on_card(x, w, *args)
     if cin % 16:
         raise ValueError(f"the int8 conv kernel needs Cin divisible by 16, "
                          f"got {cin}")

@@ -161,15 +161,26 @@ def fused_quant_dwconv3x3(x: torch.Tensor, w: torch.Tensor,
                           cfg: DwConvConfig) -> torch.Tensor:
     """y (N, Ho, Wo, C) for x (N, H, W, C) bf16 and the ``weight_taps`` w
     (3, 3, C) float32; ``a_consts`` (6, 1) for the output quant,
-    ``scale``/``shift`` (C,) float32.  CPU tensors take
-    ``qdwconv3x3_plain``; CUDA tensors launch the kernel."""
+    ``scale``/``shift`` (C,) float32.  Calls the op ``fp8tpu::qdwconv3x3``
+    (ops/kernels/library.py): CPU tensors take ``qdwconv3x3_plain``; CUDA
+    tensors launch the kernel (``qdwconv3x3_cuda``)."""
     n, h, wd, c = x.shape
     if w.shape != (3, 3, c):
         raise ValueError(f"w must be (3, 3, C) = (3, 3, {c}), got "
                          f"{tuple(w.shape)}")
+    return torch.ops.fp8tpu.qdwconv3x3(
+        x, w, a_consts, scale, shift, cfg.act_method, cfg.activation,
+        cfg.emit_norm, cfg.stride)
+
+
+def qdwconv3x3_cuda(x: torch.Tensor, w: torch.Tensor, a_consts,
+                    scale: torch.Tensor, shift: torch.Tensor,
+                    cfg: DwConvConfig) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors (op ``fp8tpu::qdwconv3x3``,
+    ops/kernels/library.py); raises where it cannot launch."""
+    n, h, wd, c = x.shape
     extra = [t for t in (a_consts,) if t is not None]
-    if not on_card(x, w, scale, shift, *extra):
-        return qdwconv3x3_plain(x, w, a_consts, scale, shift, cfg)
+    on_card(x, w, scale, shift, *extra)
     aq = cfg.act_method != "none"
     if aq and a_consts is None:
         raise ValueError(f"act_method={cfg.act_method!r} needs a_consts")

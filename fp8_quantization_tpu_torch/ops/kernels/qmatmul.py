@@ -123,15 +123,28 @@ def fused_quant_matmul(x: torch.Tensor, w: torch.Tensor,
         "int_asym"), for x under ``cfg.quantize_input``, else for y.
       scale, shift: (N,) float32 epilogue ``y*scale + shift``.
     Returns float32, or bf16 normalized values with ``cfg.emit_norm``.
-    CPU tensors take ``qmatmul_plain``; CUDA tensors launch the kernel.
+    Calls the op ``fp8tpu::qmatmul`` (ops/kernels/library.py): CPU tensors
+    take ``qmatmul_plain``; CUDA tensors launch the kernel
+    (``qmatmul_cuda``).
     """
     M, K = x.shape
     N = w.shape[0]
     if w.shape != (N, K):
         raise ValueError(f"w must be (N, K) = (*, {K}), got {tuple(w.shape)}")
+    return torch.ops.fp8tpu.qmatmul(
+        x, w, w_consts, a_consts, scale, shift, cfg.weight_method,
+        cfg.act_method, cfg.quantize_input, cfg.activation, cfg.emit_norm)
+
+
+def qmatmul_cuda(x: torch.Tensor, w: torch.Tensor, w_consts, a_consts,
+                 scale: torch.Tensor, shift: torch.Tensor,
+                 cfg: FusedQuantMatmulConfig) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors (op ``fp8tpu::qmatmul``,
+    ops/kernels/library.py); raises where it cannot launch."""
+    M, K = x.shape
+    N = w.shape[0]
     extra = [t for t in (w_consts, a_consts) if t is not None]
-    if not on_card(x, w, scale, shift, *extra):
-        return qmatmul_plain(x, w, w_consts, a_consts, scale, shift, cfg)
+    on_card(x, w, scale, shift, *extra)
     wq = cfg.weight_method != "none"
     aq = cfg.act_method != "none"
     if wq and w_consts is None or aq and a_consts is None:

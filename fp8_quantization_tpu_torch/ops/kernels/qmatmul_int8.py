@@ -165,15 +165,30 @@ def fused_quant_matmul_int8(x: torch.Tensor, w: torch.Tensor,
       w: (N, K) int8 recentred grid (prequantized) or float32.
       w_delta: (N,) weight step; w_scalars: (2,) [0, signed];
       a_scalars: (3,) [dx, zero_float, 0]; scale, shift: (N,) float32.
-    CPU tensors take ``qmatmul_int8_plain``; CUDA tensors launch the kernel.
+    Calls the op ``fp8tpu::qmatmul_int8`` (ops/kernels/library.py): CPU
+    tensors take ``qmatmul_int8_plain``; CUDA tensors launch the kernel
+    (``qmatmul_int8_cuda``).
     """
     M, K = x.shape
     N = w.shape[0]
     if tuple(w.shape) != (N, K):
         raise ValueError(f"w must be (N, K) = (*, {K}), got {tuple(w.shape)}")
+    return torch.ops.fp8tpu.qmatmul_int8(
+        x, w, w_delta, w_scalars, a_scalars, scale, shift, cfg.activation,
+        cfg.n_bits, cfg.act_n_bits)
+
+
+def qmatmul_int8_cuda(x: torch.Tensor, w: torch.Tensor,
+                      w_delta: torch.Tensor, w_scalars: torch.Tensor,
+                      a_scalars: torch.Tensor, scale: torch.Tensor,
+                      shift: torch.Tensor,
+                      cfg: Int8MatmulConfig) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors (op ``fp8tpu::qmatmul_int8``,
+    ops/kernels/library.py); raises where it cannot launch."""
+    M, K = x.shape
+    N = w.shape[0]
     args = (w_delta, w_scalars, a_scalars, scale, shift)
-    if not on_card(x, w, *args):
-        return qmatmul_int8_plain(x, w, *args, cfg)
+    on_card(x, w, *args)
     require(x, "x", (torch.float32,), vector_loads=True)
     require(w, "w", (torch.int8, torch.float32), vector_loads=True)
     check_scalars(N, *args)

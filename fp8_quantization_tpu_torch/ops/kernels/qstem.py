@@ -162,17 +162,28 @@ def fused_quant_stem(x: torch.Tensor, w: torch.Tensor, a_consts,
                      cfg: FusedStemConfig) -> torch.Tensor:
     """(N, P, P, Cout) pooled activations for x (N, S, S, cin) float32 or
     bf16 raw images and the ``weight_matrix`` w (Kp, Cout) bf16 (weight
-    factor and BN folded into ``scale``/``shift`` by the caller).  CPU
-    tensors take ``qstem_plain``; CUDA tensors launch the kernel."""
+    factor and BN folded into ``scale``/``shift`` by the caller).  Calls
+    the op ``fp8tpu::qstem`` (ops/kernels/library.py): CPU tensors take
+    ``qstem_plain``; CUDA tensors launch the kernel (``qstem_cuda``)."""
     n, s, s2, cin = x.shape
     if s != s2:
         raise ValueError(f"square images only, got {tuple(x.shape)}")
     kp = k_pad(cin)
     if tuple(w.shape) != (kp, w.shape[1]):
         raise ValueError(f"w must be ({kp}, Cout), got {tuple(w.shape)}")
+    return torch.ops.fp8tpu.qstem(x, w, a_consts, scale, shift,
+                                  cfg.act_method, cfg.emit_norm)
+
+
+def qstem_cuda(x: torch.Tensor, w: torch.Tensor, a_consts,
+               scale: torch.Tensor, shift: torch.Tensor,
+               cfg: FusedStemConfig) -> torch.Tensor:
+    """The kernel's launch on CUDA tensors (op ``fp8tpu::qstem``,
+    ops/kernels/library.py); raises where it cannot launch."""
+    n, s, _, cin = x.shape
+    kp = k_pad(cin)
     extra = [a_consts] if a_consts is not None else []
-    if not on_card(x, w, scale, shift, *extra):
-        return qstem_plain(x, w, a_consts, scale, shift, cfg)
+    on_card(x, w, scale, shift, *extra)
     if w.shape[1] != COUT or cin > 4:
         raise ValueError(f"the stem kernel takes Cout = {COUT} and cin <= 4, "
                          f"got {w.shape[1]}, {cin}")

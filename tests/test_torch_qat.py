@@ -369,15 +369,18 @@ def test_cli_train_quantized_cpu(capsys, monkeypatch):
                      "fused_quant_dwconv3x3": 17}
 
 
-def test_cli_train_quantized_options_and_errors(capsys, monkeypatch):
+def test_cli_train_quantized_options_and_errors(capsys, monkeypatch,
+                                                tmp_path):
+    """The options run; --save-checkpoint-dir writes the epoch's step
+    (tests/test_torch_checkpoint.py holds what it writes)."""
+    ck = tmp_path / "ck"
     image_net.main(TRAIN_ARGS[:-4] + ["--estimate-ranges-train",
                                       "--no-reestimate-bn-stats",
-                                      "--learning-rate-schedule", "cosine:0.0001"])
+                                      "--learning-rate-schedule", "cosine:0.0001",
+                                      "--save-checkpoint-dir", str(ck)])
     metrics = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert np.isfinite(metrics["loss"])
-    with pytest.raises(NotImplementedError,
-                       match="Checkpoints, utilities and preflight"):
-        image_net.main(TRAIN_ARGS + ["--save-checkpoint-dir", "/nonexistent"])
+    assert sorted(p.name for p in ck.iterdir()) == ["step_0"]
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         image_net.main([a for a in TRAIN_ARGS if a not in ("--device", "cpu")])
