@@ -15,6 +15,12 @@ nested dict by its module path (``layer1_0.conv1.weight_q`` ->
 ``["layer1_0"]["conv1"]["weight_q"]``) in the order the forward first
 calls it, and ``partial_quant_updates`` walks it as JAX does.  Batches are numpy or torch
 (x NHWC, y int labels) and are moved to ``device``.
+
+Data-parallel calibration and evaluation are parallel/api.py's
+``calibrate_sharded`` and ``evaluate_sharded``: each rank runs these loops
+on its rows of every global batch inside a reduction scope
+(parallel/collectives.py), so the estimators and the evaluation's sums
+reduce over the data group.
 """
 
 from __future__ import annotations
@@ -25,6 +31,8 @@ from typing import Iterable, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+
+from fp8_quantization_tpu_torch.parallel import collectives
 
 log = logging.getLogger(__name__)
 
@@ -126,7 +134,9 @@ def batch_stats(logits: torch.Tensor, y: torch.Tensor) -> dict:
     logits = logits.to(torch.float32)
     nll = F.cross_entropy(logits, y, reduction="sum")
     top1 = (logits.argmax(dim=-1) == y).sum()
-    top5 = (logits.topk(5, dim=-1).indices == y[:, None]).any(dim=-1).sum()
+    # fewer than five classes: all of them, as JAX's argsort(...)[:, -5:]
+    k = min(5, logits.shape[-1])
+    top5 = (logits.topk(k, dim=-1).indices == y[:, None]).any(dim=-1).sum()
     return {"loss_sum": float(nll), "top1_sum": int(top1),
             "top5_sum": int(top5), "count": int(y.shape[0])}
 
@@ -135,7 +145,10 @@ def batch_stats(logits: torch.Tensor, y: torch.Tensor) -> dict:
 def evaluate(model, batches: Iterable, *, device, quant_w: bool = True,
              quant_a: bool = True, mode: str = "fixed",
              max_batches: Optional[int] = None) -> dict:
-    """Top-1 / top-5 / loss over a dataset."""
+    """Top-1 / top-5 / loss over a dataset; inside a
+    ``parallel.collectives.reducing_over`` scope each rank evaluates its
+    rows and the sums are reduced over the data group, so every rank
+    returns the global metrics."""
     totals = None
     for i, (x, y) in enumerate(batches):
         if max_batches is not None and i >= max_batches:
@@ -147,6 +160,12 @@ def evaluate(model, batches: Iterable, *, device, quant_w: bool = True,
                                                for k, v in stats.items()}
     if totals is None:
         raise ValueError("no evaluation batches")
+    if collectives.active():        # each rank held its rows of the batches
+        keys = sorted(totals)
+        sums = collectives.all_sum(torch.tensor(
+            [float(totals[k]) for k in keys], dtype=torch.float64,
+            device=device))
+        totals = dict(zip(keys, sums.tolist()))
     n = float(totals["count"])
     return {"top_1_accuracy": totals["top1_sum"] / n,
             "top_5_accuracy": totals["top5_sum"] / n,

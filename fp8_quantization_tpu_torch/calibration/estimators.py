@@ -20,6 +20,17 @@ them (``search_steps``), and the percentile is ``jnp.percentile``'s
 linear interpolation as that step computes it (``percentile``).  Where
 XLA fuses the grid with the channels' absmax it may round a point an ulp
 apart.
+
+Data-parallel calibration (parallel/api.calibrate_sharded) opens a
+``parallel.collectives.reducing_over`` scope, in which every reduction
+over the observed tensor is global, as it is over JAX's sharded batch:
+the min and max (one collective for both), the MSE search's absmax and
+sign, and its squared-error tables, each rank's sums added and divided by
+the global count before the argmin and the vote, which then run on the
+same table in every rank; the line search's data range and summed
+losses.  The percentile gathers the whole sample before its sort: exact,
+at the cost of holding the global tensor in every rank.  Outside a scope
+every path is unchanged.
 """
 
 from __future__ import annotations
@@ -33,6 +44,7 @@ import torch
 from fp8_quantization_tpu_torch.ops import fp8 as fp8_ops
 from fp8_quantization_tpu_torch.ops import uniform as uniform_ops
 from fp8_quantization_tpu_torch.ops.quantizer import QuantizerSpec
+from fp8_quantization_tpu_torch.parallel import collectives
 
 # Number of maxval candidates of the MSE grid search, linspace(0.1 * absmax,
 # 1.2 * absmax, 111), as in the JAX package.
@@ -162,27 +174,32 @@ def percentile(x_cn: torch.Tensor, qs: Sequence[float]) -> torch.Tensor:
 def _current_minmax(spec: EstimatorSpec, x_cn: torch.Tensor, per_channel: bool):
     """Last-batch min/max, with symmetric percentile clipping."""
     if spec.percentile:
-        lo, hi = percentile(x_cn, [spec.percentile, 100.0 - spec.percentile])
+        lo, hi = percentile(collectives.all_gather(x_cn, dim=-1),
+                            [spec.percentile, 100.0 - spec.percentile])
     else:
-        lo, hi = torch.amin(x_cn, dim=-1), torch.amax(x_cn, dim=-1)
+        lo, hi = collectives.all_minmax(torch.amin(x_cn, dim=-1),
+                                        torch.amax(x_cn, dim=-1))
     return _squeeze(lo, per_channel), _squeeze(hi, per_channel)
 
 
 def _fp8_sq_errors(x_cn: torch.Tensor, maxvals: torch.Tensor, mbits: float,
-                   qspec: QuantizerSpec, sign_bits) -> torch.Tensor:
+                   qspec: QuantizerSpec, sign_bits,
+                   reduce=torch.mean) -> torch.Tensor:
     """Mean squared FP8 fake-quant error of ``x_cn`` (C, N) at each row of
-    candidate maxvals (k, C): ``(k, C)``.  The values of
-    ``quantize_to_fp8`` (the same constants and per-element pipeline)."""
+    candidate maxvals (k, C): ``(k, C)`` (the sum with ``reduce=torch.sum``).
+    The values of ``quantize_to_fp8`` (the same constants and per-element
+    pipeline)."""
     k, c = maxvals.shape
     consts = fp8_ops.fp8_consts(maxvals.reshape(-1), mbits, qspec.n_bits,
                                 sign_bits)
     rows = [r.reshape(k, c, 1) for r in consts]
     xq = fp8_ops.fp8_quantize_rows(x_cn.unsqueeze(0), *rows)
-    return torch.mean((x_cn.unsqueeze(0) - xq) ** 2, dim=-1)
+    return reduce((x_cn.unsqueeze(0) - xq) ** 2, dim=-1)
 
 
 def _int_sq_errors(x_cn: torch.Tensor, maxvals: torch.Tensor,
-                   qspec: QuantizerSpec, sign_bits) -> torch.Tensor:
+                   qspec: QuantizerSpec, sign_bits,
+                   reduce=torch.mean) -> torch.Tensor:
     """The same on a symmetric uniform grid over [-maxval, maxval] (the MSE
     search's integer branch), one candidate row at a time."""
     out = []
@@ -193,7 +210,7 @@ def _int_sq_errors(x_cn: torch.Tensor, maxvals: torch.Tensor,
         xq = uniform_ops.quantize_uniform_symmetric(
             x_cn, delta[:, None], signed, qspec.n_bits,
             scale_domain=qspec.scale_domain, eps=qspec.eps)
-        out.append(torch.mean((x_cn - xq) ** 2, dim=-1))
+        out.append(reduce((x_cn - xq) ** 2, dim=-1))
     return torch.stack(out)
 
 
@@ -208,26 +225,36 @@ def _mse_update(spec: EstimatorSpec, qspec: QuantizerSpec, state: EstState,
     mbits = mbit_list(qspec)
     x_cn = x_cn.to(torch.float32)
     dev = x_cn.device
-    absmax = torch.maximum(torch.abs(torch.amin(x_cn, dim=-1)),
-                           torch.abs(torch.amax(x_cn, dim=-1)))
+    dp = collectives.active()
+    lo, hi = collectives.all_minmax(torch.amin(x_cn, dim=-1),
+                                    torch.amax(x_cn, dim=-1))
+    absmax = torch.maximum(torch.abs(lo), torch.abs(hi))
     fresh = search_steps(spec.grid_size, device=dev)[:, None] * absmax[None, :]
     search_grid = torch.where(state["seen"], state["search_grid"], fresh)
     if qspec.allow_unsigned:
-        sign_bits = torch.any(x_cn < 0).to(torch.int32)
+        # any element below 0: the (global) min's sign
+        sign_bits = torch.any(lo < 0).to(torch.int32)
     else:
         sign_bits = torch.ones((), dtype=torch.int32, device=dev)
 
+    # across ranks each table is a sum, divided by the global count after
+    # the reduction
+    reduce = torch.sum if dp else torch.mean
     chunk = sweep_chunk(x_cn)
     batch_mses = []
     for m in mbits:
         parts = []
         for i in range(0, search_grid.shape[0], chunk):
             cand = search_grid[i:i + chunk]
-            parts.append(_fp8_sq_errors(x_cn, cand, m, qspec, sign_bits)
+            parts.append(_fp8_sq_errors(x_cn, cand, m, qspec, sign_bits, reduce)
                          if qspec.is_fp8 else
-                         _int_sq_errors(x_cn, cand, qspec, sign_bits))
+                         _int_sq_errors(x_cn, cand, qspec, sign_bits, reduce))
         batch_mses.append(torch.cat(parts))
-    mses = state["mses"] + torch.stack(batch_mses)            # (M, n, C)
+    batch = torch.stack(batch_mses)                            # (M, n, C)
+    if dp:
+        batch = collectives.all_sum(batch) / float(
+            x_cn.shape[-1] * collectives.size())
+    mses = state["mses"] + batch
 
     votes = torch.argmin(torch.amin(mses, dim=1), dim=0)      # (C,)
     best_idx = torch.argmax(torch.bincount(votes, minlength=len(mbits)))
@@ -255,7 +282,8 @@ def _line_search_update(spec: EstimatorSpec, qspec: QuantizerSpec,
 
     x_cn = x_cn.to(torch.float32)
     n = spec.line_search_size
-    data_min, data_max = torch.amin(x_cn), torch.amax(x_cn)
+    data_min, data_max = collectives.all_minmax(torch.amin(x_cn),
+                                                torch.amax(x_cn))
     one_sided = torch.where(state["seen"], state["one_sided"], data_min >= 0)
     max_pos = (torch.maximum(torch.abs(data_min), torch.abs(data_max))
                + spec.range_margin)
@@ -263,8 +291,8 @@ def _line_search_update(spec: EstimatorSpec, qspec: QuantizerSpec,
     fresh = step * torch.arange(1, n + 1, dtype=torch.float32, device=x_cn.device)
     thresholds = torch.where(state["seen"], state["thresholds"], fresh)
 
-    losses = state["losses"] + candidate_losses(qspec, x_cn, thresholds,
-                                                one_sided, per_row=True)
+    losses = state["losses"] + collectives.all_sum(candidate_losses(
+        qspec, x_cn, thresholds, one_sided, per_row=True))
     best = torch.argmin(losses, dim=0)                        # (C,)
     x_max = thresholds[best]
     x_min = torch.where(one_sided, torch.zeros_like(x_max), -x_max)
@@ -287,8 +315,9 @@ def update(spec: EstimatorSpec, qspec: QuantizerSpec, state: EstState,
         return _mse_update(spec, qspec, state, x_cn, pc)
     if spec.kind == RangeEstimators.line_search:
         return _line_search_update(spec, qspec, state, x_cn, pc)
-    lo = _squeeze(torch.amin(x_cn, dim=-1), pc)
-    hi = _squeeze(torch.amax(x_cn, dim=-1), pc)
+    lo, hi = collectives.all_minmax(torch.amin(x_cn, dim=-1),
+                                    torch.amax(x_cn, dim=-1))
+    lo, hi = _squeeze(lo, pc), _squeeze(hi, pc)
     seen = state["seen"]
     if spec.kind == RangeEstimators.allminmax:
         lo = torch.where(seen, torch.minimum(state["xmin"], lo), lo)

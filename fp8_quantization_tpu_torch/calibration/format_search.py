@@ -21,6 +21,8 @@ from typing import Dict, Iterable, List, Sequence, Tuple
 import numpy as np
 import torch
 
+from fp8_quantization_tpu_torch.parallel import collectives
+
 log = logging.getLogger(__name__)
 
 
@@ -57,6 +59,8 @@ def network_format_search(model, batches: Iterable, *, device,
         for x, r in zip(xs, refs):
             out = model(x, mode="fixed", quant_w=quant_w, quant_a=quant_a)
             s = s + torch.mean((out - r) ** 2)
+        if collectives.active():    # each rank holds its rows: their mean
+            s = collectives.all_sum(s) / collectives.size()
         return s
 
     quantizers = find_fp8_quantizers(model)

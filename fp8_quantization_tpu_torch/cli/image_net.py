@@ -44,6 +44,23 @@ unset, ``torch.use_deterministic_algorithms(True)`` and
 ``torch.backends.cudnn.benchmark = False``, each logged; the kernel gate's
 races are left as they are, as JAX's flag leaves its gate.
 
+``--data-parallel D`` and ``--model-parallel M`` (JAX there lines 51-54,
+214-217, 272-281, 323-329, 560-563) run the commands over ``D x M`` ranks
+that ``torchrun`` starts, one process each (parallel/): ``--batch-size``
+is the global batch, of which each rank keeps its data index's rows;
+calibration goes through ``calibrate_sharded``, the evaluation through
+``evaluate_sharded``, QAT through ``shard_qat_state``, so every reduction
+over the batch is global, and ``--model-parallel`` shards the weights by
+JAX's weight-gather rule.  Every rank reads the whole global batch from
+the loader, as one process does.  Rank 0 alone prints the metrics line
+and writes checkpoints and metrics files.  ``D x M`` other than the
+world, a batch ``D`` does not divide and a checkpoint of tensor-parallel
+QAT are usage errors; with both at 1 nothing changes.
+
+    torchrun --nproc-per-node 2 -m fp8_quantization_tpu_torch.cli.image_net \\
+        validate-quantized --engine fused --per-channel --fp8-set-maxval \\
+        --batch-size 128 --data-parallel 2
+
 The ``fused`` engine's kernels sit behind the kernel gate
 (ops/kernels/autotune.py).  As in JAX there is no flag: the mode is
 ``FP8TPU_PALLAS_AUTOTUNE`` (``auto`` by default: each kernel is raced
@@ -125,6 +142,12 @@ def _quant_options(p: argparse.ArgumentParser) -> None:
     p.add_argument("--nondeterministic", dest="deterministic",
                    action="store_false", help="the default")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"])
+    p.add_argument("--data-parallel", type=int, default=1,
+                   help="mesh 'data' axis size (ranks; launch them with "
+                        "torchrun); --batch-size is the global batch")
+    p.add_argument("--model-parallel", type=int, default=1,
+                   help="mesh 'model' axis size (weight-gather tensor "
+                        "parallelism)")
     p.add_argument("--qmethod", default="fp_quantizer",
                    choices=["symmetric_uniform", "asymmetric_uniform",
                             "fp_quantizer"])
@@ -357,6 +380,43 @@ def build_model(args):
     return model.eval()
 
 
+def setup_parallel(args, command: str):
+    """The mesh of ``--data-parallel`` x ``--model-parallel`` (JAX
+    ``_setup``), None for one process.  Joins the ranks
+    (parallel/multihost.initialize, from torchrun's environment); a mesh
+    that is not the world, a batch that ``--data-parallel`` does not
+    divide and a checkpoint of tensor-parallel QAT are usage errors.  On
+    the card rank 0 alone builds the kernels while the others wait."""
+    from fp8_quantization_tpu_torch.parallel import initialize, make_mesh
+    from fp8_quantization_tpu_torch.parallel.multihost import (
+        barrier, process_index)
+    data, model = args.data_parallel, args.model_parallel
+    if data < 1 or model < 1:
+        usage_error(command, "--data-parallel and --model-parallel must be >= 1")
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if data * model != world:
+        usage_error(command, f"--data-parallel {data} x --model-parallel "
+                             f"{model} != {world} ranks (launch with torchrun "
+                             f"--nproc-per-node {data * model})")
+    if args.batch_size % data:
+        usage_error(command, f"--batch-size {args.batch_size} (the global "
+                             f"batch) does not split over --data-parallel {data}")
+    if (command == "train-quantized" and model > 1
+            and args.save_checkpoint_dir):
+        usage_error(command, "checkpoints of a tensor-parallel QAT state "
+                             "(its optimizer state is sharded) are not ported "
+                             "yet; train with --model-parallel 1 to save one")
+    if world == 1:
+        return None
+    initialize(device=args.device)
+    if args.device == "cuda" and args.engine == "fused":
+        from fp8_quantization_tpu_torch.ops.kernels import build
+        if process_index() == 0:
+            build.build_all()
+        barrier()
+    return make_mesh(data=data, model=model)
+
+
 def bake_for_eval(model, quant_w: bool, bake: bool) -> bool:
     """Bake a calibrated model as ``--bake-weights`` asks; returns the
     ``quant_w`` to evaluate with.  The int8 datapath bakes its int8 grid and
@@ -408,6 +468,8 @@ def validate_quantized(args) -> dict:
     from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
     from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
     from fp8_quantization_tpu_torch.device import resolve_device
+    from fp8_quantization_tpu_torch.parallel import (
+        calibrate_sharded, collectives, gather_weights, multihost)
     from fp8_quantization_tpu_torch.utils.checkpoint import (
         restore_checkpoint, save_checkpoint)
 
@@ -415,6 +477,7 @@ def validate_quantized(args) -> dict:
     if args.load_type == "quantized" and not args.load_checkpoint_dir:
         usage_error("validate-quantized",
                     "--load-type quantized requires --load-checkpoint-dir")
+    mesh = setup_parallel(args, "validate-quantized")
     seed_run(args)
     model = build_model(args)
     train_data, val_data = make_dataloaders(
@@ -427,33 +490,58 @@ def validate_quantized(args) -> dict:
         restore_checkpoint(args.load_checkpoint_dir, model)
         log.info("restored quantized state from %s (calibration skipped)",
                  args.load_checkpoint_dir)
+    elif mesh is not None:
+        calibrate_sharded(model, cal_data, mesh, device=device,
+                          num_batches=args.num_est_batches,
+                          tensor_parallel=args.model_parallel > 1,
+                          quant_w=args.weight_quant, quant_a=args.act_quant)
+        log.info("calibration done (%d batches, mesh %s)",
+                 args.num_est_batches, mesh.shape)
     else:
         calibrate(model, cal_data, device=device,
                   num_batches=args.num_est_batches,
                   quant_w=args.weight_quant, quant_a=args.act_quant)
         log.info("calibration done (%d batches)", args.num_est_batches)
     if args.save_checkpoint_dir:
-        save_checkpoint(args.save_checkpoint_dir, model)
+        with gather_weights(mesh, model):
+            save_checkpoint(args.save_checkpoint_dir, model)
         log.info("calibrated state saved to %s", args.save_checkpoint_dir)
-    if args.reestimate_bn_stats:
-        from fp8_quantization_tpu_torch.training.qat import reestimate_bn_stats
-        n = max(1, int(0.02 * len(cal_data)))   # 2% of the batches, as JAX
-        reestimate_bn_stats(model, cal_data, num_batches=n)
-        log.info("BN stats re-estimated on %d batches", n)
-    if args.format_search_passes > 0:
-        format_search(model, cal_data, args, device)
-    return deploy_and_evaluate(model, args, cal_data, val_data, device)
+    with collectives.reducing_over(mesh and mesh.data_group):
+        if args.reestimate_bn_stats:
+            from fp8_quantization_tpu_torch.training.qat import (
+                reestimate_bn_stats)
+            n = max(1, int(0.02 * len(cal_data)))   # 2% of the batches, as JAX
+            reestimate_bn_stats(model,
+                                multihost.local_batches(cal_data, mesh),
+                                num_batches=n)
+            log.info("BN stats re-estimated on %d batches", n)
+        if args.format_search_passes > 0:
+            format_search(model, multihost.local_batches(cal_data, mesh),
+                          args, device)
+    return deploy_and_evaluate(model, args, cal_data, val_data, device, mesh)
 
 
-def deploy_and_evaluate(model, args, cal_data, val_data, device) -> dict:
+def deploy_and_evaluate(model, args, cal_data, val_data, device,
+                        mesh=None) -> dict:
     """Bake, prepare and evaluate ``model`` as ``validate-quantized``
-    deploys it (on the engine it was built for)."""
+    deploys it (on the engine it was built for); with a mesh, the bake on
+    the gathered weights and the evaluation sharded."""
     from fp8_quantization_tpu_torch.calibration.calibrate import evaluate
     from fp8_quantization_tpu_torch.ops.kernels import autotune
-    quant_w = bake_for_eval(model, args.weight_quant, args.bake_weights)
+    from fp8_quantization_tpu_torch.parallel import (
+        evaluate_sharded, gather_weights)
+    with gather_weights(mesh, model):
+        quant_w = bake_for_eval(model, args.weight_quant, args.bake_weights)
     prepare_for_eval(model, cal_data, device, quant_w, args.act_quant)
-    metrics = evaluate(model, val_data, device=device, quant_w=quant_w,
-                       quant_a=args.act_quant, max_batches=args.max_eval_batches)
+    if mesh is not None:
+        metrics = evaluate_sharded(model, val_data, mesh, device=device,
+                                   tensor_parallel=args.model_parallel > 1,
+                                   quant_w=quant_w, quant_a=args.act_quant,
+                                   max_batches=args.max_eval_batches)
+    else:
+        metrics = evaluate(model, val_data, device=device, quant_w=quant_w,
+                           quant_a=args.act_quant,
+                           max_batches=args.max_eval_batches)
     log.info("kernel gate (mode %s): %s", autotune.MODE,
              json.dumps(autotune.decision_table()))
     return metrics
@@ -490,10 +578,14 @@ def train_quantized(args) -> dict:
     from fp8_quantization_tpu_torch.training.qat import (
         init_qat_state, make_optimizer, make_train_step, reestimate_bn_stats,
         train_epoch)
+    from fp8_quantization_tpu_torch.parallel import (
+        calibrate_sharded, collectives, gather_weights, multihost,
+        shard_qat_state)
     from fp8_quantization_tpu_torch.utils.checkpoint import save_checkpoint
     from fp8_quantization_tpu_torch.utils.metrics import MetricsLogger
 
     device = resolve_device(args.device)
+    mesh = setup_parallel(args, "train-quantized")
     seed_run(args)
     model = build_model(args)
     train_data, val_data = make_dataloaders(
@@ -504,8 +596,12 @@ def train_quantized(args) -> dict:
         raise SystemExit(f"--images-dir {args.images_dir} has no train/ "
                          "split; train-quantized needs one "
                          "(validate-quantized works val-only)")
-    calibrate(model, train_data, device=device,
-              num_batches=args.num_est_batches)
+    if mesh is not None:
+        calibrate_sharded(model, train_data, mesh, device=device,
+                          num_batches=args.num_est_batches)
+    else:
+        calibrate(model, train_data, device=device,
+                  num_batches=args.num_est_batches)
     log.info("calibration done (%d batches)", args.num_est_batches)
 
     steps_per_epoch = len(train_data) if hasattr(train_data, "__len__") else 1000
@@ -520,14 +616,15 @@ def train_quantized(args) -> dict:
     state = init_qat_state(
         model, model.config, model_tx, quant_tx,
         oscillation=_oscillation_config(args, steps_per_epoch * args.max_epochs))
+    if mesh is not None:
+        state = shard_qat_state(mesh, state,
+                                tensor_parallel=args.model_parallel > 1)
     mode = "learn" if args.learn_ranges else "calibrate_train"
     step_fn = make_train_step(state, mode=mode)
 
     def batches():
-        for i, b in enumerate(train_data):
-            if args.max_train_batches and i >= args.max_train_batches:
-                break
-            yield b
+        return multihost.local_batches(train_data, mesh,
+                                       args.max_train_batches or None)
 
     val_metrics = None
     with MetricsLogger(args.tb_logging_dir, run_name=args.architecture) as mlog:
@@ -535,12 +632,14 @@ def train_quantized(args) -> dict:
             state, metrics = train_epoch(state, batches(), mode=mode,
                                          step_fn=step_fn)
             mlog.log(epoch, metrics, prefix="train/")
-            deployed = copy.deepcopy(model)
+            with gather_weights(mesh, model):
+                deployed = copy.deepcopy(model)
             if args.reestimate_bn_stats:
-                reestimate_bn_stats(deployed, batches(),
-                                    num_batches=args.reestimate_bn_batches)
+                with collectives.reducing_over(mesh and mesh.data_group):
+                    reestimate_bn_stats(deployed, batches(),
+                                        num_batches=args.reestimate_bn_batches)
             val_metrics = deploy_and_evaluate(deployed, args, train_data,
-                                              val_data, device)
+                                              val_data, device, mesh)
             mlog.log(epoch, val_metrics, prefix="val/")
             if args.save_checkpoint_dir:
                 save_checkpoint(args.save_checkpoint_dir, state, step=epoch)
@@ -550,12 +649,16 @@ def train_quantized(args) -> dict:
 
 
 def main(argv=None) -> None:
+    from fp8_quantization_tpu_torch.parallel import multihost
     logging.basicConfig(level=os.environ.get("LOGLEVEL", "INFO"))
     args = build_parser().parse_args(argv)
     if args.command == "validate-quantized":
-        print(json.dumps(validate_quantized(args)))
+        metrics = validate_quantized(args)
     else:
-        print(json.dumps(train_quantized(args)))
+        metrics = train_quantized(args)
+    if multihost.process_index() == 0:    # every rank holds the global metrics
+        print(json.dumps(metrics))
+    multihost.shutdown()
 
 
 if __name__ == "__main__":

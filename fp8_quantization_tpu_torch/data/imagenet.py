@@ -200,7 +200,10 @@ class SyntheticImageNet:
 
     Class-dependent low-frequency patterns + noise, ImageNet-normalized.
     Used for throughput benchmarks and pipeline tests; accuracy numbers on
-    real ImageNet require the real dataset via ImageFolderDataset.
+    real ImageNet require the real dataset via ImageFolderDataset.  Under
+    data parallelism every rank draws the same global batches from the
+    seed and keeps its rows (parallel.local_rows), so the ranks together
+    see the single-process run's batches.
     """
 
     def __init__(self, image_size: int = 224, batch_size: int = 64,

@@ -49,6 +49,7 @@ from fp8_quantization_tpu_torch.nn.layers import (
     layer_weight_spec)
 from fp8_quantization_tpu_torch.nn.quantizers import preparing
 from fp8_quantization_tpu_torch.ops.kernels import autotune, qblock
+from fp8_quantization_tpu_torch.parallel import collectives
 
 # (expand ratio t, channels c, repeats n, stride s), the reference's table
 INVERTED_RESIDUAL_SETTING = (
@@ -232,14 +233,15 @@ class QuantizedMobileNetV2(nn.Module):
 
     def _dropout(self, x):
         """Inverted dropout with keep probability 1 - rate (flax
-        ``nn.Dropout``), the mask from ``dropout_generator``."""
+        ``nn.Dropout``), the mask from ``dropout_generator`` (under data
+        parallelism this rank's rows of the global batch's mask)."""
         if self.dropout_generator is None:
             raise ValueError("dropout in a training forward needs the "
                              "model's dropout_generator")
         norm, factor = split(x)
         keep_prob = 1.0 - self.dropout_rate
-        keep = torch.rand(norm.shape, generator=self.dropout_generator,
-                          device=norm.device) < keep_prob
+        keep = collectives.rand_rows(norm.shape, self.dropout_generator,
+                                     device=norm.device) < keep_prob
         y = torch.where(keep, norm / keep_prob, torch.zeros_like(norm))
         return y if factor is None else Factored(y, factor)
 

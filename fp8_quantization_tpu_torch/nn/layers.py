@@ -3,7 +3,8 @@
 Mirrors ``fp8_quantization_tpu/nn/layers.py``: ``QuantConv``,
 ``QuantLinear``, ``QuantLayerNorm``, ``QuantizedActivation`` and
 ``_batch_norm`` (running variance updated with the unbiased batch variance,
-as torch does, there lines 730-753).  Per layer:
+as torch does, there lines 730-753; under data parallelism the batch
+statistics are taken over the data group, parallel/collectives.py).  Per layer:
 
     weight fake-quant -> conv/linear -> BN (fp32, own running stats)
     -> activation -> output act-quant
@@ -145,6 +146,7 @@ from fp8_quantization_tpu_torch.ops.kernels import (
 from fp8_quantization_tpu_torch.ops.quantizer import QMethod
 from fp8_quantization_tpu_torch.ops.uniform import (
     _scale_from_delta, int_sym_consts)
+from fp8_quantization_tpu_torch.parallel import collectives
 
 FUSED_ACTIVATIONS = (None, "relu", "relu6")
 # QuantConv's space-to-depth stem (ops/s2d.py, JAX nn/layers.py:772-782):
@@ -306,7 +308,7 @@ class QuantizedLayerBase(nn.Module):
         self.weight_q = Quantizer(
             config.weight_quant, config.weight_range,
             num_channels=features if config.weight_quant.per_channel else None,
-            channel_axis=0)
+            channel_axis=0, reduce_over_batch=False)
         self.act_q = Quantizer(config.act_quant, config.act_range)
         # per-channel factor of a baked normalized weight (nn/bake.py)
         self.register_buffer("w_factor", None)
@@ -346,9 +348,18 @@ class QuantizedLayerBase(nn.Module):
     def _batch_norm(self, y, train_bn: bool):
         if train_bn:
             axes = tuple(range(y.ndim - 1))
-            mean = y.mean(dim=axes)
-            var = y.var(dim=axes, unbiased=False)
             n = y.numel() / self.features
+            if collectives.active():
+                # the batch is sharded over the data group: the global
+                # mean and (two-pass) variance, through a sum whose
+                # backward sums the ranks' gradients
+                n = n * collectives.size()
+                mean = collectives.all_sum_grad(y.sum(dim=axes)) / n
+                var = collectives.all_sum_grad(
+                    ((y - mean) ** 2).sum(dim=axes)) / n
+            else:
+                mean = y.mean(dim=axes)
+                var = y.var(dim=axes, unbiased=False)
             m = self.bn_momentum
             with torch.no_grad():
                 self.running_mean.mul_(1 - m).add_(m * mean)
@@ -996,7 +1007,7 @@ class QuantLayerNorm(nn.Module):
         self.weight_q = Quantizer(
             config.weight_quant, config.weight_range,
             num_channels=features if config.weight_quant.per_channel else None,
-            channel_axis=0)
+            channel_axis=0, reduce_over_batch=False)
         self.act_q = Quantizer(config.act_quant, config.act_range)
 
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,

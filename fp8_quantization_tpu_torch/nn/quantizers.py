@@ -47,7 +47,16 @@ the straight-through round, or in the training modes the stochastic,
 EWGS or stacked-sigmoid estimator (``ops/rounding``).  Stochastic
 rounding draws from the module's ``noise_generator`` (set by
 ``set_quant_noise``) and rounds to nearest without one, as JAX does
-without its ``quant_noise`` stream.
+without its ``quant_noise`` stream.  Under data parallelism an activation
+quantizer's rank rounds with its rows of the noise drawn for the global
+batch; a weight quantizer draws for its whole tensor.
+
+Under data parallelism (parallel/collectives.py) an estimator's
+reductions are global: ``_calibrate`` reduces over the data group inside
+the forward, before it sets the range, so that deeper layers calibrate on
+the shallower layers' global ranges.  A weight quantizer
+(``reduce_over_batch=False``) observes a tensor every rank holds whole
+and reduces it locally.
 
 Outputs: ``out='apply'`` the fake-quantized tensor, ``'factored'``
 ``(x_norm, factor)`` on the normalized grid, ``'state'`` ``(x, state)``.
@@ -58,6 +67,7 @@ the float32 state is float32, where torch would keep bfloat16 for a
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
@@ -68,6 +78,7 @@ from fp8_quantization_tpu_torch.ops import quantizer as q
 from fp8_quantization_tpu_torch.ops.fp8 import cast_mbits as fp8_cast_mbits
 from fp8_quantization_tpu_torch.ops.kernels.common import pack_act_consts
 from fp8_quantization_tpu_torch.ops.rounding import make_discretizer
+from fp8_quantization_tpu_torch.parallel import collectives
 
 MODES = ("calibrate", "calibrate_train", "fixed", "learn", "fp32")
 TRAINING_MODES = ("learn", "calibrate_train")
@@ -99,11 +110,16 @@ class Quantizer(nn.Module):
     """One quantizer + one range estimator, stateful through buffers."""
 
     def __init__(self, spec: q.QuantizerSpec, range_spec: est.EstimatorSpec,
-                 num_channels: Optional[int] = None, channel_axis: int = -1):
+                 num_channels: Optional[int] = None, channel_axis: int = -1,
+                 reduce_over_batch: bool = True):
         super().__init__()
         self.spec = spec
         self.range_spec = range_spec
         self.channel_axis = channel_axis
+        # the channels of a per-channel state (the tensor-parallel rule of
+        # parallel/api.tp_axis), None per tensor
+        self.num_channels = num_channels if spec.per_channel else None
+        self.reduce_over_batch = reduce_over_batch
         state = q.init_state(spec, num_channels)
         self.state_keys = tuple(state)
         for k, v in state.items():
@@ -150,8 +166,10 @@ class Quantizer(nn.Module):
     def _calibrate(self, x: torch.Tensor) -> None:
         x_cn = channel_major_view(
             x.to(torch.float32), self.channel_axis if self.spec.per_channel else None)
-        new_est, x_min, x_max, q_updates = est.update(
-            self.range_spec, self.spec, self.est_state(), x_cn)
+        with (contextlib.nullcontext() if self.reduce_over_batch
+              else collectives.local()):
+            new_est, x_min, x_max, q_updates = est.update(
+                self.range_spec, self.spec, self.est_state(), x_cn)
         new_q = q.set_quant_range(self.spec, self.state(), x_min, x_max)
         new_q.update(q_updates)
         self.load_state(new_q, new_est)
@@ -218,4 +236,5 @@ class Quantizer(nn.Module):
                                 scaling_factor=spec.ewgs_scaling,
                                 alpha=spec.ss_alpha,
                                 generator=self.noise_generator,
-                                training=training)
+                                training=training,
+                                batch_rows=self.reduce_over_batch)

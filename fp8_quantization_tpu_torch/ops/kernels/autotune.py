@@ -55,6 +55,13 @@ Deliberately not ported:
   must never become a verdict for the composed route, which would hide the
   kernel.
 
+Under ``torch.distributed`` with more than one rank (parallel/) the
+ranks must take one route, as JAX's one program takes one verdict for
+all its devices: rank 0 alone reads the cache file, races and writes it,
+and broadcasts each verdict the first time the ranks meet its key
+(``_agreed_verdict``), so ``decision_table()`` is the same in every rank
+and holds only the keys this run met.
+
 The prepare pass (nn/bake.prepare_inference) asks no gate unless the mode
 settles every answer (``settled``): nn/layers.gated_route runs both routes
 there instead, so that it records no verdict at the prepare pass's shapes.
@@ -164,9 +171,9 @@ def settled() -> bool:
     return MODE in ("always", "never")
 
 
-def _load_disk_cache() -> None:
-    global _DISK_LOADED
-    _DISK_LOADED = True
+def _read_disk_cache() -> Dict[tuple, Union[bool, int]]:
+    """The cache file's verdicts ({} without a readable file)."""
+    out = {}
     try:
         with open(_cache_path()) as f:
             for key, win in json.load(f).items():
@@ -174,21 +181,57 @@ def _load_disk_cache() -> None:
                 dims = tuple(int(v) for v in parts[-1].split("x"))
                 tag = parts[0] if len(parts) > 1 else ""
                 # untagged (matmul) entries are bools, tagged ones ints
-                val = int(win) if tag else bool(win)
-                _CACHE.setdefault((tag,) + dims if tag else dims, val)
+                out[(tag,) + dims if tag else dims] = int(win) if tag else bool(win)
     except (OSError, ValueError):
         pass
+    return out
 
 
-def _save_disk_cache() -> None:
+def _load_disk_cache() -> None:
+    global _DISK_LOADED
+    _DISK_LOADED = True
+    for key, val in _read_disk_cache().items():
+        _CACHE.setdefault(key, val)
+
+
+def _write_disk_cache(entries: Dict[tuple, Union[bool, int]]) -> None:
     try:
         path = _cache_path()
         tmp = f"{path}.{os.getpid()}"
         with open(tmp, "w") as f:
-            json.dump(decision_table(), f)
+            json.dump({key_name(k): v for k, v in entries.items()}, f)
         os.replace(tmp, path)
     except OSError:
         pass
+
+
+def _save_disk_cache() -> None:
+    _write_disk_cache(_CACHE)
+
+
+def _ranks() -> int:
+    """Processes of this run's torch.distributed group (1 without one)."""
+    import torch.distributed as dist
+    return (dist.get_world_size()
+            if dist.is_available() and dist.is_initialized() else 1)
+
+
+def _agreed_verdict(what: str, key: tuple, kernel: Callable,
+                    composed: Callable, device) -> Union[bool, int]:
+    """Rank 0's verdict for ``key``, broadcast to every rank: rank 0 takes
+    it from the cache file or races it (and writes the file); the others
+    wait in the broadcast."""
+    import torch.distributed as dist
+    box = [None]
+    if dist.get_rank() == 0:
+        disk = _read_disk_cache()
+        if key not in disk:
+            win = _race(what, key, kernel, composed, device)
+            disk[key] = int(win) if isinstance(key[0], str) else win
+            _write_disk_cache(disk)
+        box = [disk[key]]
+    dist.broadcast_object_list(box, 0)
+    return box[0]
 
 
 def _time_fn(fn: Callable, device) -> float:
@@ -229,6 +272,13 @@ def _gate(what: str, key: tuple, like: torch.Tensor, kernel: Callable,
                          f"{MODES}")
     if not on_card(like):
         return True   # the plain version: keep the kernel path test-covered
+    if key in _CACHE:
+        return bool(_CACHE[key])
+    if _ranks() > 1:
+        # every rank runs the same forwards, so meets the same new keys in
+        # the same order: each takes rank 0's verdict, and one route
+        _CACHE[key] = _agreed_verdict(what, key, kernel, composed, like.device)
+        return bool(_CACHE[key])
     if not _DISK_LOADED:
         _load_disk_cache()
     if key not in _CACHE:

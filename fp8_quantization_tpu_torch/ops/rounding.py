@@ -24,6 +24,8 @@ import enum
 
 import torch
 
+from fp8_quantization_tpu_torch.parallel import collectives
+
 
 class Discretizer:
     """A rounding op with a gradient estimator (identity gradient here)."""
@@ -57,14 +59,19 @@ class _Floor(Discretizer):
 
 class StochasticRound(Discretizer):
     """``floor(x + U[0, 1))`` with an identity gradient (JAX
-    ``stochastic_round_ste``); the noise comes from ``generator``."""
+    ``stochastic_round_ste``); the noise comes from ``generator``.  With
+    ``batch_rows`` axis 0 of ``x`` is the batch, and under data
+    parallelism each rank rounds with its rows of the noise drawn for the
+    global batch (parallel/collectives.rand_rows)."""
 
-    def __init__(self, generator: torch.Generator):
+    def __init__(self, generator: torch.Generator, batch_rows: bool = False):
         self.generator = generator
+        self.batch_rows = batch_rows
 
     def forward(self, x):
-        noise = torch.rand(x.shape, generator=self.generator,
-                           dtype=x.dtype, device=x.device)
+        draw = collectives.rand_rows if self.batch_rows else torch.rand
+        noise = draw(x.shape, generator=self.generator, dtype=x.dtype,
+                     device=x.device)
         return torch.floor(x + noise), None
 
 
@@ -189,10 +196,12 @@ class GradientEstimator(str, enum.Enum):
 def make_discretizer(estimator: GradientEstimator | str, *,
                      scaling_factor: float = 0.2, alpha: float = 1.0,
                      generator: torch.Generator | None = None,
-                     training: bool = False) -> Discretizer:
+                     training: bool = False,
+                     batch_rows: bool = False) -> Discretizer:
     """The rounding op of ``estimator``.  ``stoch_round`` rounds
-    stochastically in training (and then needs ``generator``) and to
-    nearest in evaluation."""
+    stochastically in training (and then needs ``generator``; its noise
+    follows the batch's rows with ``batch_rows``, see StochasticRound) and
+    to nearest in evaluation."""
     estimator = GradientEstimator(estimator)
     if estimator == GradientEstimator.ste:
         return round_ste
@@ -201,7 +210,7 @@ def make_discretizer(estimator: GradientEstimator | str, *,
             return round_ste
         if generator is None:
             raise ValueError("stoch_round needs a torch.Generator in training")
-        return StochasticRound(generator)
+        return StochasticRound(generator, batch_rows)
     if estimator == GradientEstimator.ewgs:
         return EWGS(scaling_factor)
     return StackedSigmoid(alpha)

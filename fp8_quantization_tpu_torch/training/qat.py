@@ -31,6 +31,24 @@ Mirrors ``fp8_quantization_tpu/training/qat.py``:
   Stochastic rounding and dropout draw from generators seeded from the
   step (17 and 23 with the step, as JAX folds the step into those keys),
   never from the global random state.
+* Data-parallel training (parallel/api.shard_qat_state sets the state's
+  ``mesh``): each rank steps on its rows of the global batch; BN's
+  batch statistics are taken over the data group (nn/layers.py), and the
+  gradients of both optimizers' parameters, the learned ranges included,
+  are averaged over it in one all-reduce before either optimizer steps,
+  so every rank takes the same step.  BN's sum passes each rank the
+  gradient of all ranks' losses, and the average over ranks then gives
+  the gradient of the global batch's mean loss, as one process takes it.
+  An explicit all-reduce, not DDP: the step has two optimizers, freezes
+  weights between them and gives a parameter without a gradient a zero
+  one, and one flat all-reduce after the backward is all it needs.  The
+  loss and accuracy are the ranks' mean.  The
+  stochastic rounding and dropout streams are seeded alike in every rank,
+  and each rank takes its rows of the noise drawn at the global batch
+  (parallel/collectives.rand_rows), so the ranks round and drop as one
+  process does.  Under tensor parallelism the forward, the
+  backward and freezing run on the gathered weights, and the optimizers
+  step on each rank's slices (parallel/api.shard_qat_state).
 * ``reestimate_bn_stats`` replaces every BN's running statistics by the
   mean over batches of each batch's own (JAX recovers them by algebra over
   the momentum update; here the momentum is set to 1 for the pass, which
@@ -52,6 +70,8 @@ from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
 from fp8_quantization_tpu_torch.nn.layers import QuantizedLayerBase
 from fp8_quantization_tpu_torch.nn.quantizers import Quantizer, set_quant_noise
 from fp8_quantization_tpu_torch.ops.quantizer import trainable_param_names
+from fp8_quantization_tpu_torch.parallel import collectives
+from fp8_quantization_tpu_torch.parallel.api import gather_weights
 from fp8_quantization_tpu_torch.training.oscillation import (
     OscillationConfig, _anneal, apply_freezing, dampening_loss,
     init_osc_state, quantized_layers)
@@ -181,6 +201,8 @@ class QATState:
     weight_spec: object = None
     osc_state: Optional[dict] = None
     step: int = 0
+    # the mesh of a data- or tensor-parallel run (parallel/api.shard_qat_state)
+    mesh: object = None
 
 
 def init_qat_state(model: nn.Module, config: LayerQuantConfig,
@@ -246,7 +268,12 @@ def make_train_step(state: QATState, *, mode: str = "learn",
         raise ValueError(f"mode must be 'learn' or 'calibrate_train', not {mode!r}")
 
     def step(state: QATState, x, y):
-        model, osc = state.model, state.oscillation
+        mesh = state.mesh
+        with collectives.reducing_over(mesh and mesh.data_group):
+            return _step(state, x, y)
+
+    def _step(state: QATState, x, y):
+        model, osc, mesh = state.model, state.oscillation, state.mesh
         dev = _device(model)
         x = torch.as_tensor(np.asarray(x) if not isinstance(x, torch.Tensor)
                             else x).to(dev, torch.float32)
@@ -254,31 +281,42 @@ def make_train_step(state: QATState, *, mode: str = "learn",
                             else y).to(dev, torch.long)
         set_rng_streams(model, state.step)
         freeze = osc is not None and osc.freeze and state.osc_state is not None
-        old_q = ({".".join(p): layer.weight_q.state()
-                  for p, layer in quantized_layers(model)} if freeze else None)
-        if freeze:      # calibrate_train updates the state in the forward
-            old_q = {k: {n: v.clone() for n, v in s.items()}
-                     for k, s in old_q.items()}
-        damp = None
-        if osc is not None and osc.dampen:
-            lam = _anneal(osc.dampen_weight, osc.dampen_weight_final,
-                          state.step, osc.total_steps, osc.dampen_anneal_start)
-            damp = lam.to(dev) * dampening_loss(model, state.weight_spec)
-        logits = model(x, mode=mode, train_bn=train_bn)
-        loss = loss_fn(logits, y)
-        if damp is not None:
-            loss = loss + damp
-        for opt in (state.optimizer, state.quant_optimizer):
-            if opt is not None:
-                opt.zero_grad(set_to_none=True)
-        loss.backward()
+        # a tensor-parallel model's full weights and gradients inside,
+        # each rank's slices after (parallel/api.shard_qat_state)
+        with gather_weights(mesh, model):
+            old_q = ({".".join(p): layer.weight_q.state()
+                      for p, layer in quantized_layers(model)} if freeze else None)
+            if freeze:      # calibrate_train updates the state in the forward
+                old_q = {k: {n: v.clone() for n, v in s.items()}
+                         for k, s in old_q.items()}
+            damp = None
+            if osc is not None and osc.dampen:
+                lam = _anneal(osc.dampen_weight, osc.dampen_weight_final,
+                              state.step, osc.total_steps, osc.dampen_anneal_start)
+                damp = lam.to(dev) * dampening_loss(model, state.weight_spec)
+            logits = model(x, mode=mode, train_bn=train_bn)
+            loss = loss_fn(logits, y)
+            if damp is not None:
+                loss = loss + damp
+            for opt in (state.optimizer, state.quant_optimizer):
+                if opt is not None:
+                    opt.zero_grad(set_to_none=True)
+            loss.backward()
+            collectives.average_gradients(
+                p for opt in (state.optimizer, state.quant_optimizer)
+                if opt is not None for group in opt.param_groups
+                for p in group["params"])
         _step_optimizer(state.optimizer, state.model_tx, state.step)
-        metrics = {"loss": float(loss.detach()),
-                   "accuracy": float((logits.argmax(-1) == y).float().mean())}
+        loss_acc = torch.stack([loss.detach(),
+                                (logits.argmax(-1) == y).float().mean()])
+        if collectives.active():
+            loss_acc = collectives.all_sum(loss_acc) / collectives.size()
+        metrics = {"loss": float(loss_acc[0]), "accuracy": float(loss_acc[1])}
         if freeze:
-            metrics.update(apply_freezing(model, state.osc_state,
-                                          state.weight_spec, state.step, osc,
-                                          old_q))
+            with gather_weights(mesh, model):
+                metrics.update(apply_freezing(model, state.osc_state,
+                                              state.weight_spec, state.step,
+                                              osc, old_q))
         if mode == "learn" and state.quant_optimizer is not None:
             _step_optimizer(state.quant_optimizer, state.quant_tx, state.step)
         state.step += 1

@@ -30,6 +30,9 @@ or prepared model holds buffers that a fresh model does not (``w_factor``,
 on 'parity', weights already quantized, so ``save_checkpoint`` refuses it.
 A restored model goes through the bake, the prepare pass and the kernel
 gate again, as a freshly calibrated one does.
+
+Under torch.distributed (parallel/) rank 0 alone writes, the other ranks
+wait at a barrier until the file is there, and every rank restores.
 """
 
 from __future__ import annotations
@@ -40,6 +43,8 @@ from typing import Any, Optional
 
 import torch
 from torch import nn
+
+from fp8_quantization_tpu_torch.parallel import multihost
 
 STATE_FILE = "state.pt"
 
@@ -82,12 +87,15 @@ def save_checkpoint(ckpt_dir: str, target: Any, step: int = 0,
     ckpt_dir = os.path.abspath(ckpt_dir)
     path = os.path.join(ckpt_dir, f"step_{step}")
     state = _state(target)
-    os.makedirs(path, exist_ok=True)
-    tmp = os.path.join(path, f"{STATE_FILE}.{os.getpid()}.tmp")
-    torch.save(state, tmp)
-    os.replace(tmp, os.path.join(path, STATE_FILE))
-    for s in _steps(ckpt_dir)[:-keep]:
-        shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"), ignore_errors=True)
+    if multihost.process_index() == 0:
+        os.makedirs(path, exist_ok=True)
+        tmp = os.path.join(path, f"{STATE_FILE}.{os.getpid()}.tmp")
+        torch.save(state, tmp)
+        os.replace(tmp, os.path.join(path, STATE_FILE))
+        for s in _steps(ckpt_dir)[:-keep]:
+            shutil.rmtree(os.path.join(ckpt_dir, f"step_{s}"),
+                          ignore_errors=True)
+    multihost.barrier()
     return path
 
 

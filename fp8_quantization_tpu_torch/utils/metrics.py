@@ -3,7 +3,8 @@
 A copy of ``fp8_quantization_tpu/utils/metrics.py`` (``MetricsLogger``; no
 JAX in it, and the port imports nothing of the JAX package): each
 ``log(step, metrics)`` appends one JSON line to ``<log_dir>/metrics.jsonl``
-(when a directory is given) and logs the metrics at INFO.
+(when a directory is given) and logs the metrics at INFO.  Under
+torch.distributed (parallel/) rank 0 alone writes the file.
 """
 
 from __future__ import annotations
@@ -13,6 +14,8 @@ import logging
 import os
 import time
 from typing import Any, Dict, Optional
+
+from fp8_quantization_tpu_torch.parallel import multihost
 
 log = logging.getLogger(__name__)
 
@@ -24,7 +27,7 @@ class MetricsLogger:
         self.log_dir = log_dir
         self.run_name = run_name
         self._fh = None
-        if log_dir:
+        if log_dir and multihost.process_index() == 0:
             os.makedirs(log_dir, exist_ok=True)
             self._fh = open(os.path.join(log_dir, "metrics.jsonl"), "a")
 
