@@ -5,7 +5,9 @@
 
 It drives the slices of the port, each deployed on engine 'fused': ResNet-18 FP8
 PTQ, ResNet-18 INT8 PTQ (--int8-mxu --quantize-input), MobileNetV2 FP8 PTQ
-under --bn-mode fp32_after and folded, ViT-S/16 FP8 PTQ, INT8 PTQ with
+under --bn-mode fp32_after and folded, ViT-S/16 FP8 PTQ, ViT-S/16 and
+MobileNetV2 on the int8 datapath, the layer options (1-D, transposed and
+grouped convs, MobileNetV2 width_mult and LSQ_paper), INT8 PTQ with
 output quant (BASELINE.json config 2) on ResNet-18 and MobileNetV2 in both
 bn modes, ResNet-18 FP8 with --quantize-input, ResNet-18 FP8 with the MSE
 range search (BASELINE.json config 3; at E4M3 and E5M2 too), and ResNet-50
@@ -79,9 +81,10 @@ the script exits 1 without the final result line):
                 forward of a zero image).  Launch counts are zeroed just
                 before and read just after: exactly 1 stem, 16 conv3x3 and 4
                 qmatmul per forward (the prepare forward and the two
-                evaluation batches), no int8 kernel.  Then the same
-                calibrated state under 'fused' and 'bf16' on the same
-                batches, both baked and prepared, the prepared fused logits
+                evaluation batches), no int8 kernel.  Then the state that
+                run calibrated (kept as the CLI bakes it, Forwards) under
+                'fused' and 'bf16' on the same batches, both baked and
+                prepared, the prepared fused logits
                 first held bit-equal to the unprepared ones: logits finite,
                 top-1 (argmax) equal on >= 99% of images and >= 98% of
                 logits within one grid step of the fc's output quantizer
@@ -177,6 +180,42 @@ the script exits 1 without the final result line):
                 qmatmul_plain as in phase 2, timed warm and cold as in
                 phase 6, with their sums per ViT forward (the kernels
                 line's qmatmul row stays ResNet-18's forward).
+   vit_int8_slice - ViT-S/16 on the int8 datapath (VIT_INT8_CLI_ARGS:
+                bench.py's INT8 row's quantizers without its TPU flags)
+                through validate-quantized: exactly 37 qmatmul_int8
+                launches per forward, every one through its s8 input
+                branch (the operand made by its producer, PrequantS8), and
+                12 flash_mha on the unpadded 197-token stream; fused against
+                bf16 from the run's calibrated, int8-baked state, chaotic
+                (unquantized logits, flash's bf16 operands): the rms gap at
+                most twice bf16's one-ulp floor, input share > 0.01; the s8
+                branch against its plain version at its four shapes (qkv,
+                proj, mlp2: 12 uses; the head: 1), as phase 3, timed as
+                phase 6 (library_ms: torch._int_mm on the s8 operands),
+                its sums per forward the kernels line's qmatmul_int8_s8
+                row; the attention call against flash_mha_plain as in
+                vit_check; vit_int8_throughput: fused against bf16 at
+                batch 64 as phase 6.
+   mnv2_int8_qi_slice - MobileNetV2 on the int8 datapath (the CLI's
+                default bn mode, fp32_after): exactly 35 qmatmul_int8
+                launches per forward (float32 x) and no other kernel (no
+                qblock, no qdwconv3x3), the stem and the 17 depthwise convs
+                on ops/int8.int8_conv (18 calls per forward); fused against
+                bf16 as phase 5; each distinct qmatmul_int8 call of the
+                first fused forward against its plain version as phase 3;
+                mnv2_int8_qi_throughput as vit_int8_throughput.
+   layer_options_check - one forward each on the card against a CPU copy
+                (the plain versions), FP8 on 'fused' at batch 4:
+                QuantConv1d (k 5, stride 2, BN, relu), QuantConvTranspose
+                (4x4, stride 2, SAME) and a conv with groups 4 (the composed
+                path: all within one grid step, >= 98% equal), MobileNetV2
+                at width_mult 1.4 (3 qblock, 14 qdwconv3x3 and 29 qmatmul
+                launches: its blocks whose widths are not multiples of 8
+                go layer by layer) and MobileNetV2 LSQ_paper at full width
+                (35 qmatmul launches with in-kernel input quant); each
+                distinct kernel call of the two card forwards against its
+                plain version by its kernel's check (deploy_replay), the
+                chaotic end-to-end gap to the CPU copy printed.
 10. int_*     - the integer branches of the FP8/bf16 kernels and input
                 quantization in qmatmul.  int_check: as phase 2 on the
                 integer grids (int_asym output quant, baked int_sym
@@ -225,9 +264,9 @@ the script exits 1 without the final result line):
                 batches; mse_e4m3_slice the same at E4M3 without the
                 sweep.  As phase 4, plus the format search's fixed-mode
                 forwards before the bake (4 qmatmul launches each, counted
-                by Forwards); fused and bf16 are calibrated and
-                format-searched as the CLI deploys them, their formats held
-                equal to the deployed model's.  The line prints the seconds
+                by Forwards); fused and bf16 take the state the CLI's run
+                calibrated and format-searched (so the search runs once a
+                slice), their formats held equal to the deployed model's.  The line prints the seconds
                 of the calibration and of the format search and the
                 histogram of the FP8 formats voted, deployed and compared.
                 A throughput turn and a profile each.  mse_e5m2_slice: the
@@ -384,10 +423,13 @@ the script exits 1 without the final result line):
                 scaling).
 
 Then a {"kernels": [...]} line (launches: the sum over the main-path runs
-of phases 4, 5, 8, 9, 10, 12, 13, 15, 19, 20 (outside the races) and 21,
+of phases 4, 5, 8, 9 (vit_int8_slice and mnv2_int8_qi_slice included), 10,
+12, 13, 15, 19, 20 (outside the races) and 21,
 the artifact forwards of phase 22 and the ranks' runs of phase 23; times: the FP8 forwards of
 phases 6, 8 and 9; max_abs_err over every check, phase 19's replays
-included), the nvidia-smi name/power-limit line, and last
+included; after qmatmul_int8 its s8 input branch, qmatmul_int8_s8: the
+launches of vit_int8_slice's main path, its times and bound per ViT-S
+INT8 forward), the nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {...}}.  The plain versions run with TF32 off.
 """
 
@@ -597,6 +639,44 @@ def sum_check(out, ref):
     ok = (bool(torch.isfinite(a).all()) and exact >= 0.99
           and float(diff.max()) <= 1e-5 * float(b.abs().max()))
     return ok, float(diff.max()), exact
+
+
+def fp32_sum_check(args, cfg, out, ref):
+    """(ok, max_abs_err against the plain version, exact share) of a qmatmul
+    call with the input quantized in the kernel (no quantizer after the
+    product): sum_check's bound against the plain version (every output
+    within 1e-5 of the largest magnitude), and against the float64 sum of
+    the same exact bf16 products every output within the float32
+    summation bound (K + 8) * 2^-24 of the sum of the products'
+    magnitudes (times the epilogue's factors), plus 2^-23 of the output
+    for the epilogue's add: any order of float32 sums meets both.
+    sum_check's third condition, 99% bit-equal to the plain version, holds
+    where the partial sums are exact (ResNet-18's shapes); at MobileNetV2
+    LSQ_paper's K of 576 to 1280 on dense float32 inputs the kernel's
+    tensor-core chunks and the plain version's sgemm round differently
+    (74-98% bit-equal on an H100), so it is printed, not held."""
+    import torch
+    from fp8_quantization_tpu_torch.nn.activations import get_activation
+    from fp8_quantization_tpu_torch.ops.kernels.common import quantize_prepared
+    x, w, w_c, a_c, scale, shift = args
+    xf = quantize_prepared(x.float(), cfg.act_method, a_c, normalized=True)
+    wf = quantize_prepared(w.float(), cfg.weight_method, w_c, channel_axis=0,
+                           normalized=True)
+    xf, wf = (t.to(torch.bfloat16).double() for t in (xf, wf))
+    f = scale.double() * float(a_c[5, 0])
+    if cfg.weight_method != "none":
+        f = f * w_c[5].double()
+    exact = (xf @ wf.t()) * f + shift.double()
+    act = get_activation(cfg.activation)
+    if act is not None:         # relu, relu6: 1-Lipschitz, the bound holds
+        exact = act(exact)
+    k = x.shape[1]
+    bound = (k + 8) * 2.0 ** -24 * (xf.abs() @ wf.abs().t()) * f.abs() + 2.0 ** -23 * exact.abs()
+    diff = (out.float() - ref.float()).abs()
+    ok = (bool(torch.isfinite(out).all())
+          and float(diff.max()) <= 1e-5 * float(ref.float().abs().max())
+          and bool(((out.double() - exact).abs() <= bound).all()))
+    return ok, float(diff.max()), float((diff == 0).float().mean())
 
 
 class Inputs:
@@ -1245,21 +1325,28 @@ def expected_launches(per_forward, forwards=EVAL_BATCHES + 1, unbaked=None,
 
 class Forwards:
     """Counts, while active, the fixed-mode forwards of the models (ResNet,
-    MobileNetV2, ViT), baked and not, times calibrate and the format search
+    MobileNetV2, ViT), baked and not, and the calls of ops/int8.int8_conv
+    (``int8_convs``), times calibrate and the format search
     (``seconds``), and keeps the FP8 formats' histogram right after
-    calibrate (``voted``) and the last model that evaluate took."""
+    calibrate (``voted``), the calibrated state the CLI bakes
+    (``calibrated``) and the last model that evaluate took."""
 
     def __init__(self):
-        self.baked = self.unbaked = 0
+        self.baked = self.unbaked = self.int8_convs = 0
         self.seconds = {}
         self.voted = None
+        self.calibrated = None
         self.model = None
 
     def __enter__(self):
+        import copy
+
         import torch
         from fp8_quantization_tpu_torch.calibration import calibrate, format_search
+        from fp8_quantization_tpu_torch.cli import image_net
         from fp8_quantization_tpu_torch.models import mobilenet_v2, resnet, vit
         from fp8_quantization_tpu_torch.nn.layers import QuantizedLayerBase
+        from fp8_quantization_tpu_torch.ops import int8 as int8_ops
         self.saved = []
 
         def patch(mod, attr, make):
@@ -1300,12 +1387,26 @@ class Forwards:
                 return fn(model, *a, **kw)
             return run
 
+        def conv_calls(fn):
+            def run(*a, **kw):
+                self.int8_convs += 1
+                return fn(*a, **kw)
+            return run
+
+        def snapshot(fn):
+            def run(model, *a, **kw):
+                self.calibrated = copy.deepcopy(model.state_dict())
+                return fn(model, *a, **kw)
+            return run
+
         for cls in (resnet.QuantizedResNet, mobilenet_v2.QuantizedMobileNetV2,
                     vit.QuantizedViT):
             patch(cls, "forward", count)
         patch(calibrate, "calibrate", timed("calibrate_s"))
         patch(calibrate, "evaluate", keep)
         patch(format_search, "network_format_search", timed("format_search_s"))
+        patch(image_net, "bake_for_eval", snapshot)
+        patch(int8_ops, "int8_conv", conv_calls)
         return self
 
     def __exit__(self, *exc):
@@ -1335,11 +1436,14 @@ def run_main_path(cli, per_forward, unbaked=None, info=None):
     model's FP8 formats (mbits_of)).  The baked forwards (the prepare pass
     and the evaluation batches) launch ``per_forward``, fixed-mode forwards
     before the bake (the format search's) ``unbaked``; ``info`` receives
-    the forwards, the seconds of calibrate and the format search, and the
-    FP8 formats' histograms after calibrate and as deployed."""
+    the forwards, the seconds of calibrate and the format search, the FP8
+    formats' histograms after calibrate and as deployed, the calibrated
+    state the CLI baked, the calls of ops/int8.int8_conv and qmatmul_int8's
+    launches on its s8 input branch."""
     import torch
     from fp8_quantization_tpu_torch.cli import image_net
     from fp8_quantization_tpu_torch.ops import kernels
+    from fp8_quantization_tpu_torch.ops.kernels import qmatmul_int8
     kernels.reset_launch_counts()
     with Forwards() as fw:
         metrics = image_net.validate_quantized(image_net.build_parser().parse_args(cli))
@@ -1351,16 +1455,20 @@ def run_main_path(cli, per_forward, unbaked=None, info=None):
     if info is not None:
         info.update(forwards={"baked": fw.baked, "unbaked": fw.unbaked},
                     **fw.seconds, mbits_voted=fw.voted,
-                    mbits_deployed=mbits_histogram(fw.model))
+                    mbits_deployed=mbits_histogram(fw.model), int8_convs=fw.int8_convs,
+                    s8_launches=qmatmul_int8.fused_quant_matmul_int8.s8_launches)
+        info["calibrated"] = fw.calibrated
     return (metrics, counts, expected_launches(per_forward, fw.baked, unbaked,
                                                fw.unbaked), ok, mbits_of(fw.model))
 
 
-def engine_pair(cli):
+def engine_pair(cli, calibrated=None):
     """The evaluation batches and the model of ``cli`` under 'fused' and
     'bf16', built from the seed's weights and calibrated (as 'fused', on the
     first batch, and format-searched where ``cli`` asks for it, as the CLI
-    deploys it) to one state, not yet baked."""
+    deploys it) to one state, not yet baked; with ``calibrated`` (the
+    state the CLI's own run baked, Forwards) that state is loaded instead
+    of calibrating and searching again."""
     from itertools import islice
 
     from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
@@ -1370,9 +1478,12 @@ def engine_pair(cli):
     batches = list(islice(iter(val), EVAL_BATCHES))
     args = image_net.build_parser().parse_args(cli)
     fused = image_net.build_model(args)
-    calibrate(fused, batches[:1], device="cuda", num_batches=1)
-    if args.format_search_passes > 0:
-        image_net.format_search(fused, batches[:1], args, "cuda")
+    if calibrated is not None:
+        fused.load_state_dict(calibrated)
+    else:
+        calibrate(fused, batches[:1], device="cuda", num_batches=1)
+        if args.format_search_passes > 0:
+            image_net.format_search(fused, batches[:1], args, "cuda")
     bf16 = image_net.build_model(image_net.build_parser().parse_args(
         cli + ["--engine", "bf16"]))
     bf16.load_state_dict(fused.state_dict())
@@ -1471,7 +1582,8 @@ def phase_slice(results, label="slice", cli=CLI_ARGS,
     info = {}
     metrics, counts, want, metrics_ok, deployed = run_main_path(
         cli, per_forward, unbaked, info)
-    batches, fused, bf16 = engine_pair(cli)
+    # the state the CLI calibrated (and format-searched) and then baked
+    batches, fused, bf16 = engine_pair(cli, info.pop("calibrated"))
     as_deployed = mbits_of(fused) == deployed
     parity = None
     if plain_reference:        # the reference's semantics, same state
@@ -1602,31 +1714,14 @@ INT8_CLI_ARGS = ["validate-quantized", "--device", "cuda", "--engine", "fused",
 
 def phase_int8_slice(results):
     """The INT8 path through the CLI's entry point, then fused against bf16
-    (ops/int8) on one calibrated, int8-baked state."""
-    from itertools import islice
-
+    (ops/int8) on the calibrated state the CLI baked, int8-baked."""
     import torch
-    from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
-    from fp8_quantization_tpu_torch.cli import image_net
-    from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
     from fp8_quantization_tpu_torch.nn.bake import bake_int8_weights
-    from fp8_quantization_tpu_torch.ops import kernels
 
-    args = image_net.build_parser().parse_args(INT8_CLI_ARGS)
-    kernels.reset_launch_counts()
-    with Forwards() as fw:
-        metrics = image_net.validate_quantized(args)
-    torch.cuda.synchronize()
-    counts = kernels.launch_counts()
-    want = expected_launches({"qconv3x3_int8": 16, "qmatmul_int8": 4}, fw.baked)
-
-    _, val = make_dataloaders(None, batch_size=BATCH, seed=SEED)
-    batches = list(islice(iter(val), EVAL_BATCHES))
-    fused = image_net.build_model(args)
-    calibrate(fused, batches[:1], device="cuda", num_batches=1)
-    bf16 = image_net.build_model(image_net.build_parser().parse_args(
-        INT8_CLI_ARGS + ["--engine", "bf16"]))
-    bf16.load_state_dict(fused.state_dict())
+    info = {}
+    metrics, counts, want, metrics_ok, _ = run_main_path(
+        INT8_CLI_ARGS, {"qconv3x3_int8": 16, "qmatmul_int8": 4}, info=info)
+    batches, fused, bf16 = engine_pair(INT8_CLI_ARGS, info["calibrated"])
     bake_int8_weights(fused)
     bake_int8_weights(bf16)
     prep_ok, prep_line = prepare_models("int8_slice", fused, bf16, batches,
@@ -1642,9 +1737,7 @@ def phase_int8_slice(results):
             within.append(float(((a - b).abs() <= 1e-3 + 1e-3 * b.abs()).float().mean()))
             exact.append(float((a == b).float().mean()))
     mean = lambda v: sum(v) / len(v)  # noqa: E731
-    ok = (counts == want and finite and math.isfinite(metrics["loss"])
-          and metrics["num_examples"] == BATCH * EVAL_BATCHES
-          and fw.baked == EVAL_BATCHES + 1 and not fw.unbaked and prep_ok
+    ok = (counts == want and finite and metrics_ok and prep_ok
           and mean(agree) >= 0.99 and mean(within) >= 0.98)
     emit({"phase": "int8_slice", "ok": ok, "metrics": metrics, "launches": counts,
           "expected_launches": want, **prep_line, "logits_finite": finite,
@@ -1734,6 +1827,10 @@ MNV2_LAUNCHES = {"fp32_after": {"qblock": 17, "qmatmul": 2},
                  "folded": {"qdwconv3x3": 17, "qmatmul": 35}}
 
 
+# the launch counts a wrapper keeps (qmatmul_int8's s8 input branch its own)
+COUNTS = ("launches", "s8_launches")
+
+
 class Capture:
     """Records, while active, the first call of each distinct shape and
     config of every kernel wrapper as the model calls them, with the number of calls (uses): the
@@ -1767,13 +1864,17 @@ class Capture:
                 hit[2] += 1
                 return _fn(*args, **kw)
             # the wrapper counts its launches on the name it is bound to
-            record.launches = fn.launches
+            for count in COUNTS:
+                if hasattr(fn, count):
+                    setattr(record, count, getattr(fn, count))
             setattr(mod, attr, record)
         return self
 
     def __exit__(self, *exc):
         for mod, attr, fn in self.saved:
-            fn.launches = getattr(mod, attr).launches
+            for count in COUNTS:
+                if hasattr(fn, count):
+                    setattr(fn, count, getattr(getattr(mod, attr), count))
             setattr(mod, attr, fn)
 
 
@@ -2093,8 +2194,10 @@ def phase_vit_slice(results, captures):
     import torch
     from fp8_quantization_tpu_torch.nn.bake import bake_weights
 
-    metrics, counts, want, metrics_ok, _ = run_main_path(VIT_CLI_ARGS, VIT_LAUNCHES)
-    batches, fused, bf16 = engine_pair(VIT_CLI_ARGS)
+    info = {}
+    metrics, counts, want, metrics_ok, _ = run_main_path(VIT_CLI_ARGS, VIT_LAUNCHES,
+                                                         info=info)
+    batches, fused, bf16 = engine_pair(VIT_CLI_ARGS, info["calibrated"])
     xs = [torch.as_tensor(x, device="cuda") for x, _ in batches]
     with torch.no_grad():
         ref32 = torch.cat([bf16(x, mode="fp32") for x in xs])
@@ -2249,6 +2352,323 @@ def vit_matmul_edges(captures):
             label = "edge bf16 x, baked w"
         edges.append(((x, w, w_c, a, scale, shift), {"cfg": cfg}, 0, label))
     return edges
+
+
+# ---- the int8 datapath beyond ResNet-18, the layer options ---------------
+
+# validate-quantized on the int8 datapath (bench.py's INT8 row's quantizers
+# without its TPU deploy flags) for ``arch``
+def int8_qi_cli_args(arch):
+    return ["validate-quantized", "--device", "cuda", "--engine", "fused",
+            "--architecture", arch, "--qmethod", "symmetric_uniform",
+            "--qmethod-act", "asymmetric_uniform", "--per-channel",
+            "--quantize-input", "--int8-mxu", "--weight-quant-method", "current_minmax",
+            "--act-quant-method", "allminmax", "--num-est-batches", "1",
+            "--max-eval-batches", str(EVAL_BATCHES), "--batch-size", str(BATCH),
+            "--seed", str(SEED)]
+
+
+VIT_INT8_CLI_ARGS = int8_qi_cli_args("vit_small_quantized")
+# launches per ViT-S INT8 forward: qkv, proj and mlp2 of the 12 blocks and
+# the head on qmatmul_int8's s8 input branch (every one of them, S8_LAUNCHES;
+# mlp1's gelu and its s8 epilogue stay ops/int8), one flash_mha a block on
+# the unpadded 197-token stream
+VIT_INT8_LAUNCHES = {"flash_mha": 12, "qmatmul_int8": 37}
+VIT_INT8_S8_LAUNCHES = 37
+MNV2_INT8_QI_CLI_ARGS = int8_qi_cli_args("mobilenet_v2_quantized")
+# launches per MobileNetV2 INT8 forward (the CLI's default bn mode,
+# fp32_after): 16 expand + 17 project 1x1s, the head and the classifier on
+# qmatmul_int8 with float32 input; the stem and the 17 depthwise convs on
+# ops/int8.int8_conv (MNV2_INT8_CONVS), no qblock, no qdwconv3x3
+MNV2_INT8_QI_LAUNCHES = {"qmatmul_int8": 35}
+MNV2_INT8_CONVS = 18
+
+
+def s8_branch_check(results, recorded, s8_launches):
+    """qmatmul_int8's s8 input branch against its plain version at the
+    shapes of the first ViT INT8 forward (qkv, proj, mlp2: 12 uses each; the
+    head: 1), timed (kernel, plain, torch._int_mm on the s8 operands) and
+    bounded (int8 peak); their sums per forward are the kernels line's row
+    ``qmatmul_int8_s8``."""
+    import torch
+    from fp8_quantization_tpu_torch.ops.kernels import qmatmul_int8 as qm
+    ok_all = sorted(u for _, _, u in recorded) == [1, 12, 12, 12]
+    agg = results.setdefault("qmatmul_int8_s8", dict(
+        max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+        bytes=0, flops=0, peak=INT8_OPS_PER_S))
+    agg["launches"] = s8_launches
+    for args, kw, uses in recorded:
+        x, w = args[0], args[1]
+        (m, k), n = x.shape, w.shape[0]
+        cfg = kw["cfg"]
+        out = qm.fused_quant_matmul_int8(*args, **kw)
+        torch.cuda.synchronize()
+        ref = qm.qmatmul_int8_plain(*args, cfg)
+        ok, err, exact = int8_check(out, ref)
+        ok &= x.dtype == torch.int8 and w.dtype == torch.int8
+        ms = kernel_ms(lambda: qm.fused_quant_matmul_int8(*args, **kw))
+        pms = kernel_ms(lambda: qm.qmatmul_int8_plain(*args, cfg), iters=3)
+        w_t = w.t()
+        lms = kernel_ms(lambda: torch._int_mm(x, w_t))
+        nbytes = m * k + n * k + m * n * 4 + 12 * n
+        ops = 2 * m * n * k
+        bms = bound_ms(nbytes, ops, INT8_OPS_PER_S)
+        emit({"phase": "vit_int8_slice", "case": f"qmatmul_int8 s8 {m}x{k}x{n}", "ok": ok,
+              "max_abs_err": err, "exact": exact, "ms": ms, "plain_ms": pms,
+              "library_ms": lms, "bound_ms": bms,
+              "bound_by": bound_by(nbytes, ops, INT8_OPS_PER_S), "uses_per_forward": uses})
+        ok_all &= ok
+        agg["max_abs_err"] = max(agg["max_abs_err"], err)
+        for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bms),
+                       ("bytes", nbytes), ("flops", ops)):
+            agg[key] += uses * v
+    return ok_all
+
+
+def phase_vit_int8_slice(results):
+    """ViT-S/16 on the int8 datapath through the CLI's entry point: 37
+    qmatmul_int8 launches a forward, every one through the s8 input branch,
+    and 12 flash_mha.  Then fused against bf16 on one calibrated, int8-baked
+    state: the logits are not quantized and chaotic (each layer quantizes
+    its input, and flash's bf16 operands differ from bf16's float32
+    attention), so, as vit_slice does, fused's gap to bf16 (rms over the
+    logits' spread) is held to at most twice the gap that moving every
+    input value by one float32 ulp gives bf16.  The s8 branch against its
+    plain version at each of its shapes (s8_branch_check) and the
+    attention call against flash_mha_plain.  Returns (ok, fused, bf16)."""
+    import torch
+    from fp8_quantization_tpu_torch.nn.bake import bake_int8_weights
+    from fp8_quantization_tpu_torch.ops.kernels import attention
+    info = {}
+    metrics, counts, want, metrics_ok, _ = run_main_path(VIT_INT8_CLI_ARGS,
+                                                         VIT_INT8_LAUNCHES, info=info)
+    s8, s8_want = info["s8_launches"], VIT_INT8_S8_LAUNCHES * info["forwards"]["baked"]
+    batches, fused, bf16 = engine_pair(VIT_INT8_CLI_ARGS, info["calibrated"])
+    bake_int8_weights(fused)
+    bake_int8_weights(bf16)
+    prep_ok, prep_line = prepare_models("vit_int8_slice", fused, bf16, batches,
+                                        quant_w=True)
+    out = {"a": [], "b": [], "b_ulp": []}
+    with torch.no_grad():
+        for i, (x, _) in enumerate(batches):
+            xt = torch.as_tensor(x, device="cuda")
+            if i == 0:
+                with Capture() as cap:
+                    out["a"].append(fused(xt, mode="fixed", quant_w=True))
+            else:
+                out["a"].append(fused(xt, mode="fixed", quant_w=True))
+            out["b"].append(bf16(xt, mode="fixed", quant_w=True))
+            x_ulp = torch.nextafter(xt, torch.full_like(xt, math.inf))
+            out["b_ulp"].append(bf16(x_ulp, mode="fixed", quant_w=True))
+    t = {k: torch.cat(v) for k, v in out.items()}
+    a, b = t["a"], t["b"]
+    gaps = {"int8": logit_gap(a, b), "int8_floor": logit_gap(t["b_ulp"], b)}
+    finite = bool(torch.isfinite(a).all())
+    share = [input_share(x) for x in out["a"]]
+    branch_ok = s8_branch_check(results, list(cap.calls.get("qmatmul_int8", {}).values()), s8)
+    flash = list(cap.calls.get("flash_mha", {}).values())
+    flash_ok, flash_err = len(flash) == 1 and flash[0][2] == 12, None
+    for args, kw, _ in flash:
+        o = attention.flash_mha(*args, **kw)
+        r = attention.flash_mha_plain(*args, **kw)
+        ok_f, flash_err, _ = flash_check(o, r, *args, kw["sm_scale"])
+        flash_ok &= ok_f and args[0].shape[2] == 197
+    ok = (counts == want and s8 == s8_want and finite and metrics_ok and prep_ok
+          and branch_ok and flash_ok and min(share) > 0.01
+          and gaps["int8"] <= 2 * gaps["int8_floor"])
+    emit({"phase": "vit_int8_slice", "ok": ok, "metrics": metrics, "launches": counts,
+          "expected_launches": want, "s8_launches": s8, "expected_s8_launches": s8_want,
+          **prep_line, "logits_finite": finite, "logit_gaps": gaps,
+          "top1_agree_vs_bf16": float((a.argmax(-1) == b.argmax(-1)).float().mean()),
+          "top1_agree_bf16_one_ulp": float((t["b_ulp"].argmax(-1) == b.argmax(-1))
+                                           .float().mean()),
+          "flash_max_abs_err": flash_err, "input_dependent_share": share})
+    add_launches(results, counts)
+    return ok, fused, bf16
+
+
+def int8_float_calls_check(label, recorded):
+    """qmatmul_int8 (float32 x) against its plain version at each call the
+    first forward recorded, untimed."""
+    import torch
+    from fp8_quantization_tpu_torch.ops.kernels import qmatmul_int8 as qm
+    ok_all, worst = bool(recorded), 0.0
+    for args, kw, _ in recorded:
+        out = qm.fused_quant_matmul_int8(*args, **kw)
+        torch.cuda.synchronize()
+        ok, err, _ = int8_check(out, qm.qmatmul_int8_plain(*args, kw["cfg"]))
+        ok_all &= ok and args[0].dtype == torch.float32
+        worst = max(worst, err)
+    emit({"phase": label, "case": f"qmatmul_int8 at {len(recorded)} shapes", "ok": ok_all,
+          "max_abs_err": worst, "uses": sum(u for _, _, u in recorded)})
+    return ok_all
+
+
+def phase_mnv2_int8_qi_slice(results):
+    """MobileNetV2 on the int8 datapath (--int8-mxu --quantize-input, the
+    CLI's default bn mode) through the CLI's entry point: 35 qmatmul_int8
+    launches a forward and the stem and 17 depthwise convs on ops/int8's
+    (grouped) int8_conv; then fused against bf16 on one calibrated,
+    int8-baked state at phase_int8_slice's bound (top-1 >= 99%, >= 98% of
+    the logits within 1e-3 relative), and each distinct qmatmul_int8 call
+    of the first forward against its plain version.  Returns (ok, fused,
+    bf16)."""
+    import torch
+    from fp8_quantization_tpu_torch.nn.bake import bake_int8_weights
+    info = {}
+    metrics, counts, want, metrics_ok, _ = run_main_path(MNV2_INT8_QI_CLI_ARGS,
+                                                         MNV2_INT8_QI_LAUNCHES, info=info)
+    s8, convs, baked = info["s8_launches"], info["int8_convs"], info["forwards"]["baked"]
+    batches, fused, bf16 = engine_pair(MNV2_INT8_QI_CLI_ARGS, info["calibrated"])
+    bake_int8_weights(fused)
+    bake_int8_weights(bf16)
+    prep_ok, prep_line = prepare_models("mnv2_int8_qi_slice", fused, bf16, batches,
+                                        quant_w=True)
+    agree, within, exact, finite = [], [], [], True
+    with torch.no_grad():
+        for i, (x, _) in enumerate(batches):
+            xt = torch.as_tensor(x, device="cuda")
+            if i == 0:
+                with Capture() as cap:
+                    a = fused(xt, mode="fixed", quant_w=True)
+            else:
+                a = fused(xt, mode="fixed", quant_w=True)
+            b = bf16(xt, mode="fixed", quant_w=True)
+            finite &= bool(torch.isfinite(a).all())
+            agree.append(float((a.argmax(-1) == b.argmax(-1)).float().mean()))
+            within.append(float(((a - b).abs() <= 1e-3 + 1e-3 * b.abs()).float().mean()))
+            exact.append(float((a == b).float().mean()))
+    calls_ok = int8_float_calls_check("mnv2_int8_qi_slice",
+                                      list(cap.calls.get("qmatmul_int8", {}).values()))
+    mean = lambda v: sum(v) / len(v)  # noqa: E731
+    ok = (counts == want and s8 == 0 and convs == MNV2_INT8_CONVS * baked and finite
+          and metrics_ok and prep_ok and calls_ok and mean(agree) >= 0.99
+          and mean(within) >= 0.98)
+    emit({"phase": "mnv2_int8_qi_slice", "ok": ok, "metrics": metrics, "launches": counts,
+          "expected_launches": want, "int8_conv_calls": convs,
+          "expected_int8_conv_calls": MNV2_INT8_CONVS * baked, **prep_line,
+          "logits_finite": finite, "top1_agree_vs_bf16": mean(agree),
+          "logits_within_1e-3_vs_bf16": mean(within), "logits_exact_vs_bf16": mean(exact)})
+    add_launches(results, counts)
+    return ok, fused, bf16
+
+
+LAYER_OPTION_BATCH = 4
+
+
+def card_vs_cpu(model, x, quant_w=False, capture=None, **kw):
+    """(card output, CPU output) of one fixed-mode forward of ``model`` (on
+    the CPU, calibrated and baked) and of its copy on the card; the card's
+    forward alone inside ``capture`` (a Capture) where one is given."""
+    import contextlib
+    import copy
+
+    import torch
+    card = copy.deepcopy(model).cuda()
+    with torch.no_grad():
+        ref = model(x, mode="fixed", quant_w=quant_w, **kw)
+        with capture or contextlib.nullcontext():
+            out = card(x.cuda(), mode="fixed", quant_w=quant_w, **kw)
+    torch.cuda.synchronize()
+    return card, out.cpu(), ref
+
+
+def step_check(out, ref, quantizer):
+    """(ok, share equal, max |diff|): every element within one grid step of
+    ``quantizer``'s output (logit_step), >= 98% of them equal."""
+    import torch
+    step = logit_step(quantizer, out, ref)
+    diff = (out - ref).abs()
+    equal = float((diff == 0).float().mean())
+    ok = bool(torch.isfinite(out).all()) and bool((diff <= step).all()) and equal >= 0.98
+    return ok, equal, float(diff.max())
+
+
+# launches of one MobileNetV2 forward on 'fused' at width_mult 1.4: qblock
+# for the three blocks whose widths are multiples of 8 (224 -> 1344 -> 224
+# twice, 224 -> 1344 -> 448), the 14 others layer by layer (their
+# depthwise convs on qdwconv3x3, their 27 1x1s on qmatmul, with the head
+# and the classifier 29); under LSQ_paper every 1x1 and the classifier on
+# qmatmul with the input quantized in the kernel, nothing else
+LAYER_OPTION_LAUNCHES = {"width_mult 1.4": {"qblock": 3, "qdwconv3x3": 14, "qmatmul": 29},
+                         "LSQ_paper": {"qmatmul": 35}}
+
+
+def phase_layer_options_check(results):
+    """One forward each on the card against its CPU copy (where every
+    wrapper takes its plain version), FP8 on 'fused' at small batch:
+    QuantConv1d, QuantConvTranspose and a grouped conv (the composed path
+    there; within one grid step of their output quantizer, >= 98% equal),
+    MobileNetV2 at width_mult 1.4 and MobileNetV2 LSQ_paper at full width,
+    with every kernel's launches counted (LAYER_OPTION_LAUNCHES).  Each
+    distinct kernel call of the MobileNetV2 forwards (Capture) is held
+    against its plain version on the same card tensors by its kernel's
+    check (deploy_replay: qmatmul with input quant summed as vit_check
+    does, qblock by block_check, qdwconv3x3 on its grid).  The end-to-end
+    gap to the CPU copy is printed, not held: every composed layer (the
+    stem, the depthwise convs off the kernels) sums in another order than
+    cuDNN, and 17 blocks of E3M4 quantizers carry the flips to the
+    logits."""
+    import torch
+    from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
+    from fp8_quantization_tpu_torch.models import convert
+    from fp8_quantization_tpu_torch.models.mobilenet_v2 import mobilenetv2_quantized
+    from fp8_quantization_tpu_torch.nn import layers
+    from fp8_quantization_tpu_torch.nn.bake import bake_weights
+    from fp8_quantization_tpu_torch.nn.config import make_layer_config
+    from fp8_quantization_tpu_torch.ops import kernels
+    cfg = make_layer_config(engine="fused", per_channel_weights=True, fp8_mantissa_bits=MBITS,
+                            fp8_set_maxval=True, weight_range_method="current_minmax",
+                            act_range_method="allminmax")
+    g = torch.Generator().manual_seed(SEED)
+    ok_all = True
+    torch.manual_seed(SEED)
+    cases = [("QuantConv1d k5 s2 bn relu", layers.QuantConv1d(
+                 64, 128, 5, 2, (2, 2), bn=True, activation="relu", config=cfg),
+              (LAYER_OPTION_BATCH, 3001, 64)),
+             ("QuantConvTranspose k4 s2 SAME", layers.QuantConvTranspose(
+                 64, 32, (4, 4), (2, 2), config=cfg), (LAYER_OPTION_BATCH, 57, 57, 64)),
+             ("QuantConv groups 4 bn relu", layers.QuantConv(
+                 128, 256, 3, 1, 1, bn=True, activation="relu", groups=4, config=cfg),
+              (LAYER_OPTION_BATCH, 56, 56, 128))]
+    for name, layer, shape in cases:
+        x = torch.randn(*shape, generator=g)
+        calibrate(layer, [x], device="cpu")
+        bake_weights(layer)
+        _, out, ref = card_vs_cpu(layer, x)
+        ok, equal, err = step_check(out, ref, layer.act_q)
+        emit({"phase": "layer_options_check", "case": name, "ok": ok, "equal": equal,
+              "max_abs_err": err})
+        ok_all &= ok
+    x = torch.randn(LAYER_OPTION_BATCH, 224, 224, 3, generator=g)
+    for name, setup, width in (("width_mult 1.4", None, 1.4), ("LSQ_paper", "LSQ_paper", 1.0)):
+        model = mobilenetv2_quantized(cfg, setup, device="cpu", width_mult=width)
+        convert.load_tonylins_mobilenet_v2(model, convert.random_mobilenet_v2_state_dict(
+            SEED, width_mult=width))
+        calibrate(model, [x], device="cpu")
+        bake_weights(model)
+        kernels.reset_launch_counts()
+        cap = Capture()
+        card, out, ref = card_vs_cpu(model, x, capture=cap)
+        launches = {k: v for k, v in kernels.launch_counts().items() if v}
+        replay_ok, calls = deploy_replay(results, cap.calls, LAYER_OPTION_BATCH)
+        xc = x.cuda()
+        with torch.no_grad():
+            ulp = card(torch.nextafter(xc, torch.full_like(xc, math.inf)), mode="fixed",
+                       quant_w=False).cpu()
+        qi = [kw["cfg"].quantize_input for args, kw, _ in cap.calls.get("qmatmul", {}).values()]
+        ok = (replay_ok and bool(torch.isfinite(out).all())
+              and launches == LAYER_OPTION_LAUNCHES[name]
+              and bool(qi) and qi == [setup is not None] * len(qi))
+        emit({"phase": "layer_options_check", "case": f"MobileNetV2 {name}", "ok": ok,
+              "launches": launches, "expected_launches": LAYER_OPTION_LAUNCHES[name],
+              "calls": calls, "top1_agree_vs_plain_cpu": float(
+                  (out.argmax(-1) == ref.argmax(-1)).float().mean()),
+              "logit_gaps": {"card_vs_plain_cpu": logit_gap(out, ref),
+                             "card_one_ulp_floor": logit_gap(ulp, out)},
+              "equal": float((out == ref).float().mean())})
+        ok_all &= ok
+    return ok_all
 
 
 def phase_batch256():
@@ -2457,10 +2877,11 @@ def phase_int8_throughput(fused):
     emit({"phase": "int8_throughput", "ok": True, **rows})
 
 
-def phase_throughput(fused, bf16, label="throughput", batches=(BATCH, 256)):
+def phase_throughput(fused, bf16, label="throughput", batches=(BATCH, 256),
+                     quant_w=False):
     """Forward ms of both engines, in turns (fused, bf16, bf16, fused, ...)
     so that a drift of the host or the card falls on both; images/s from
-    the median of the turns."""
+    the median of the turns.  ``quant_w``: True for int8-baked models."""
     import statistics
 
     import torch
@@ -2474,7 +2895,8 @@ def phase_throughput(fused, bf16, label="throughput", batches=(BATCH, 256)):
                 models = (("fused", fused), ("bf16", bf16))
                 for name, model in (models if order == "fused" else models[::-1]):
                     turns[name].append(time_ms(
-                        lambda: model(x, mode="fixed", quant_w=False), iters=THROUGHPUT_ITERS))
+                        lambda: model(x, mode="fixed", quant_w=quant_w),
+                        iters=THROUGHPUT_ITERS))
             for name, ms in turns.items():
                 med = statistics.median(ms)
                 rows[f"{name}_b{batch}"] = {"ms": ms, "median_ms": med,
@@ -3341,6 +3763,8 @@ def replay_check(kname, args, kw, out, ref):
         return int8_check(out, ref)
     if kname == "qblock":
         return block_check(args, kw)(out, ref)
+    if kname == "qmatmul" and cfg.quantize_input:
+        return fp32_sum_check(args, cfg, out, ref)
     if getattr(cfg, "quantize_input", False) or cfg.act_method == "none":
         return sum_check(out, ref)
     consts = args[3] if kname == "qmatmul" else args[2]
@@ -5045,6 +5469,10 @@ def main():
             MNV2_LAUNCHES[bn_mode], "classifier", 0.01, captures)
         return ok
 
+    def keep_models(label, out):
+        ok, slice_out[label], slice_out[label + "_bf16"] = out
+        return ok
+
     def run_vit_slice():
         ok, slice_out["vit"], slice_out["vit_bf16"] = phase_vit_slice(
             results, vit_captures)
@@ -5120,6 +5548,14 @@ def main():
     phases += mnv2_phases + [("mnv2_check", lambda: phase_mnv2_check(results, captures))]
     phases += int_phases(results, slice_out)
     phases += vit_phases
+    for label, run in (("vit_int8", phase_vit_int8_slice),
+                       ("mnv2_int8_qi", phase_mnv2_int8_qi_slice)):
+        phases += [
+            (label + "_slice", lambda k=label, f=run: keep_models(k, f(results))),
+            (label + "_throughput", lambda k=label: phase_throughput(
+                slice_out[k], slice_out[k + "_bf16"], k + "_throughput", (BATCH,),
+                quant_w=True) or True)]
+    phases += [("layer_options_check", lambda: phase_layer_options_check(results))]
     phases += [("batch256_block_attn", lambda: phase_batch256_block_attn(captures))]
     phases += mse_phases
     phases += [("mse_e5m2_slice", lambda: run_mse_slice("mse_e5m2_slice", MSE_E5M2_CLI_ARGS))]
@@ -5162,6 +5598,16 @@ def main():
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
                      "bound_by": by, "library_ms": r.get("library_ms")})
+        if name == "qmatmul_int8":      # row 2p: its s8 input branch
+            r = results.get("qmatmul_int8_s8", {})
+            rows.append({"name": "qmatmul_int8_s8", "route": "cuda",
+                         "source": f"fp8_quantization_tpu_torch/csrc/{source}.cu",
+                         "replaces": mod.REPLACES, "launches": r.get("launches"),
+                         "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
+                         "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
+                         "bound_by": bound_by(r.get("bytes", 0), r.get("flops", 0),
+                                              INT8_OPS_PER_S),
+                         "library_ms": r.get("library_ms")})
     emit({"kernels": rows})
     print(smi, flush=True)
     if not ok_all:

@@ -2,7 +2,11 @@
 //
 // Replaces _qmatmul_int8_kernel of fp8_quantization_tpu/ops/pallas/
 // qmatmul.py (line 212, pallas_call at line 389).  x is (M, K) float32,
-// quantized to s8 on the asymmetric grid while its tile is staged; w is
+// quantized to s8 on the asymmetric grid while its tile is staged, or
+// (M, K) int8 already on that grid (the s8 input branch: the ViT's
+// producers emit its operand, nn/factored.PrequantS8, and the rows are
+// staged as they are, K % 4 == 0 so that a row's four bytes load as one
+// word); w is
 // (N, K) row-major, either the baked int8 grid (w_prequant) or float32
 // quantized per output channel while staged.  The s8 x s8 products run on
 // the integer tensor cores (int32 sums) and rowsum(xs) and colsum(wsg) are
@@ -35,8 +39,15 @@
 // PERF.md section 6): each block runs its few chunks as one chain of
 // loads, quantization, products and epilogue, and removing any one phase
 // saves 10-20%; two blocks an SM overlap too little of it.
-// One kernel per tile shape and weight type: 12 kernels.
+// The s8 input branch reads a quarter of x's bytes and skips the
+// quantizer: at the ViT's qkv, proj and mlp2 (batch 64, 197 tokens) the
+// three launches of a block move 126 MB, 0.038 ms at an H100 SXM's 3.35
+// TB/s, for 29.8 GOP, 0.015 ms at its 1,979 TOP/s (data-sheet rates, at
+// the 700 W limit): still bound by bytes, now mostly the float32 outputs.
+// One kernel per tile shape, weight type and input type: 24 kernels.
 #include <cooperative_groups.h>
+
+#include <type_traits>
 
 #include "int8_epilogue.cuh"
 
@@ -47,7 +58,7 @@ namespace {
 constexpr int THREADS = 256, BK = 32, PLANES = BK / 16;
 
 struct Args {
-  const float* x;
+  const void* x;
   const void* w;
   const float* w_delta;
   const float* w_scalars;
@@ -56,7 +67,7 @@ struct Args {
   const float* shift;
   float* out;
   int M, N, K, a_bits, w_bits, activation, splits;
-  bool x_vec;     // x rows in 16-byte pieces (K % 4 == 0)
+  bool x_vec;     // float32 x rows in 16-byte pieces (K % 4 == 0)
   bool w_vec;     // w rows in 16-byte pieces (int8: K % 16, float: K % 4)
   bool w_l1;      // baked weights small enough to copy through L1
 };
@@ -107,14 +118,16 @@ __device__ __forceinline__ uint4 w_piece(const float* w, const Args& a, int n,
 
 // BM x BN tile, 8 warps as WM x WN, each warp 32 rows (two m16 tiles) by
 // BN / WN columns (NB n8 tiles).  SPLIT: the block is one rank of a
-// cluster over K (grid z).
-template <int BM, int BN, bool SPLIT, typename WT>
+// cluster over K (grid z).  XT: float (x quantized here) or int8_t (x on
+// the s8 grid already).
+template <int BM, int BN, bool SPLIT, typename WT, typename XT>
 __global__ void __launch_bounds__(THREADS, 2)
 qmatmul_int8_kernel(const Args a) {
   constexpr int WM = BM / 32, WN = 8 / WM, WNC = BN / WN, NB = WNC / 8;
   constexpr int XF4 = BM * BK / 4 / THREADS;     // float4s of x a thread
   constexpr int XROW = BK / 4;                   // float4s of an x row
   constexpr bool COPY_W = sizeof(WT) == 1;
+  constexpr bool X8 = sizeof(XT) == 1;
   static_assert(NB % 2 == 0 && XF4 >= 1, "tile shape");
   __shared__ __align__(128) int8_t xs[2][PLANES * BM * 16];   // [plane][row][16]
   __shared__ __align__(128) int8_t ws[2][PLANES * BN * 16];
@@ -127,17 +140,17 @@ qmatmul_int8_kernel(const Args a) {
   const int m0 = blockIdx.x * BM, n0 = blockIdx.y * BN;
   const int M = a.M, N = a.N, K = a.K;
   const i8::Params p = i8::load_params(a.a_scalars, a.w_scalars, a.a_bits, a.w_bits);
-  const float* x = a.x;
+  const XT* x = static_cast<const XT*>(a.x);
   const WT* w = static_cast<const WT*>(a.w);
   const int nch = (K + BK - 1) / BK;
   const int c_lo = SPLIT ? static_cast<int>(blockIdx.z) * nch / a.splits : 0;
   const int c_hi = SPLIT ? (static_cast<int>(blockIdx.z) + 1) * nch / a.splits : nch;
   if (tid < BN) s_colsum[tid] = 0;
 
-  // x: this thread's float4 f = tid + THREADS * i of a chunk is row
-  // f / XROW, k 4 * (f % XROW); its quantized bytes go to plane
-  // (f % XROW) / 4.
-  float4 xr[XF4];
+  // x: this thread's float4 f = tid + THREADS * i of a chunk (an s8 x:
+  // the word of the same four values) is row f / XROW, k 4 * (f % XROW);
+  // its quantized bytes go to plane (f % XROW) / 4.
+  std::conditional_t<X8, uint32_t, float4> xr[XF4];
   int rs[XF4];
 #pragma unroll
   for (int i = 0; i < XF4; ++i) rs[i] = 0;
@@ -145,8 +158,11 @@ qmatmul_int8_kernel(const Args a) {
 #pragma unroll
     for (int i = 0; i < XF4; ++i) {
       const int f = tid + THREADS * i, m = m0 + f / XROW, k = c * BK + (f % XROW) * 4;
-      const float* src = x + static_cast<long long>(m) * K + k;
-      if (m < M && a.x_vec && k + 4 <= K) {
+      const XT* src = x + static_cast<long long>(m) * K + k;
+      if constexpr (X8) {
+        // K % 4 == 0: a word is all inside the row or all past it
+        xr[i] = m < M && k < K ? __ldg(reinterpret_cast<const unsigned int*>(src)) : 0u;
+      } else if (m < M && a.x_vec && k + 4 <= K) {
         xr[i] = __ldg(reinterpret_cast<const float4*>(src));
       } else {
         const bool r = m < M;
@@ -160,14 +176,21 @@ qmatmul_int8_kernel(const Args a) {
     for (int i = 0; i < XF4; ++i) {
       const int f = tid + THREADS * i, row = f / XROW, m = m0 + row;
       const int k = c * BK + (f % XROW) * 4;
-      const bool r = m < M;
-      const int v0 = r && k < K ? i8::quant_x(xr[i].x, p) : 0;
-      const int v1 = r && k + 1 < K ? i8::quant_x(xr[i].y, p) : 0;
-      const int v2 = r && k + 2 < K ? i8::quant_x(xr[i].z, p) : 0;
-      const int v3 = r && k + 3 < K ? i8::quant_x(xr[i].w, p) : 0;
-      rs[i] += v0 + v1 + v2 + v3;
+      uint32_t q;
+      if constexpr (X8) {     // staged as loaded (zeros past M and K)
+        q = xr[i];
+        rs[i] = __dp4a(static_cast<int>(q), 0x01010101, rs[i]);
+      } else {
+        const bool r = m < M;
+        const int v0 = r && k < K ? i8::quant_x(xr[i].x, p) : 0;
+        const int v1 = r && k + 1 < K ? i8::quant_x(xr[i].y, p) : 0;
+        const int v2 = r && k + 2 < K ? i8::quant_x(xr[i].z, p) : 0;
+        const int v3 = r && k + 3 < K ? i8::quant_x(xr[i].w, p) : 0;
+        rs[i] += v0 + v1 + v2 + v3;
+        q = i8::pack4(v0, v1, v2, v3);
+      }
       *reinterpret_cast<uint32_t*>(&xs[buf][(f % XROW >> 2) * BM * 16 + row * 16 +
-                                             (f & 3) * 4]) = i8::pack4(v0, v1, v2, v3);
+                                             (f & 3) * 4]) = q;
     }
   };
   // w: 16-byte unit u = (plane u / BN, column u % BN) of a chunk
@@ -351,7 +374,7 @@ qmatmul_int8_kernel(const Args a) {
   }
 }
 
-template <int BM, int BN, bool SPLIT, typename WT>
+template <int BM, int BN, bool SPLIT, typename WT, typename XT>
 int launch(const Args& a, cudaStream_t stream) {
   cudaLaunchConfig_t cfg{};
   cfg.gridDim = dim3(static_cast<unsigned>((a.M + BM - 1) / BM),
@@ -367,21 +390,21 @@ int launch(const Args& a, cudaStream_t stream) {
   cfg.attrs = &attr;
   cfg.numAttrs = SPLIT ? 1 : 0;
   const cudaError_t err =
-      cudaLaunchKernelEx(&cfg, qmatmul_int8_kernel<BM, BN, SPLIT, WT>, a);
+      cudaLaunchKernelEx(&cfg, qmatmul_int8_kernel<BM, BN, SPLIT, WT, XT>, a);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename WT>
+template <typename WT, typename XT>
 int dispatch(const Args& a, int bm, int bn, cudaStream_t st) {
   if (a.splits > 1)
-    return bm == 64 && bn == 64 ? launch<64, 64, true, WT>(a, st)
+    return bm == 64 && bn == 64 ? launch<64, 64, true, WT, XT>(a, st)
                                 : static_cast<int>(cudaErrorInvalidValue);
-  if (bm == 64 && bn == 64) return launch<64, 64, false, WT>(a, st);
-  if (bm == 64 && bn == 128) return launch<64, 128, false, WT>(a, st);
-  if (bm == 64 && bn == 256) return launch<64, 256, false, WT>(a, st);
-  if (bm == 32 && bn == 128) return launch<32, 128, false, WT>(a, st);
-  if (bm == 32 && bn == 256) return launch<32, 256, false, WT>(a, st);
+  if (bm == 64 && bn == 64) return launch<64, 64, false, WT, XT>(a, st);
+  if (bm == 64 && bn == 128) return launch<64, 128, false, WT, XT>(a, st);
+  if (bm == 64 && bn == 256) return launch<64, 256, false, WT, XT>(a, st);
+  if (bm == 32 && bn == 128) return launch<32, 128, false, WT, XT>(a, st);
+  if (bm == 32 && bn == 256) return launch<32, 256, false, WT, XT>(a, st);
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -390,22 +413,26 @@ int dispatch(const Args& a, int bm, int bn, cudaStream_t st) {
 // bm, bn, splits: the tile and the K split (ops/kernels/qmatmul_int8.py:
 // int8_tile): (64, 64), (64, 128), (64, 256), (32, 128) or (32, 256);
 // splits 1, or 2..8 (cluster ranks over K) with (64, 64).  x (and a baked
-// int8 w) 16-byte aligned.
-extern "C" int qmatmul_int8_launch(const float* x, const void* w, int w_int8,
-                                   const float* w_delta,
+// int8 w) 16-byte aligned; an int8 x (x_int8) needs K % 4 == 0.
+extern "C" int qmatmul_int8_launch(const void* x, const void* w, int w_int8,
+                                   int x_int8, const float* w_delta,
                                    const float* w_scalars,
                                    const float* a_scalars, const float* scale,
                                    const float* shift, float* out, int M,
                                    int N, int K, int a_bits, int w_bits,
                                    int activation, int bm, int bn, int splits,
                                    void* stream) {
-  if (splits < 1 || splits > 8 || splits > (K + BK - 1) / BK)
+  if (splits < 1 || splits > 8 || splits > (K + BK - 1) / BK ||
+      (x_int8 && K % 4 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   Args a{x, w, w_delta, w_scalars, a_scalars, scale, shift, out, M, N, K,
          a_bits, w_bits, activation, splits, K % 4 == 0,
          reinterpret_cast<uintptr_t>(w) % 16 == 0 && K % (w_int8 ? 16 : 4) == 0,
          static_cast<long long>(N) * K <= 32 * 1024};
   auto st = static_cast<cudaStream_t>(stream);
-  if (w_int8) return dispatch<int8_t>(a, bm, bn, st);
-  return dispatch<float>(a, bm, bn, st);
+  if (x_int8)
+    return w_int8 ? dispatch<int8_t, int8_t>(a, bm, bn, st)
+                  : dispatch<float, int8_t>(a, bm, bn, st);
+  return w_int8 ? dispatch<int8_t, float>(a, bm, bn, st)
+                : dispatch<float, float>(a, bm, bn, st);
 }

@@ -30,7 +30,7 @@ import torch
 from torch import nn
 
 from fp8_quantization_tpu_torch.nn.layers import (
-    QuantConv, QuantizedActivation, QuantizedLayerBase, QuantLayerNorm)
+    QuantizedActivation, QuantizedLayerBase, QuantLayerNorm)
 from fp8_quantization_tpu_torch.ops.fp8 import CAST_CONST_ROWS, FP8_CONST_ROWS
 
 Arrays = Dict[str, np.ndarray]
@@ -115,9 +115,11 @@ def random_resnet_state_dict(seed: int, stage_sizes: Sequence[int] = (2, 2, 2, 2
 
 
 def random_mobilenet_v2_state_dict(seed: int, settings=None,
-                                   num_classes: int = 1000) -> Arrays:
-    """Random weights in the tonylins MobileNetV2 key layout (width 1.0, a
-    32-channel stem, a 1280-channel head), float32 numpy, drawn in the
+                                   num_classes: int = 1000,
+                                   width_mult: float = 1.0) -> Arrays:
+    """Random weights in the tonylins MobileNetV2 key layout (at width 1.0
+    a 32-channel stem and a 1280-channel head; ``width_mult`` scales the
+    channels as the model does), float32 numpy, drawn in the
     order of tools/dress_rehearsal.py:73-105 with its BN (as
     ``random_resnet_state_dict``) and classifier (N(0, 0.02^2), bias 0)
     scales.
@@ -140,10 +142,13 @@ def random_mobilenet_v2_state_dict(seed: int, settings=None,
                    ).astype(np.float32)
 
     sd: Arrays = {}
-    conv(sd, "features.0.0.weight", (32, 3, 3, 3))
-    _bn_keys(rng, sd, "features.0.1", 32)
-    cin, feat = 32, 1
+    stem = int(32 * width_mult)
+    last = int(1280 * width_mult) if width_mult > 1.0 else 1280
+    conv(sd, "features.0.0.weight", (stem, 3, 3, 3))
+    _bn_keys(rng, sd, "features.0.1", stem)
+    cin, feat = stem, 1
     for t, c, n, _ in settings or INVERTED_RESIDUAL_SETTING:
+        c = int(c * width_mult)
         for _ in range(n):
             pre, hidden = f"features.{feat}.conv", cin * t
             layers = ([((hidden, 1, 3, 3), 0), ((c, hidden, 1, 1), 3)]
@@ -154,9 +159,9 @@ def random_mobilenet_v2_state_dict(seed: int, settings=None,
                 conv(sd, f"{pre}.{j}.weight", shape)
                 _bn_keys(rng, sd, f"{pre}.{j + 1}", shape[0])
             cin, feat = c, feat + 1
-    conv(sd, f"features.{feat}.0.weight", (1280, cin, 1, 1))
-    _bn_keys(rng, sd, f"features.{feat}.1", 1280)
-    sd["classifier.1.weight"] = (rng.standard_normal((num_classes, 1280))
+    conv(sd, f"features.{feat}.0.weight", (last, cin, 1, 1))
+    _bn_keys(rng, sd, f"features.{feat}.1", last)
+    sd["classifier.1.weight"] = (rng.standard_normal((num_classes, last))
                                  * 0.02).astype(np.float32)
     sd["classifier.1.bias"] = np.zeros(num_classes, np.float32)
     return sd
@@ -391,16 +396,18 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
     Module paths are the JAX scope paths (``layer1_0.conv1`` <->
     ``("layer1_0", "conv1")``, ``block1_0.dw`` <-> ``("block1_0", "dw")``,
     ``head_act`` <-> ``("head_act",)``).  Conv kernels go HWIO -> OIHW (a
-    depthwise (3, 3, 1, C) kernel to (C, 1, 3, 3) by the same transpose), dense
-    kernels (in, out) -> (out, in); ``gamma``/``beta`` -> ``bn_weight``/
+    grouped (3, 3, C/g, C) kernel to (C, C/g, 3, 3) by the same transpose,
+    a 1-D (W, I, O) kernel to (O, I, W), a transposed conv's (*k, I, O) to
+    (O, I, *k)), dense kernels (in, out) -> (out, in); ``gamma``/``beta`` -> ``bn_weight``/
     ``bn_bias``; ``batch_stats`` mean/var -> running_mean/var; ``quant``
     ``q``/``est`` -> quantizer and estimator buffers (FP8 ``maxval``... or
     uniform ``delta``, ``zero_float``, ``signed``; the estimators' carries,
     the MSE search's ``search_grid`` / ``mses`` and the line search's
     ``thresholds`` / ``losses`` / ``one_sided`` among them); ``qprep``
     ``c`` -> the quantizer's ``qprep`` constants; ``baked/w_factor`` ->
-    ``w_factor``; ``baked_int8`` -> ``w_int8`` (HWIO or (K, N) -> the int8
-    kernels' (C, K) layout), ``w_delta``, ``w_signed``.  A ``QuantLayerNorm``
+    ``w_factor``; ``baked_int8`` -> ``w_int8`` (HWIO, a depthwise
+    (3, 3, 1, C) one too, or (K, N) -> the int8 kernels' (C, K) layout: the
+    ResNets', MobileNetV2's and the ViT's), ``w_delta``, ``w_signed``.  A ``QuantLayerNorm``
     takes ``scale``/``bias`` and its two quantizers; parameters of the model
     itself (the ViT's ``cls_token``, ``pos_embed``) come from the root of
     ``params``.
@@ -420,8 +427,9 @@ def load_jax_variables(model: nn.Module, variables: dict) -> None:
             p = _node(params, path)
             if p is None:
                 raise KeyError(f"no params for {name!r}")
-            k = np.asarray(p["kernel"])
-            k = k.transpose(3, 2, 0, 1) if isinstance(mod, QuantConv) else k.T
+            # (*k, in/groups, out) -> (out, in/groups, *k): convs (grouped,
+            # 1-D and transposed too) and dense (in, out) -> (out, in)
+            k = np.moveaxis(np.asarray(p["kernel"]), (-1, -2), (0, 1))
             _copy(mod.weight, k)
             if mod.bn:
                 _copy(mod.bn_weight, p["gamma"])

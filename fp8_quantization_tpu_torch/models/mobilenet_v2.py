@@ -14,8 +14,19 @@ draws its mask from the model's ``dropout_generator``, never from the
 global random state; a ``Factored`` input keeps its factor (dropout
 scales by 1/keep, which commutes with it).  ``weight_spec_fn`` resolves a
 layer's module path to its weight spec under the preset (JAX there lines
-212-234), for training/oscillation.py.  Not ported: width multipliers
-other than 1 and the untied avgpool of the ``LSQ_paper`` preset.
+212-234), for training/oscillation.py.  ``width_mult`` scales every
+channel count by ``int(c * width_mult)``, with no divisor rounding, and the
+head's 1280 only above 1 (JAX there lines 195, 243-252, 348-351).  The
+presets are JAX's: ``all``, ``FP_logits``, ``fc4``, ``fc4_dw8``,
+``dw_bf16_acts``, ``LSQ`` and ``LSQ_paper`` (input quant everywhere,
+float32 block activations, an 8-bit stem and classifier and the avgpool
+untied from the head's quantizer, ``tie_avgpool=False``).
+
+On the int8 datapath (``int8_mxu`` + ``quantize_input``) every layer runs
+its int8 route (nn/layers.py): the stem (3x3/2, Cin 3) and the depthwise
+convs ``ops/int8.int8_conv`` (grouped), the 1x1s and the classifier
+``qmatmul_int8`` under ``fused``; qblock and qdwconv3x3 are not taken under
+``quantize_input`` or ``int8_mxu``, as in JAX (nn/layers.py:795-797, 987).
 
 Under ``engine='fused'`` in fixed mode a block whose stages are all baked
 runs ``ops/kernels/qblock`` as one kernel where ``autotune.ir_group`` says
@@ -26,7 +37,8 @@ to dw in a t=1 block; the expand output's factor to dw; dw's to project).
 Otherwise, and under folded BN (``fused_state`` returns None there, JAX
 nn/layers.py:795-799), the block runs layer by layer, each layer behind
 its own gate: the 1x1 convs on ``qmatmul``, the depthwise convs on
-``qdwconv``.  The stem (Cin = 3) stays
+``qdwconv``; so does a block whose widths qblock does not take
+(``qblock.channels_ok``: multiples of 8, which width_mult 1.4 breaks).  The stem (Cin = 3) stays
 on the composed path, as in JAX.  A prepared block
 (nn/bake.prepare_inference) keeps its stages' constants as one ``(6, 4)``
 buffer.
@@ -125,7 +137,8 @@ class QuantInvertedResidual(nn.Module):
         """The qblock kernel route as a call, or None where the per-layer
         path is the only one."""
         xv, xf = split(x)
-        if xv.ndim != 4 or xv.shape[-1] < 8:
+        if xv.ndim != 4 or xv.shape[-1] < 8 or not qblock.channels_ok(
+                xv.shape[-1], self.dw.features, self.project.features):
             return None
         _, h, w, _ = xv.shape
         if self.stride == 2 and (h % 2 or w % 2):
@@ -186,6 +199,7 @@ class QuantizedMobileNetV2(nn.Module):
     def __init__(self, num_classes: int = 1000,
                  settings=INVERTED_RESIDUAL_SETTING,
                  config: LayerQuantConfig = LayerQuantConfig(),
+                 width_mult: float = 1.0, tie_avgpool: bool = True,
                  stem_config: Optional[LayerQuantConfig] = None,
                  head_config: Optional[LayerQuantConfig] = None,
                  fc_config: Optional[LayerQuantConfig] = None,
@@ -198,12 +212,15 @@ class QuantizedMobileNetV2(nn.Module):
         self.dropout_rate = dropout_rate
         self.dropout_generator: Optional[torch.Generator] = None
         self.settings = tuple(tuple(s) for s in settings)
-        input_channel, last_channel = 32, 1280
+        self.width_mult, self.tie_avgpool = width_mult, tie_avgpool
+        input_channel = int(32 * width_mult)
+        last_channel = int(1280 * width_mult) if width_mult > 1.0 else 1280
         self.stem = QuantConv(3, input_channel, 3, 2, 1, bn=True,
                               activation="relu6", config=stem_config or config)
         self.block_names = []
         cin = input_channel
         for i, (t, c, n, s) in enumerate(self.settings):
+            c = int(c * width_mult)
             for b in range(n):
                 name = f"block{i}_{b}"
                 self.add_module(name, QuantInvertedResidual(
@@ -259,7 +276,7 @@ class QuantizedMobileNetV2(nn.Module):
         if quant_head:
             x = self.head_act(x, mode=mode, quant_a=quant_a, out=out)
         x = fmean(x, axis=(1, 2))
-        if quant_head:
+        if quant_head and self.tie_avgpool:
             x = self.head_act(x, mode=mode, quant_a=quant_a,
                               update_range=False, out=out)
         if self.dropout_rate > 0.0 and train_bn:
@@ -275,7 +292,7 @@ def mobilenet_v2_configs(base: LayerQuantConfig,
     setup = quant_setup or "all"
     cfgs = dict(config=base, stem_config=None, head_config=None,
                 fc_config=None, dw_config=None, expand_config=None,
-                block_act_config=None)
+                block_act_config=None, tie_avgpool=True)
     if setup == "all":
         return cfgs
     if setup == "FP_logits":
@@ -299,9 +316,14 @@ def mobilenet_v2_configs(base: LayerQuantConfig,
         cfgs["fc_config"] = base.with_weight_bits(8).fp32_acts()
         return cfgs
     if setup == "LSQ_paper":
-        raise NotImplementedError("the LSQ_paper preset is not ported yet "
-                                  "(ROADMAP.md, section A, item "
-                                  "\"MobileNetV2 LSQ_paper\")")
+        qin = base.replace(quantize_input=True)
+        cfgs["config"] = qin
+        cfgs["stem_config"] = qin.with_weight_bits(8).fp32_acts()
+        cfgs["head_config"] = qin
+        cfgs["block_act_config"] = qin.fp32_acts()
+        cfgs["fc_config"] = qin.with_weight_bits(8).with_act_bits(8)
+        cfgs["tie_avgpool"] = False
+        return cfgs
     raise ValueError(f"Quantization setup '{setup}' not supported for "
                      "MobilenetV2")
 
@@ -310,9 +332,10 @@ def mobilenetv2_quantized(base: LayerQuantConfig,
                           quant_setup: Optional[str] = None,
                           num_classes: int = 1000,
                           settings=INVERTED_RESIDUAL_SETTING,
-                          device="cuda",
-                          dropout_rate: float = 0.0) -> QuantizedMobileNetV2:
+                          device="cuda", dropout_rate: float = 0.0,
+                          width_mult: float = 1.0) -> QuantizedMobileNetV2:
     return QuantizedMobileNetV2(num_classes, settings,
                                 **mobilenet_v2_configs(base, quant_setup),
+                                width_mult=width_mult,
                                 dropout_rate=dropout_rate).to(
                                     resolve_device(device))

@@ -24,9 +24,21 @@ quantizers apply their stored constants (``qprep``) in fixed mode.  Under
 (the LayerNorms, the residual adds, the cls slice, the linears) takes
 through ``factored.split`` / ``materialize``, exactly upcast.
 
-Not ported: the int8 stream layout (``seq_len``/``n_real``, the key mask,
-``PrequantS8``, ``_i8_fast``; building the ViT under the int8 datapath
-raises) and the presets other than ``all`` and ``FP_logits``, which raise
+On the int8 datapath (``int8_mxu`` + ``quantize_input``) in fixed mode
+with quantized or int8-baked weights (``_i8_fast``, computed once at the
+root, JAX there lines 31-54, 264-266) the token stream is 2-D,
+(B*S_pad, D), and every int8 matmul edge exchanges its operand as a
+``PrequantS8`` made by its producer (JAX there lines 130-137, 177-192,
+295-301): ln1 -> qkv, the attention output -> proj, ln2 -> mlp1, mlp1
+(ops/int8's epilogue) -> mlp2, the cls rows -> head; each producer reads
+its consumer's grid with ``QuantLinear.int8_input_grid``.  S is padded to
+a multiple of 16 on ``parity`` and ``bf16`` and not on ``fused`` (JAX
+there lines 267-278), whose attention then never needs the mask; a
+padded stream masks its pad keys out of the softmax with an additive
+-1e9 (JAX there lines 108, 119-124), and the pad rows are dropped at the
+cls slice.  Calibration modes keep the 3-D stream and emit no s8.
+
+Not ported: the presets other than ``all`` and ``FP_logits``, which raise
 where JAX ignores them (ROADMAP.md, section C).
 """
 
@@ -36,22 +48,52 @@ from functools import partial
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from fp8_quantization_tpu_torch.device import resolve_device
 from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
-from fp8_quantization_tpu_torch.nn.factored import Factored, fadd, split
+from fp8_quantization_tpu_torch.nn.factored import (
+    Factored, PrequantS8, fadd, materialize, split)
 from fp8_quantization_tpu_torch.nn.layers import (
     QuantConv, QuantizedActivation, QuantLayerNorm, QuantLinear,
-    gated_route, int8_datapath)
+    gated_route, int8_interchange_ok)
+from fp8_quantization_tpu_torch.ops.int8 import prequant_s8
 from fp8_quantization_tpu_torch.ops.kernels import attention, autotune
 
+# the int8 stream's token count is padded to a multiple of this off 'fused'
+# (the bf16 tile height in JAX, there lines 250-262)
+SEQ_ALIGN = 16
 
-def composed_attention(q, k, v) -> torch.Tensor:
+
+def _i8_fast(cfg: LayerQuantConfig, mode: str, quant_a: bool, quant_w: bool,
+             baked: bool, train_bn: bool) -> bool:
+    """Whether the s8 interchange runs (JAX ``_i8_fast``): fixed mode, not
+    training BN, quantized inputs, quantized or int8-baked weights, under a
+    config of the int8 datapath."""
+    return (mode == "fixed" and not train_bn and quant_a
+            and (baked or (quant_w and cfg.quant_w))
+            and int8_interchange_ok(cfg))
+
+
+def _s8(y: torch.Tensor, consumer: QuantLinear) -> PrequantS8:
+    """``y`` on ``consumer``'s input grid, made by its producer."""
+    grid = consumer.int8_input_grid()
+    return PrequantS8(prequant_s8(y, *grid), *grid)
+
+
+def composed_attention(q, k, v, n_real: int = 0) -> torch.Tensor:
     """The float32 chain of JAX (there lines 117-125): ``softmax(q k^T /
-    sqrt(hd)) v`` with the softmax as ``jax.nn.softmax`` computes it."""
+    sqrt(hd)) v`` with the softmax as ``jax.nn.softmax`` computes it, in
+    the operands' dtype (bfloat16 from an int8 qkv under
+    ``conv_out_bf16``, as in JAX); with ``0 < n_real < S`` the keys past
+    ``n_real`` (pads) get -1e9 added."""
     hd = torch.tensor(float(q.shape[-1]), dtype=torch.float32, device=q.device)
     a = (q @ k.transpose(-1, -2)) / torch.sqrt(hd)
+    n = a.shape[-1]
+    if 0 < n_real < n:
+        a = a + torch.where(torch.arange(n, device=a.device) < n_real,
+                            0.0, -1e9).to(a.dtype)
     e = torch.exp(a - a.amax(dim=-1, keepdim=True))
     return (e / e.sum(dim=-1, keepdim=True)) @ v
 
@@ -66,24 +108,33 @@ class QuantSelfAttention(nn.Module):
         self.proj = QuantLinear(dim, dim, use_bias=True, config=config)
 
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
-                quant_a: bool = True):
+                quant_a: bool = True, seq_len: int = 0, n_real: int = 0,
+                i8: bool = False):
+        """``seq_len`` 0: ``x`` is (B, S, D); else the 2-D int8 stream of
+        (B*seq_len, D) rows, whose rows past ``n_real`` in each image are
+        pads when ``0 < n_real < seq_len``.  ``i8``: the s8 interchange
+        (the attention output goes to proj as a ``PrequantS8``)."""
         kw = dict(mode=mode, quant_w=quant_w, quant_a=quant_a)
         qkv = self.qkv(x, **kw)
-        b, n, _ = qkv.shape
+        n = seq_len or qkv.shape[1]
+        b = qkv.shape[0] // n if seq_len else qkv.shape[0]
         h = self.num_heads
         hd = self.dim // h
         # (B, H, S, hd) views of the (B, S, 3, H, hd) qkv output
         q, k, v = (qkv.reshape(b, n, 3, h, hd)[:, :, i].transpose(1, 2)
                    for i in range(3))
-        if mode == "fixed" and self.config.engine == "fused":
+        masked = 0 < n_real < n
+        if mode == "fixed" and self.config.engine == "fused" and not masked:
             y = gated_route(
                 self, partial(autotune.attn_wins, b, h, n, hd, like=q),
                 lambda: attention.flash_mha(q, k, v,
                                             sm_scale=1.0 / float(hd) ** 0.5),
                 lambda: composed_attention(q, k, v))
         else:
-            y = composed_attention(q, k, v)
-        return self.proj(y.transpose(1, 2).reshape(b, n, self.dim), **kw)
+            y = composed_attention(q, k, v, n_real)
+        y = y.transpose(1, 2).reshape(*((b * n,) if seq_len else (b, n)),
+                                      self.dim)
+        return self.proj(_s8(y, self.proj) if i8 else y, **kw)
 
 
 class QuantEncoderBlock(nn.Module):
@@ -102,13 +153,23 @@ class QuantEncoderBlock(nn.Module):
         self.res2_act = QuantizedActivation(config)
 
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
-                quant_a: bool = True):
+                quant_a: bool = True, seq_len: int = 0, n_real: int = 0,
+                i8: bool = False):
         kw = dict(mode=mode, quant_w=quant_w, quant_a=quant_a)
         out = ("factored" if mode == "fixed"
                and self.config.engine in ("bf16", "fused") else "value")
-        y = self.attn(self.ln1(x, **kw, out=out), **kw)
+        ln1kw, ln2kw, mlp1kw = dict(out=out), dict(out=out), dict(out=out)
+        if i8:
+            # each int8 matmul's operand made by its producer on the
+            # consumer's grid (the residual edges stay Factored: the
+            # LayerNorms need real values)
+            ln1kw = dict(emit_s8=self.attn.qkv.int8_input_grid())
+            ln2kw = dict(emit_s8=self.mlp1.int8_input_grid())
+            mlp1kw = dict(emit_s8=self.mlp2.int8_input_grid())
+        y = self.attn(self.ln1(x, **kw, **ln1kw), **kw, seq_len=seq_len,
+                      n_real=n_real, i8=i8)
         x = self.res1_act(fadd(x, y), mode=mode, quant_a=quant_a, out=out)
-        y = self.mlp2(self.mlp1(self.ln2(x, **kw, out=out), **kw, out=out),
+        y = self.mlp2(self.mlp1(self.ln2(x, **kw, **ln2kw), **kw, **mlp1kw),
                       **kw)
         return self.res2_act(fadd(x, y), mode=mode, quant_a=quant_a, out=out)
 
@@ -124,12 +185,6 @@ class QuantizedViT(nn.Module):
                  config: LayerQuantConfig = LayerQuantConfig(),
                  head_config: Optional[LayerQuantConfig] = None):
         super().__init__()
-        for cfg in (config, head_config):
-            if cfg is not None and int8_datapath(cfg):
-                raise NotImplementedError(
-                    "the ViT on the int8 datapath (the padded token layout, "
-                    "the key mask, PrequantS8) is not ported yet (ROADMAP.md, "
-                    "section A, item \"ViT INT8\")")
         self.config, self.depth = config, depth
         self.patch_embed = QuantConv(3, dim, patch_size, stride=patch_size,
                                      padding=0, use_bias=True, config=config)
@@ -159,13 +214,28 @@ class QuantizedViT(nn.Module):
                 "size")
         x = torch.cat([self.cls_token.expand(b, 1, d),
                        x.reshape(b, gh * gw, d)], dim=1) + self.pos_embed
+        n = gh * gw + 1
+        # int8-baked weights count as quantized (every int8 layer is baked
+        # when the patch embed is)
+        baked = self.patch_embed.w_int8 is not None
+        i8 = _i8_fast(self.config, mode, quant_a, quant_w, baked, train_bn)
+        # 'fused' keeps the unpadded stream, so flash_mha needs no mask
+        n_pad = -n % SEQ_ALIGN if i8 and self.config.engine != "fused" else 0
+        seq = n + n_pad
+        bkw = dict(kw, i8=i8)
+        if i8:
+            x = F.pad(x, (0, 0, 0, n_pad)).reshape(b * seq, d)
+            bkw.update(seq_len=seq, n_real=n if n_pad else 0)
         for i in range(self.depth):
-            x = getattr(self, f"block{i}")(x, **kw)
+            x = getattr(self, f"block{i}")(x, **bkw)
         out = ("factored" if mode == "fixed"
                and self.config.engine in ("bf16", "fused") else "value")
         # the cls rows (the slice commutes with the per-tensor factor)
         norm, factor = split(self.ln_final(x, **kw, out=out))
-        x = norm[:, 0] if factor is None else Factored(norm[:, 0], factor)
+        norm = (norm.reshape(b, seq, -1) if i8 else norm)[:, 0]
+        x = norm if factor is None else Factored(norm, factor)
+        if _i8_fast(self.head.config, mode, quant_a, quant_w, baked, train_bn):
+            x = _s8(materialize(x), self.head)
         return self.head(x, **kw)
 
 

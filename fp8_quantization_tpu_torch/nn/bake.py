@@ -27,7 +27,9 @@ var = 1 - eps.  In float32 ``(1 - 1e-5) + 1e-5 == 1``, so the fold after
 the bake multiplies by exactly 1 and the shift is beta: the identity.
 
 ``bake_int8_weights`` mirrors the JAX function of that name (there lines
-135-175) for the int8 datapath; under ``int8_assume_signed`` (the model's
+135-175) for the int8 datapath: every layer with an int8 route (dense and
+depthwise convs, linears: the ResNets', MobileNetV2's and the ViT's), the
+layers JAX's bake forward sows from; under ``int8_assume_signed`` (the model's
 config) it checks the claim against the baked signedness and raises with
 JAX's message for any unsigned grid.  Under an ``int8_mxu`` config the JAX
 ``bake_weights`` bakes nothing (its int8 route sows only ``baked_int8``),
@@ -115,7 +117,7 @@ def bake_int8_weights(model: nn.Module) -> nn.Module:
     baked = []
     for name, layer in model.named_modules():
         if (isinstance(layer, QuantizedLayerBase) and layer.config.quant_w
-                and int8_datapath(layer.config)):
+                and layer.int8_capable and int8_datapath(layer.config)):
             layer.w_int8, layer.w_delta, layer.w_signed = layer.int8_weights()
             baked.append((name, layer))
     cfg = getattr(model, "config", None)

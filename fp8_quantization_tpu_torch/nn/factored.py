@@ -1,8 +1,8 @@
 """Factored activations: the engines' inter-layer interchange.
 
 Mirrors ``fp8_quantization_tpu/nn/factored.py`` (``Factored``,
-``storage_dtype``, ``split``, ``materialize``, ``fadd``, ``fmax_pool``,
-``fmean``).
+``PrequantS8``, ``storage_dtype``, ``split``, ``materialize``, ``fadd``,
+``fmax_pool``, ``fmean``).
 
 A fake-quantized tensor is exactly ``norm * factor``: ``norm`` lies on the
 quantizer's normalized grid (an <= 8-bit significand for FP8, the integer
@@ -29,6 +29,7 @@ import torch
 import torch.nn.functional as F
 
 from fp8_quantization_tpu_torch.ops.fp8 import ieee_decode
+from fp8_quantization_tpu_torch.ops.int8 import act_int_params
 
 
 class Factored(NamedTuple):
@@ -38,7 +39,22 @@ class Factored(NamedTuple):
     factor: torch.Tensor    # float32 scalar
 
 
-MaybeFactored = Union[torch.Tensor, Factored]
+class PrequantS8(NamedTuple):
+    """An activation already on its consumer's asymmetric input grid, as
+    the recentred int8 operand of the int8 datapath (ops/int8.prequant_s8):
+    its producer (a LayerNorm, an int8 matmul's epilogue, the attention
+    output) runs the consumer's quant prologue, so the consumer reads one
+    byte a value.  value == (xs8 + 128 - round(zero)) * delta (``zero``
+    clipped to the grid, ``delta`` at least 1e-8, as the prologue takes
+    them)."""
+
+    xs8: torch.Tensor       # int8, clip(round(x/delta) + zp, 0, 2^b - 1) - 128
+    delta: torch.Tensor     # float32 scalar: the consumer's input step
+    zero: torch.Tensor      # float32 scalar: its zero point
+    bits: int               # its bit width
+
+
+MaybeFactored = Union[torch.Tensor, Factored, PrequantS8]
 
 
 def storage_dtype(norm: torch.Tensor) -> torch.Tensor:
@@ -58,17 +74,22 @@ def upcast(norm: torch.Tensor) -> torch.Tensor:
 
 
 def split(x: MaybeFactored) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-    """(operand, factor or None): the layer-entry unpacking."""
+    """(operand, factor or None): the layer-entry unpacking; a
+    ``PrequantS8`` is materialized (its consumers that take the s8 operand
+    read ``xs8`` before they split)."""
     if isinstance(x, Factored):
         return upcast(x.norm), x.factor
-    return x, None
+    return materialize(x), None
 
 
 def materialize(x: MaybeFactored) -> torch.Tensor:
-    """Full-scale float32 value of a Factored tensor; a plain tensor as it
-    is."""
+    """Full-scale float32 value of a Factored tensor or of a PrequantS8
+    (``(xs8 + 128 - zp) * delta``); a plain tensor as it is."""
     if isinstance(x, Factored):
         return upcast(x.norm).to(torch.float32) * x.factor
+    if isinstance(x, PrequantS8):
+        delta, zp = act_int_params(x.delta, x.zero, x.bits)
+        return (x.xs8.to(torch.float32) + (128.0 - zp)) * delta
     return x
 
 

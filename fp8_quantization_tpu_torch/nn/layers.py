@@ -56,9 +56,22 @@ input quantizer.  On ``parity`` and ``bf16`` it runs ``ops/int8``; on
 ``ops/kernels/qconv_int8`` where ``conv3_int8_group`` says so, the 1x1
 convs and linears ``ops/kernels/qmatmul_int8`` where ``int8_matmul_wins``
 says so (JAX takes ops/int8 there unraced outside ``always``, there lines
-857, 1187), and everything else ``ops/int8``.  Weights baked by ``nn/bake.bake_int8_weights``
-(``w_int8``, ``w_delta``, ``w_signed``) are taken whatever ``quant_w``
-is.
+857, 1187), and everything else ``ops/int8`` (the depthwise convs through
+its grouped ``int8_conv``; general grouped convs take the composed path,
+as in JAX, there lines 1011-1022).  Weights baked by
+``nn/bake.bake_int8_weights`` (``w_int8``, ``w_delta``, ``w_signed``) are
+taken whatever ``quant_w`` is.
+
+The s8 interchange (``nn/factored.PrequantS8``, JAX there lines 65-80,
+1146-1220, 1275-1281): a ``QuantLinear`` on the int8 datapath takes a
+``PrequantS8`` input, its operand already on the layer's input grid
+(``int8_input_grid``), through ``ops/int8.int8_matmul(x_prequant=True)``,
+or under ``fused`` the s8 input branch of ``ops/kernels/qmatmul_int8``
+(gate ``int8_matmul_wins`` with ``prequant_x``; a K the branch does not
+take goes composed before the gate); with ``emit_s8`` (the next
+consumer's grid) it returns a ``PrequantS8`` from ops/int8's epilogue, as
+no kernel emits s8; ``QuantLayerNorm(emit_s8=...)`` returns one before
+its own output quant.  The ViT wires them (models/vit.py).
 
 Folded BN (``config.bn_mode == 'folded'``, JAX ``_bn_folded_kernel``,
 there lines 315-334): the BN scale multiplies the weights per output
@@ -116,10 +129,16 @@ and its ``astype(float32)``, there lines 285-299, 1024-1030, 1241-1242),
 and the ops/int8 route returns bfloat16 with ``int8_assume_signed``
 passed on (there lines 969-970, 1213-1214).  The kernels ignore these
 flags, as the Pallas kernels do: they quantize on the exact grid, read
-bfloat16 and store a bfloat16 norm (the int8 kernels float32).
+bfloat16 and store a bfloat16 norm (the int8 kernels float32), except
+that the int8 matmul's route rounds the kernel's float32 output to
+bfloat16 under ``conv_out_bf16``, as the ops/int8 route it races stores
+it (JAX's pallas engine takes that route there).
 
-Not ported, and rejected where they would be selected: grouped convs other
-than depthwise, the int8 datapath with depthwise convs (the layers raise).
+``QuantConv1d`` and ``QuantConvTranspose`` (JAX there lines 1032-1130)
+take the composed path on every engine, as in JAX, which has no kernel
+or int8 route for them.  Their weights are (out, in/groups, *k), the output
+channel first as in every layer here, which ``models/convert`` transposes
+from JAX's (*k, in, out).
 """
 
 from __future__ import annotations
@@ -136,7 +155,7 @@ from torch import nn
 from fp8_quantization_tpu_torch.nn import factored
 from fp8_quantization_tpu_torch.nn.activations import get_activation
 from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
-from fp8_quantization_tpu_torch.nn.factored import Factored
+from fp8_quantization_tpu_torch.nn.factored import Factored, PrequantS8
 from fp8_quantization_tpu_torch.nn.quantizers import Quantizer, preparing
 from fp8_quantization_tpu_torch.ops import int8 as int8_ops
 from fp8_quantization_tpu_torch.ops import s2d as s2d_ops
@@ -163,6 +182,11 @@ def int8_datapath(cfg: LayerQuantConfig) -> bool:
             and not cfg.act_quant.per_channel and cfg.act_quant.n_bits <= 8
             and cfg.weight_quant.method == QMethod.symmetric_uniform
             and cfg.weight_quant.n_bits <= 8)
+
+
+# JAX's name for the model-level predicate of the s8 interchange
+# (nn/factored.PrequantS8): the same static conditions
+int8_interchange_ok = int8_datapath
 
 
 def layer_weight_spec(model: nn.Module):
@@ -495,11 +519,15 @@ class QuantizedLayerBase(nn.Module):
 
     # ---- the int8 datapath (JAX nn/layers.py:629-727) ------------------------
 
+    # whether the layer has an int8 route at all (JAX: dense and depthwise
+    # convs and linears, there lines 1011-1022)
+    int8_capable = True
+
     def _int8_ok(self, mode, train_bn, quant_w, quant_a) -> bool:
         """JAX ``_int8_xla_ok``: baked int8 weights are taken whatever
         ``quant_w`` is."""
-        return (int8_datapath(self.config) and quant_a and mode == "fixed"
-                and not train_bn
+        return (self.int8_capable and int8_datapath(self.config) and quant_a
+                and mode == "fixed" and not train_bn
                 and (self.w_int8 is not None
                      or (quant_w and self.config.quant_w)))
 
@@ -577,32 +605,60 @@ class QuantizedLayerBase(nn.Module):
         return (self.config.engine == "fused"
                 and self.activation in FUSED_ACTIVATIONS)
 
-    def _int8_matmul(self, x2d):
-        """An (M, K) float32 input through the int8 matmul: the kernel under
-        ``fused`` where ``autotune.int8_matmul_wins`` says so,
-        ``ops/int8.int8_matmul`` otherwise (JAX nn/layers.py:857, 1187 takes
-        the s8 composed route unraced outside ``always``; on the H100 the
-        kernel wins there, so the port races it)."""
+    def int8_input_grid(self):
+        """(delta, zero, bits) of the input quantizer on the int8 datapath
+        in fixed mode: the grid a producer puts this layer's operand on
+        (``PrequantS8``; JAX's ``out='in_state'`` probe)."""
+        s = self._int8_scalars()[1]
+        return s[2], s[3], self.config.act_quant.n_bits
+
+    def _int8_matmul(self, x2d, pre: Optional[PrequantS8] = None,
+                     emit_s8=None):
+        """An (M, K) input through the int8 matmul: float32, or with
+        ``pre`` (the ``PrequantS8`` it came in, JAX there lines 1182-1216)
+        its int8 operand, whose grid then drives the epilogue.  The kernel
+        under ``fused`` where ``autotune.int8_matmul_wins`` says so (an
+        int8 operand through its s8 input branch where the branch takes
+        its K), ``ops/int8.int8_matmul`` otherwise and under ``emit_s8``
+        (JAX nn/layers.py:857, 1187 takes the s8 composed route unraced
+        outside ``always``; on the H100 the kernel wins there, so the port
+        races it)."""
         a = self._int8_args()
+        a_delta, a_zero = ((a["a_delta"], a["a_zero"]) if pre is None
+                           else (pre.delta, pre.zero))
 
         def composed():
             return int8_ops.int8_matmul(
                 x2d, self._int8_grid(a["w"], a["w_delta"], a["signed"]),
-                a["w_delta"], a["signed"], a["a_delta"], a["a_zero"],
+                a["w_delta"], a["signed"], a_delta, a_zero,
                 self.config.act_quant.n_bits, scale=a["scale"],
                 shift=a["shift"], act_fn=get_activation(self.activation),
+                x_prequant=pre is not None, emit_s8=emit_s8,
                 **self._int8_flags())
 
-        if not self._int8_fused():
+        if (emit_s8 is not None or not self._int8_fused()
+                or (pre is not None
+                    and not qmatmul_int8.s8_input_ok(x2d.shape[1]))):
             return composed()
+        if pre is None:
+            x_op, a_scalars = x2d.to(torch.float32).contiguous(), a["a_scalars"]
+        else:
+            x_op = x2d.contiguous()
+            a_scalars = torch.stack([a_delta, a_zero, torch.zeros_like(a_zero)])
+
+        def kernel():
+            y = qmatmul_int8.fused_quant_matmul_int8(
+                x_op, a["w"], a["w_delta"], a["w_scalars"], a_scalars,
+                a["scale"], a["shift"],
+                cfg=qmatmul_int8.Int8MatmulConfig(**a["kernel_cfg"]))
+            # stored as the composed route stores it (JAX's pallas engine
+            # takes that route here)
+            return y.to(torch.bfloat16) if self.config.conv_out_bf16 else y
+
         return gated_route(
             self, partial(autotune.int8_matmul_wins, x2d.shape[0],
-                          x2d.shape[1], self.features, like=x2d),
-            lambda: qmatmul_int8.fused_quant_matmul_int8(
-                x2d.to(torch.float32).contiguous(), a["w"], a["w_delta"],
-                a["w_scalars"], a["a_scalars"], a["scale"], a["shift"],
-                cfg=qmatmul_int8.Int8MatmulConfig(**a["kernel_cfg"])),
-            composed)
+                          x2d.shape[1], self.features, pre is not None,
+                          like=x2d), kernel, composed)
 
     def _int8_flags(self) -> dict:
         """The ops/int8 route's deployment flags (JAX there lines 969-970)."""
@@ -688,8 +744,9 @@ def _bf16_exact(t: torch.Tensor) -> torch.Tensor:
 
 class QuantConv(QuantizedLayerBase):
     """Quantized 2-D convolution on NHWC input, optionally BN-fused; dense
-    (``groups == 1``) or depthwise (``groups == in_features == features``,
-    weight (C, 1, k, k))."""
+    (``groups == 1``), depthwise (``groups == in_features == features``,
+    weight (C, 1, k, k)) or grouped (weight (Cout, Cin/groups, k, k), the
+    composed path only)."""
 
     def __init__(self, in_features: int, features: int, kernel_size: int = 3,
                  stride: int = 1, padding: int = 0, bn: bool = False,
@@ -699,15 +756,9 @@ class QuantConv(QuantizedLayerBase):
                  bn_momentum: float = 0.1, s2d=False):
         if s2d not in S2D_MODES:
             raise ValueError(f"s2d must be one of {S2D_MODES}, got {s2d!r}")
-        if groups != 1 and not groups == in_features == features:
-            raise NotImplementedError("grouped convs other than depthwise "
-                                      "(groups == in_features == features) "
-                                      "are not ported yet")
-        if groups != 1 and int8_datapath(config):
-            raise NotImplementedError(
-                "the int8 datapath with depthwise convs (MobileNetV2 INT8) "
-                "is not ported yet (ROADMAP.md, section A, item "
-                "\"int8 depthwise\")")
+        if in_features % groups or features % groups:
+            raise ValueError(f"groups {groups} must divide in_features "
+                             f"{in_features} and features {features}")
         super().__init__((features, in_features // groups, kernel_size,
                           kernel_size),
                          features, config, activation, bn, use_bias, bn_eps,
@@ -715,10 +766,9 @@ class QuantConv(QuantizedLayerBase):
         self.kernel_size, self.stride, self.padding = kernel_size, stride, padding
         self.groups = groups
         self.s2d = s2d
-
-    @property
-    def depthwise(self) -> bool:
-        return self.groups != 1
+        self.depthwise = groups != 1 and groups == in_features == features
+        # the int8 route: dense or depthwise (the row sum is per group)
+        self.int8_capable = groups == 1 or self.depthwise
 
     def fused_state(self, quant_w: bool, quant_a: bool, x_factor=None):
         """This layer's part of a larger fused kernel (JAX
@@ -743,7 +793,7 @@ class QuantConv(QuantizedLayerBase):
         float32 taps; None for other convs."""
         if self.depthwise and self.kernel_size == 3:
             return self._operand("dw3x3", qdwconv.weight_taps)
-        if not self.depthwise and self.kernel_size == 1:
+        if self.groups == 1 and self.kernel_size == 1:
             return self._operand("block1x1", lambda w: w.reshape(
                 self.features, -1).t().to(torch.bfloat16).contiguous())
         return None
@@ -767,7 +817,8 @@ class QuantConv(QuantizedLayerBase):
         def composed():
             return self._composed(x, x_factor, *args)
 
-        if self._fused_ok(mode, train_bn):
+        if self._fused_ok(mode, train_bn) and (self.groups == 1
+                                               or self.depthwise):
             # the 3x3 and depthwise kernels take baked weights and quantize
             # outputs only (JAX deploy_ok, there lines 901-903, 987); each
             # kernel sits behind its gate (there lines 857-871, 919-941,
@@ -783,7 +834,8 @@ class QuantConv(QuantizedLayerBase):
                                       stride=s, like=x),
                         lambda: self._fused_dwconv3x3(x, quant_a, x_factor,
                                                       out), composed)
-            elif k == 1 and p == 0:
+                return composed()
+            if k == 1 and p == 0:
                 xs = x if s == 1 else x[:, ::s, ::s, :]
                 return gated_route(
                     self, partial(autotune.pallas_wins,
@@ -850,15 +902,17 @@ class QuantConv(QuantizedLayerBase):
 
     def _int8_conv(self, x):
         """The int8 routes of a conv (x float32 NHWC): qconv_int8, the int8
-        matmul for a 1x1, ``ops/int8.int8_conv`` for anything else."""
+        matmul for a dense 1x1, ``ops/int8.int8_conv`` for anything else
+        (the depthwise convs among them)."""
         k, s, p = self.kernel_size, self.stride, self.padding
         n, h, cin = x.shape[0], x.shape[1], x.shape[-1]
-        if self._int8_fused() and k == 1 and p == 0:
+        dense = self.groups == 1
+        if self._int8_fused() and dense and k == 1 and p == 0:
             xs = x if s == 1 else x[:, ::s, ::s, :]
             n, h, w_, c = xs.shape
             return self._int8_matmul(xs.reshape(-1, c)).reshape(n, h, w_, -1)
-        if (self._int8_fused() and k == 3 and p == 1 and s in (1, 2)
-                and cin % 16 == 0 and self.features % 16 == 0):
+        if (self._int8_fused() and dense and k == 3 and p == 1
+                and s in (1, 2) and cin % 16 == 0 and self.features % 16 == 0):
             return gated_route(
                 self, partial(autotune.conv3_int8_group, n, h, cin,
                               self.features, 1,
@@ -878,17 +932,17 @@ class QuantConv(QuantizedLayerBase):
 
     def _int8_xla(self, x):
         """``ops/int8.int8_conv``, the composed s8 route (JAX's XLA-native
-        int8 datapath)."""
+        int8 datapath), dense or depthwise."""
         k, s, p = self.kernel_size, self.stride, self.padding
-        cin = x.shape[-1]
         a = self._int8_args()
         wsg = self._int8_grid(a["w"], a["w_delta"], a["signed"])
         return int8_ops.int8_conv(
-            x, wsg.reshape(self.features, k, k, cin).permute(0, 3, 1, 2),
+            x, wsg.reshape(self.features, k, k, -1).permute(0, 3, 1, 2),
             a["w_delta"], a["signed"], a["a_delta"], a["a_zero"],
             self.config.act_quant.n_bits, stride=s, padding=p,
             scale=a["scale"], shift=a["shift"],
-            act_fn=get_activation(self.activation), **self._int8_flags())
+            act_fn=get_activation(self.activation), groups=self.groups,
+            **self._int8_flags())
 
     def _fused_conv3x3(self, x, quant_a, x_factor, out):
         """The qconv kernel route (JAX ``_pallas_conv3x3``)."""
@@ -940,14 +994,24 @@ class QuantLinear(QuantizedLayerBase):
 
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False,
-                out: str = "value"):
+                out: str = "value", emit_s8=None):
+        """``x``: a tensor, ``Factored`` or ``PrequantS8`` (the operand on
+        this layer's input grid, taken as it is by the int8 route and
+        materialized elsewhere).  ``emit_s8``: (delta, zero, bits) of the
+        next consumer's input grid; the int8 route then returns a
+        ``PrequantS8`` (any other route raises)."""
         if mode == "fp32":
             mode, quant_w, quant_a = "fixed", False, False
         self._check_train_bn(train_bn)
         if self._int8_ok(mode, train_bn, quant_w, quant_a):
-            x = factored.materialize(x)
-            y = self._int8_matmul(x.reshape(-1, x.shape[-1]))
-            return y.reshape(*x.shape[:-1], -1)
+            pre = x if isinstance(x, PrequantS8) else None
+            xv = factored.materialize(x) if pre is None else pre.xs8
+            y = self._int8_matmul(xv.reshape(-1, xv.shape[-1]), pre, emit_s8)
+            y = y.reshape(*xv.shape[:-1], -1)
+            return y if emit_s8 is None else PrequantS8(y, *emit_s8)
+        if emit_s8 is not None:
+            raise ValueError("emit_s8 needs the int8 datapath in fixed mode "
+                             "with quantized (or int8-baked) weights")
         if self._quantizes_input(quant_a):
             x = factored.materialize(x)     # re-quantized, as on parity
         x, x_factor = factored.split(x)
@@ -985,6 +1049,138 @@ class QuantLinear(QuantizedLayerBase):
         return self._quant_out(y, mode, quant_a, out)
 
 
+def _same_pads(size: int, k: int, s: int):
+    """(lo, hi) of XLA's 'SAME' padding for one dimension."""
+    total = max((-(-size // s) - 1) * s + k - size, 0)
+    return total // 2, total - total // 2
+
+
+class QuantConv1d(QuantizedLayerBase):
+    """Quantized 1-D convolution on NWC input, optionally BN-fused (JAX
+    ``QuantConv1d``, there lines 1032-1080): weight (features,
+    in_features/groups, kernel_size); ``padding`` an int (both sides), a
+    (lo, hi) pair or 'SAME' / 'VALID'.  The composed path on every
+    engine."""
+
+    int8_capable = False
+
+    def __init__(self, in_features: int, features: int, kernel_size: int = 3,
+                 stride: int = 1, padding=0, bn: bool = False,
+                 activation: Optional[str] = None, use_bias: bool = True,
+                 config: LayerQuantConfig = LayerQuantConfig(),
+                 groups: int = 1, bn_eps: float = 1e-5,
+                 bn_momentum: float = 0.1):
+        if in_features % groups or features % groups:
+            raise ValueError(f"groups {groups} must divide in_features "
+                             f"{in_features} and features {features}")
+        # a bias only without BN, as JAX creates it
+        super().__init__((features, in_features // groups, kernel_size),
+                         features, config, activation, bn, use_bias and not bn,
+                         bn_eps, bn_momentum)
+        self.kernel_size, self.stride, self.groups = kernel_size, stride, groups
+        self.padding = padding
+
+    def _pads(self, size: int):
+        p = self.padding
+        if p == "SAME":
+            return _same_pads(size, self.kernel_size, self.stride)
+        if p == "VALID":
+            return 0, 0
+        return (p, p) if isinstance(p, int) else tuple(p)
+
+    def forward(self, x, mode: str = "fixed", quant_w: bool = True,
+                quant_a: bool = True, train_bn: bool = False,
+                out: str = "value"):
+        if mode == "fp32":
+            mode, quant_w, quant_a = "fixed", False, False
+        self._check_train_bn(train_bn)
+        if self._quantizes_input(quant_a):
+            x = factored.materialize(x)     # re-quantized, as on parity
+        x, x_factor = factored.split(x)
+        if x_factor is None:
+            x, x_factor = self._quant_in_engine(x, mode, quant_a)
+        xm, wm, w_factor = self._engine_operands(x, mode, quant_w)
+        xm = F.pad(xm.to(torch.float32).transpose(1, 2),
+                   self._pads(xm.shape[1]))
+        with torch.backends.cudnn.flags(
+                enabled=True, allow_tf32=self.config.engine != "parity"):
+            y = F.conv1d(xm, wm, stride=self.stride, groups=self.groups)
+        y = round_conv_out(self.config, y.transpose(1, 2), mode, quant_a, out)
+        y = self._affine_epilogue(y, w_factor, x_factor, mode, train_bn)
+        return self._quant_out(y, mode, quant_a, out)
+
+
+def conv_transpose_pads(k: int, s: int, padding):
+    """(lo, hi) padding of the stride-1 conv over the stride-dilated input
+    that ``jax.lax.conv_transpose`` runs for one dimension (kernel not
+    flipped, its ``_conv_transpose_padding``): 'SAME', 'VALID' or an
+    explicit (lo, hi) pair, taken as it is."""
+    if padding == "SAME":
+        pad_len = k + s - 2
+        lo = k - 1 if s > k - 1 else -(-pad_len // 2)
+    elif padding == "VALID":
+        pad_len, lo = k + s - 2 + max(k - s, 0), k - 1
+    else:
+        return tuple(padding)
+    return lo, pad_len - lo
+
+
+class QuantConvTranspose(QuantizedLayerBase):
+    """Quantized N-D transposed convolution on channel-last input (JAX
+    ``QuantConvTranspose``, there lines 1083-1130: ``lax.conv_transpose``
+    with its default unflipped kernel), no BN: weight (features,
+    in_features, *kernel_size), the output channel first as in every layer
+    here; ``padding`` 'SAME', 'VALID' or one (lo, hi) pair a dimension in
+    JAX's sense (``conv_transpose_pads``), not torch's.  Torch's transposed
+    convolution at padding 0 is JAX's at padding k - 1 on each side with
+    the kernel flipped; JAX's padding then crops (or zero-extends) that
+    output side by side.  The composed path on every engine."""
+
+    int8_capable = False
+
+    def __init__(self, in_features: int, features: int,
+                 kernel_size=(3, 3), stride=None, padding="SAME",
+                 activation: Optional[str] = None, use_bias: bool = True,
+                 config: LayerQuantConfig = LayerQuantConfig()):
+        kernel_size = tuple(kernel_size)
+        if not 1 <= len(kernel_size) <= 3:
+            raise ValueError(f"1 to 3 spatial dimensions, got {kernel_size}")
+        super().__init__((features, in_features, *kernel_size), features,
+                         config, activation, False, use_bias, 1e-5, 0.1)
+        self.kernel_size = kernel_size
+        self.stride = tuple(stride or (1,) * len(kernel_size))
+        self.padding = padding
+
+    def forward(self, x, mode: str = "fixed", quant_w: bool = True,
+                quant_a: bool = True, train_bn: bool = False,
+                out: str = "value"):
+        if mode == "fp32":
+            mode, quant_w, quant_a = "fixed", False, False
+        if self._quantizes_input(quant_a):
+            x = factored.materialize(x)     # re-quantized, as on parity
+        x, x_factor = factored.split(x)
+        if x_factor is None:
+            x, x_factor = self._quant_in_engine(x, mode, quant_a)
+        xm, wm, w_factor = self._engine_operands(x, mode, quant_w)
+        nd = len(self.kernel_size)
+        spatial = tuple(range(2, 2 + nd))
+        conv = (F.conv_transpose1d, F.conv_transpose2d, F.conv_transpose3d)[nd - 1]
+        with torch.backends.cudnn.flags(
+                enabled=True, allow_tf32=self.config.engine != "parity"):
+            y = conv(xm.to(torch.float32).movedim(-1, 1),
+                     wm.flip(spatial).transpose(0, 1), stride=self.stride)
+        pads = [conv_transpose_pads(k, s, self.padding if isinstance(
+            self.padding, str) else self.padding[i])
+                for i, (k, s) in enumerate(zip(self.kernel_size, self.stride))]
+        crop = []
+        for (lo, hi), k in zip(reversed(pads), reversed(self.kernel_size)):
+            crop += [lo - (k - 1), hi - (k - 1)]
+        y = F.pad(y, crop).movedim(1, -1)
+        y = round_conv_out(self.config, y, mode, quant_a, out)
+        y = self._affine_epilogue(y, w_factor, x_factor, mode, train_bn)
+        return self._quant_out(y, mode, quant_a, out)
+
+
 class QuantLayerNorm(nn.Module):
     """Quantized LayerNorm over the last axis (JAX ``QuantLayerNorm``, there
     lines 1249-1282): gamma (``weight``, JAX ``scale``) is fake-quantized as
@@ -1011,7 +1207,10 @@ class QuantLayerNorm(nn.Module):
         self.act_q = Quantizer(config.act_quant, config.act_range)
 
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
-                quant_a: bool = True, out: str = "value"):
+                quant_a: bool = True, out: str = "value", emit_s8=None):
+        """``emit_s8``: (delta, zero, bits) of the consumer's input grid;
+        the output is then that ``PrequantS8``, made before this layer's
+        own output quant (JAX there lines 1275-1281)."""
         if mode == "fp32":
             mode, quant_w, quant_a = "fixed", False, False
         x = factored.materialize(x).to(torch.float32)
@@ -1025,6 +1224,8 @@ class QuantLayerNorm(nn.Module):
         xc = x - mean
         var = (xc * xc).sum(dim=-1, keepdim=True) / n
         y = xc * torch.rsqrt(var + self.epsilon) * w + self.bias
+        if emit_s8 is not None:
+            return PrequantS8(int8_ops.prequant_s8(y, *emit_s8), *emit_s8)
         return quant_output(self.config, self.act_q, y, mode, quant_a, out)
 
 

@@ -1,11 +1,17 @@
 """The s8 x s8 -> s32 convolution and matmul as torch functions.
 
-Mirrors ``fp8_quantization_tpu/ops/int8.py`` (``int8_conv``,
-``int8_matmul``, lines 41-227, with ``out_bf16`` and ``signed_static``;
-without the ViT's ``emit_s8`` and ``prequant_s8``), and
+Mirrors ``fp8_quantization_tpu/ops/int8.py`` (``prequant_s8``,
+``int8_conv`` with ``groups`` (JAX ``feature_group_count``: 1 or pure
+depthwise), ``int8_matmul`` with ``x_prequant`` and ``emit_s8``, lines
+41-227, with ``out_bf16`` and ``signed_static``), and
 ``int8_shifted_grid`` of ``ops/pallas/qmatmul.py`` (lines 123-134).  The
 JAX package runs these through XLA on its 'parity' and 'bf16' engines; here
-they are the CPU reference and, under 'fused', the ResNet stem's route.
+they are the CPU reference and, under 'fused', the route of the stems, the
+depthwise convs and the matmuls that emit s8 (the ViT's gelu mlp1).
+
+``prequant_s8`` is the producer side of the s8 interchange
+(nn/factored.PrequantS8): the consumer's quant prologue, run where the
+value is made, so the consumer reads its recentred int8 operand.
 
 Recentred identity (the activation grid is xint in [0, 2^a - 1], the weight
 grid wint, signed or unsigned)::
@@ -31,7 +37,7 @@ would (nn/quantizers.py).  ``signed_static`` (config
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -50,6 +56,15 @@ def quantize_act(x: torch.Tensor, delta: torch.Tensor, zp: torch.Tensor,
     xint = torch.clamp(torch.round(x.to(torch.float32) / delta) + zp,
                        0.0, 2.0 ** a_bits - 1.0)
     return xint - 128.0
+
+
+def prequant_s8(x: torch.Tensor, a_delta: torch.Tensor, a_zero: torch.Tensor,
+                a_bits: int) -> torch.Tensor:
+    """x on the recentred s8 grid of an asymmetric input quantizer (JAX
+    ``prequant_s8``): the prologue of ``int8_matmul`` / ``int8_conv``,
+    elementwise the same, as an int8 tensor."""
+    delta, zp = act_int_params(a_delta, a_zero, a_bits)
+    return quantize_act(x, delta, zp, a_bits).to(torch.int8)
 
 
 def int8_shifted_grid(w: torch.Tensor, delta: torch.Tensor,
@@ -87,33 +102,40 @@ def int8_conv(x: torch.Tensor, wsg: torch.Tensor, w_delta: torch.Tensor,
               scale: Optional[torch.Tensor] = None,
               shift: Optional[torch.Tensor] = None,
               act_fn: Optional[Callable] = None, out_bf16: bool = False,
-              signed_static: bool = False) -> torch.Tensor:
+              signed_static: bool = False, groups: int = 1) -> torch.Tensor:
     """Convolution equal to the fake-quant chain.
 
-    x: (N, H, W, Cin) float32.  wsg: (Cout, Cin, kh, kw) int8 on the
-    recentred grid.  w_delta: (Cout,) weight step; signed: 0/1 float scalar;
+    x: (N, H, W, Cin) float32.  wsg: (Cout, Cin/groups, kh, kw) int8 on the
+    recentred grid; ``groups`` 1 or Cin == Cout (depthwise: the row sum and
+    the K term are taken per group, K = kh*kw).  w_delta: (Cout,) weight step; signed: 0/1 float scalar;
     a_delta / a_zero: the asymmetric activation quantizer's step and zero;
     scale / shift: the folded BN or bias, ``y*scale + shift``; act_fn last.
     Returns float32 (N, Ho, Wo, Cout), bfloat16 under ``out_bf16``."""
-    cout, cin, kh, kw = wsg.shape
+    cout, cin_g, kh, kw = wsg.shape
+    cin = x.shape[-1]
+    if groups != 1 and not groups == cin == cout:
+        raise ValueError(f"int8_conv takes groups 1 or Cin == Cout (depthwise), "
+                         f"not {groups} for {cin} -> {cout}")
     delta_x, zp = act_int_params(a_delta, a_zero, a_bits)
     xs = quantize_act(x, delta_x, zp, a_bits).permute(0, 3, 1, 2)
     pad0 = zp - 128.0
     # pad with the real zero: shift it to 0, pad with zeros, shift back
     xs = F.pad(xs - pad0, (padding,) * 4) + pad0
-    k_taps = kh * kw * cin
+    k_taps = kh * kw * cin_g
     dt = _exact_dtype(k_taps, strided=stride > 1)
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        acc = F.conv2d(xs.to(dt), wsg.to(dt), stride=stride)
+        acc = F.conv2d(xs.to(dt), wsg.to(dt), stride=stride, groups=groups)
     acc = acc.to(torch.float32).permute(0, 2, 3, 1)
     colsum = wsg.to(torch.int32).sum(dim=(1, 2, 3)).to(torch.float32)
     if signed_static:
         y = acc + (128.0 - zp) * colsum
     else:
-        ones = torch.ones((1, 1, kh, kw), dtype=dt, device=x.device)
+        # the window sum of xs over each group's input channels: all of
+        # them (groups 1), or the channel itself (depthwise)
+        xg = xs if groups != 1 else xs.sum(dim=1, keepdim=True)
+        ones = torch.ones((xg.shape[1], 1, kh, kw), dtype=dt, device=x.device)
         with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-            rows = F.conv2d(xs.sum(dim=1, keepdim=True).to(dt), ones,
-                            stride=stride)
+            rows = F.conv2d(xg.to(dt), ones, stride=stride, groups=xg.shape[1])
         rows = rows.to(torch.float32).permute(0, 2, 3, 1)
         s_w = 128.0 * (1.0 - signed)
         y = (acc + s_w * rows + (128.0 - zp) * colsum
@@ -128,13 +150,25 @@ def int8_matmul(x2d: torch.Tensor, wsg: torch.Tensor, w_delta: torch.Tensor,
                 scale: Optional[torch.Tensor] = None,
                 shift: Optional[torch.Tensor] = None,
                 act_fn: Optional[Callable] = None, out_bf16: bool = False,
-                signed_static: bool = False) -> torch.Tensor:
+                signed_static: bool = False, x_prequant: bool = False,
+                emit_s8: Optional[Tuple] = None) -> torch.Tensor:
     """(M, K) x (K, N) on the recentred grid; ``wsg`` is (N, K) int8 (torch's
     Linear layout).  Arguments otherwise as ``int8_conv``; returns float32
-    (M, N), bfloat16 under ``out_bf16``."""
+    (M, N), bfloat16 under ``out_bf16``.
+
+    ``x_prequant``: ``x2d`` is already the recentred int8 operand (from
+    ``prequant_s8``); ``a_delta`` / ``a_zero`` still drive the epilogue.
+    ``emit_s8``: (delta, zero, bits) of the next consumer's input
+    quantizer: the result, after ``act_fn``, is returned on that grid as
+    int8 (``prequant_s8``), which overrides ``out_bf16``."""
     k = x2d.shape[-1]
     delta_x, zp = act_int_params(a_delta, a_zero, a_bits)
-    xs = quantize_act(x2d, delta_x, zp, a_bits)
+    if x_prequant:
+        if x2d.dtype != torch.int8:
+            raise ValueError(f"x_prequant needs an int8 x, not {x2d.dtype}")
+        xs = x2d.to(torch.float32)
+    else:
+        xs = quantize_act(x2d, delta_x, zp, a_bits)
     dt = _exact_dtype(k)
     from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
     with no_tf32():
@@ -145,4 +179,7 @@ def int8_matmul(x2d: torch.Tensor, wsg: torch.Tensor, w_delta: torch.Tensor,
         s_w = 128.0 * (1.0 - signed)
         rowsum = s_w * xs.to(torch.int32).sum(dim=-1).to(torch.float32)
         y = y + rowsum[:, None] + k * (128.0 - zp) * s_w
+    if emit_s8 is not None:
+        y = _epilogue(y, delta_x, w_delta, scale, shift, act_fn, False)
+        return prequant_s8(y, *emit_s8)
     return _epilogue(y, delta_x, w_delta, scale, shift, act_fn, out_bf16)

@@ -3,7 +3,9 @@
 Each wrapper calls its torch op ``fp8tpu::<name>`` (ops/kernels/library.py,
 ``<name>`` its key in ``WRAPPERS``), which takes the plain version for CPU
 tensors and launches the CUDA kernel for CUDA tensors (no fallback between
-the two); each wrapper counts its launches in its ``launches`` attribute.
+the two); each wrapper counts its launches in its ``launches`` attribute
+(``fused_quant_matmul_int8`` those of its s8 input branch also in
+``s8_launches``).
 """
 
 from fp8_quantization_tpu_torch.ops.kernels.attention import flash_mha
@@ -31,6 +33,7 @@ WRAPPERS = {"qstem": fused_quant_stem, "qconv3x3": fused_quant_conv3x3,
 def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
+    fused_quant_matmul_int8.s8_launches = 0
 
 
 def launch_counts() -> dict:

@@ -29,9 +29,9 @@ route), ``stem_group`` ``(1, 0)`` or ``(0, 0)``, and the callers pass
 maps to a bool, a tagged key (``c``, ``c2``, ``ig``, ``igp``, ``ig2``,
 ``igp2``, ``d``, ``d2``, ``s``, ``a``, ``irb...``, and a ``!`` suffix for
 JAX's always-mode entries) to an int.  One gate has no JAX counterpart:
-``int8_matmul_wins`` (tag ``im``) races the int8 1x1 convs and linears
-against ops/int8, where JAX takes ops/int8 unraced outside ``always``; on
-the H100 the kernel wins there.
+``int8_matmul_wins`` (tag ``im``, ``ims`` for an s8 input) races the int8
+1x1 convs and linears against ops/int8, where JAX takes ops/int8 unraced
+outside ``always``; on the H100 the kernel wins there.
 
 The cache file: ``FP8TPU_AUTOTUNE_CACHE`` if set, else
 ``fp8tpu_torch_autotune_<device name>_<identity hash>.json`` in the
@@ -296,12 +296,16 @@ def pallas_wins(m: int, k: int, n: int, *, like: torch.Tensor,
     return _gate("qmatmul", (m, k, n), like, kernel, composed)
 
 
-def int8_matmul_wins(m: int, k: int, n: int, *, like: torch.Tensor,
-                     kernel: Callable, composed: Callable) -> bool:
+def int8_matmul_wins(m: int, k: int, n: int, prequant_x: bool = False, *,
+                     like: torch.Tensor, kernel: Callable,
+                     composed: Callable) -> bool:
     """Should the int8 matmul kernel (qmatmul_int8) handle an (M, K) x
     (K, N) product of an int8 1x1 conv or linear, against ops/int8's
-    composed s8 route?  Cache tag 'im' (no JAX counterpart)."""
-    return _gate("qmatmul int8", ("im", m, k, n), like, kernel, composed)
+    composed s8 route?  Cache tag 'im', 'ims' for an input already on the
+    s8 grid (nn/factored.PrequantS8: the kernel's s8 input branch against
+    ``int8_matmul(x_prequant=True)``); no JAX counterpart."""
+    key = ("ims" if prequant_x else "im", m, k, n)
+    return _gate("qmatmul int8", key, like, kernel, composed)
 
 
 def conv3_group(n: int, h: int, cin: int, cout: int, g0: int,

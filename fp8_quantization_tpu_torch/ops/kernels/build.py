@@ -40,8 +40,8 @@ SIGNATURES = {
     "qstem": ("qstem_launch",
               [_P, _I, _P, _I, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P]),
     "qmatmul_int8": ("qmatmul_int8_launch",
-                     [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                      _I, _I, _I, _I, _P]),
+                     [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                      _I, _I, _I, _I, _I, _P]),
     "qconv_int8": ("qconv3x3_int8_launch",
                    [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _I, _P]),

@@ -154,6 +154,8 @@ def _(x, w, a_consts, scale, shift, act_method, emit_norm):
 
 
 # ---- qmatmul_int8 -------------------------------------------------------------
+# ``x`` is float32 or, for the s8 input branch, int8 (the schema's Tensor
+# takes either; the implementations read its dtype, the fake needs none)
 
 def _qmatmul_int8_cpu(x: torch.Tensor, w: torch.Tensor,
                       w_delta: torch.Tensor, w_scalars: torch.Tensor,

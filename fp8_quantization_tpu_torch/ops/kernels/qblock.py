@@ -300,6 +300,13 @@ def fused_inverted_residual(x: torch.Tensor, w1: Optional[torch.Tensor],
         ",".join(cfg.methods))
 
 
+def channels_ok(cin: int, hid: int, cout: int) -> bool:
+    """Whether the kernel takes a block of these widths: it copies rows of
+    16 bytes, so each is a multiple of 8 (MobileNetV2 at width_mult 1.4
+    has blocks of 22, 33, 89 ... channels, which go layer by layer)."""
+    return cin % 8 == 0 and hid % 8 == 0 and cout % 8 == 0
+
+
 def qblock_cuda(x, w1, wd, w2, a_consts, scale1, shift1, scale_d, shift_d,
                 scale2, shift2, x_factor, cfg: FusedBlockConfig):
     """The kernel's launch on CUDA tensors (op ``fp8tpu::qblock``,
@@ -322,7 +329,7 @@ def qblock_cuda(x, w1, wd, w2, a_consts, scale1, shift1, scale_d, shift_d,
         _vec(scale1, hid, "scale1")
         _vec(shift1, hid, "shift1")
     x_factor = x_factor.contiguous()
-    if cin % 8 or hid % 8 or cout % 8:
+    if not channels_ok(cin, hid, cout):
         raise ValueError(f"qblock on the card copies 16-byte rows: Cin, hid "
                          f"and Cout must be multiples of 8, got {cin}, {hid}, "
                          f"{cout}")

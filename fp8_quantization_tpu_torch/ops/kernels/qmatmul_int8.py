@@ -16,6 +16,12 @@ kernel adds the corrections in f32, which gives the same result while the
 sums stay below 2^24.  Semantics carried over: in-kernel weight quant
 (``w`` float32) or ``w_prequant`` (``w`` int8, from
 nn/bake.bake_int8_weights), signed and unsigned weight grids, relu/relu6.
+
+The s8 input branch (no Pallas counterpart: JAX sends a ``PrequantS8``
+input to XLA's ``int8_matmul(x_prequant=True)``, nn/layers.py:1182-1216):
+``x`` int8, already on the recentred input grid (nn/factored.PrequantS8),
+is staged as it is, and ``a_scalars`` drive only the epilogue.  It needs
+``K % 4 == 0`` (``s8_input_ok``); a CUDA x of another K raises.
 ``w`` is (N, K), torch's Linear layout.  The TPU tiling knobs and the K
 padding of the Pallas wrapper do not carry over: ragged M, N and K are
 masked in the kernel.
@@ -135,14 +141,24 @@ def qmatmul_int8_plain(x: torch.Tensor, w: torch.Tensor,
                        shift: torch.Tensor,
                        cfg: Int8MatmulConfig) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch, integer sums exact in
-    float64 (CPU tests, card reference)."""
+    float64 (CPU tests, card reference); an int8 ``x`` is the s8 operand
+    itself."""
     dx, zp = act_int_params(a_scalars[0], a_scalars[1], cfg.act_n_bits)
-    xs = quantize_act(x, dx, zp, cfg.act_n_bits).to(torch.float64)
+    if x.dtype == torch.int8:
+        xs = x.to(torch.float64)
+    else:
+        xs = quantize_act(x, dx, zp, cfg.act_n_bits).to(torch.float64)
     wsg = weight_grid(w, w_delta, w_scalars, cfg.n_bits)
     s_w = 128.0 * (1.0 - w_scalars[1])
     total = exact_total(xs @ wsg.t(), xs.sum(dim=1, keepdim=True),
                         wsg.sum(dim=1), x.shape[1], zp, s_w)
     return epilogue(total, dx, w_delta, scale, shift, cfg.activation)
+
+
+def s8_input_ok(k: int) -> bool:
+    """Whether the kernel takes an int8 x of row length ``k``: each row's
+    values load four to a word."""
+    return k % 4 == 0
 
 
 def check_scalars(n: int, w_delta, w_scalars, a_scalars, scale, shift):
@@ -161,7 +177,8 @@ def fused_quant_matmul_int8(x: torch.Tensor, w: torch.Tensor,
     """y (M, N) float32.
 
     Args:
-      x: (M, K) float32, quantized in the kernel.
+      x: (M, K) float32, quantized in the kernel, or int8 on the recentred
+        input grid (the s8 input branch; ``s8_input_ok(K)``).
       w: (N, K) int8 recentred grid (prequantized) or float32.
       w_delta: (N,) weight step; w_scalars: (2,) [0, signed];
       a_scalars: (3,) [dx, zero_float, 0]; scale, shift: (N,) float32.
@@ -189,20 +206,26 @@ def qmatmul_int8_cuda(x: torch.Tensor, w: torch.Tensor,
     N = w.shape[0]
     args = (w_delta, w_scalars, a_scalars, scale, shift)
     on_card(x, w, *args)
-    require(x, "x", (torch.float32,), vector_loads=True)
+    require(x, "x", (torch.float32, torch.int8), vector_loads=True)
     require(w, "w", (torch.int8, torch.float32), vector_loads=True)
     check_scalars(N, *args)
+    x_int8 = x.dtype == torch.int8
+    if x_int8 and not s8_input_ok(K):
+        raise ValueError(f"qmatmul_int8: an int8 x needs K % 4 == 0, got K = {K}")
     out = torch.empty((M, N), device=x.device, dtype=torch.float32)
     tile = int8_tile(M, N, K)
     err = build.entry("qmatmul_int8")(
-        x.data_ptr(), w.data_ptr(), int(w.dtype == torch.int8),
+        x.data_ptr(), w.data_ptr(), int(w.dtype == torch.int8), int(x_int8),
         w_delta.data_ptr(), w_scalars.data_ptr(), a_scalars.data_ptr(),
         scale.data_ptr(), shift.data_ptr(), out.data_ptr(), M, N, K,
         cfg.act_n_bits, cfg.n_bits, ACTIVATION_CODES[cfg.activation],
         tile.bm, tile.bn, tile.splits, stream_ptr(x))
     build.check(err, "qmatmul_int8")
     fused_quant_matmul_int8.launches += 1
+    if x_int8:      # the s8 input branch's own count, within ``launches``
+        fused_quant_matmul_int8.s8_launches += 1
     return out
 
 
 fused_quant_matmul_int8.launches = 0
+fused_quant_matmul_int8.s8_launches = 0

@@ -407,7 +407,7 @@ def int8_matmul_calls(g):
         out = torch.empty(m, n, device="cuda")
         t = int8_tile(m, n, k)
         keep = (x, w, w_delta, scale, shift, out)
-        args = (x.data_ptr(), w.data_ptr(), 1, w_delta.data_ptr(), w_scalars.data_ptr(),
+        args = (x.data_ptr(), w.data_ptr(), 1, 0, w_delta.data_ptr(), w_scalars.data_ptr(),
                 a_scalars.data_ptr(), scale.data_ptr(), shift.data_ptr(), out.data_ptr(),
                 m, n, k, 8, 8, 0, t.bm, t.bn, t.splits, stream)
         yield [m, k, n, t.bm, t.bn, t.splits], (lambda fn, a=args, kp=keep: fn(*a))

@@ -534,7 +534,8 @@ def test_fused_rejects_what_its_kernels_do_not_carry():
     output quantizers off the int8 datapath now run on the kernels' plain
     versions and agree with 'bf16' (their own tests are in
     tests/test_torch_int_grids.py); the int8 datapath with a depthwise conv
-    still raises (ROADMAP.md, section A, item "int8 depthwise")."""
+    runs ops/int8's grouped int8_conv on every engine (against JAX in
+    tests/test_torch_int8_mobilenet.py)."""
     x = torch.randn(2, 8, 8, 16)
     cases = [dict(quantize_input=True),
              dict(qmethod="symmetric_uniform", act_qmethod="asymmetric_uniform")]
@@ -550,6 +551,13 @@ def test_fused_rejects_what_its_kernels_do_not_carry():
             assert torch.isfinite(outs[engine]).all()
         torch.testing.assert_close(outs["fused"], outs["bf16"], rtol=1e-5,
                                    atol=1e-5)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        layers.QuantConv(16, 16, 3, 1, 1, groups=16,
-                         config=make_layer_config(engine="fused", **INT8))
+    outs = {}
+    for engine in ("bf16", "fused"):
+        torch.manual_seed(0)
+        dw = layers.QuantConv(16, 16, 3, 1, 1, groups=16, bn=True,
+                              activation="relu6",
+                              config=make_layer_config(engine=engine, **INT8))
+        calibrate(dw, [x], device="cpu")
+        with torch.no_grad():
+            outs[engine] = dw(x, mode="fixed")
+    assert torch.equal(outs["fused"], outs["bf16"])

@@ -613,13 +613,13 @@ def test_composed_route_for_quantizers_the_kernels_do_not_take(monkeypatch):
         assert torch.equal(outs["fused"], outs["bf16"])
 
 
-def _jax_mnv2(bn_mode, sd, x):
+def _jax_mnv2(bn_mode, sd, x, settings=MNV2_TINY):
     jmodel = jmnv2.mobilenetv2_quantized(
         j_make_config(engine="pallas", bn_mode=bn_mode, **INT8_OQ),
-        num_classes=CLASSES, settings=MNV2_TINY)
+        num_classes=CLASSES, settings=settings)
     jvars = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros_like(x))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jmnv2, "INVERTED_RESIDUAL_SETTING", MNV2_TINY)
+        mp.setattr(jmnv2, "INVERTED_RESIDUAL_SETTING", settings)
         params, stats = convert_mobilenet_v2(sd)
     jvars = j_calibrate(jmodel, merge_variables(jvars, params, stats),
                         [jnp.asarray(x)])
@@ -630,9 +630,16 @@ def _jax_mnv2(bn_mode, sd, x):
     return _np_tree(jvars), np.asarray(logits)
 
 
-# per bn mode: the plain versions one tiny forward takes
-MNV2_ROUTES = {"fp32_after": {"qblock_plain": 4, "qmatmul_plain": 2},
+# per bn mode: the plain versions one tiny forward takes (under fp32_after
+# the blocks with 12 channels run layer by layer: qblock.channels_ok)
+MNV2_ROUTES = {"fp32_after": {"qblock_plain": 1, "qdwconv3x3_plain": 3,
+                              "qmatmul_plain": 8},
                "folded": {"qdwconv3x3_plain": 4, "qmatmul_plain": 9}}
+# a tiny MobileNetV2 whose block widths are all multiples of 8: under
+# fp32_after every block (no expand, stride 2, residual) takes qblock
+MNV2_TINY8 = ((1, 8, 1, 1), (6, 16, 2, 2), (6, 16, 1, 1))
+MNV2_ROUTES8 = {"fp32_after": {"qblock_plain": 4, "qmatmul_plain": 2},
+                "folded": {"qdwconv3x3_plain": 4, "qmatmul_plain": 9}}
 
 
 @pytest.mark.parametrize("bn_mode", ["fp32_after", "folded"])
@@ -641,19 +648,31 @@ def test_tiny_mobilenet_int8_out_quant_matches_jax_pallas(bn_mode, monkeypatch):
     with int_asym stages, or qdwconv3x3 + qmatmul under folded BN) from
     JAX's calibrated state: logits within one INT step of JAX 'pallas' on
     >= 98% of elements, top-1 identical."""
-    sd = convert.random_mobilenet_v2_state_dict(SEED, MNV2_TINY, CLASSES)
+    _hold_int8_out_quant_mnv2(bn_mode, MNV2_TINY, MNV2_ROUTES, monkeypatch)
+
+
+@pytest.mark.parametrize("bn_mode", ["fp32_after", "folded"])
+def test_tiny_mobilenet_widths_of_8_int8_out_quant_matches_jax_pallas(
+        bn_mode, monkeypatch):
+    """The same at block widths that are multiples of 8, where every block
+    under fp32_after runs qblock's integer branches."""
+    _hold_int8_out_quant_mnv2(bn_mode, MNV2_TINY8, MNV2_ROUTES8, monkeypatch)
+
+
+def _hold_int8_out_quant_mnv2(bn_mode, settings, routes, monkeypatch):
+    sd = convert.random_mobilenet_v2_state_dict(SEED, settings, CLASSES)
     x = np.random.RandomState(SEED).normal(0, 1, (2, 32, 32, 3)).astype(np.float32)
-    jvars, jlogits = _jax_mnv2(bn_mode, sd, x)
+    jvars, jlogits = _jax_mnv2(bn_mode, sd, x, settings)
     model = tmnv2.mobilenetv2_quantized(
         make_layer_config(engine="fused", bn_mode=bn_mode, **INT8_OQ),
-        num_classes=CLASSES, settings=MNV2_TINY, device="cpu")
+        num_classes=CLASSES, settings=settings, device="cpu")
     convert.load_jax_variables(model, jvars)
     bake_weights(model)
     calls = {}
     _spy_plain(monkeypatch, calls)
     with torch.no_grad():
         logits = model(_t(x), mode="fixed", quant_w=False).numpy()
-    assert calls == MNV2_ROUTES[bn_mode]
+    assert calls == routes[bn_mode]
     assert logits.shape == (2, CLASSES) and np.isfinite(logits).all()
     step = _fc_delta(jvars, "classifier")
     assert (np.abs(logits - jlogits) <= step * (1 + 1e-6)).mean() >= 0.98

@@ -6,7 +6,9 @@
   engine='pallas', port 'bf16' against JAX 'bf16'.  The JAX reference is
   baked inside nn/bake._pallas_gates_off() (ROADMAP.md section C).  Logits
   within one FP8 grid step on >= 98% of elements, top-1 identical; a spy on
-  the wrappers shows which route ran.
+  the wrappers shows which route ran.  The blocks with 12 channels run
+  layer by layer (qblock.channels_ok), so a second tiny model whose block
+  widths are multiples of 8 (TINY8) holds qblock on every block type.
 * The routes of a block, the presets, the CLI on CPU in both bn modes, and
   the loaders.
 
@@ -68,16 +70,16 @@ def _one_grid_step(out, ref, maxval, min_exact=0.98, min_near=1.0):
 
 # ---- (d) the tiny MobileNetV2 --------------------------------------------------
 
-def _jax_model(engine, bn_mode):
+def _jax_model(engine, bn_mode, settings=TINY):
     return jmnv2.mobilenetv2_quantized(
         j_make_config(engine=engine, bn_mode=bn_mode, **MAIN),
-        num_classes=CLASSES, settings=TINY)
+        num_classes=CLASSES, settings=settings)
 
 
-def _port_model(engine, bn_mode, sd=None):
+def _port_model(engine, bn_mode, sd=None, settings=TINY):
     model = tmnv2.mobilenetv2_quantized(
         make_layer_config(engine=engine, bn_mode=bn_mode, **MAIN),
-        num_classes=CLASSES, settings=TINY, device="cpu")
+        num_classes=CLASSES, settings=settings, device="cpu")
     if sd is not None:
         convert.load_tonylins_mobilenet_v2(model, sd)
     return model
@@ -105,12 +107,12 @@ def tiny_x():
     return np.random.RandomState(SEED).normal(0, 1, (2, 32, 32, 3)).astype(np.float32)
 
 
-def _jax_run(engine, bn_mode, sd, x):
+def _jax_run(engine, bn_mode, sd, x, settings=TINY):
     """(JAX-calibrated variables, JAX-baked variables, baked logits)."""
-    jmodel = _jax_model(engine, bn_mode)
+    jmodel = _jax_model(engine, bn_mode, settings)
     jvars = jax.jit(jmodel.init)(jax.random.PRNGKey(0), jnp.zeros_like(x))
     with pytest.MonkeyPatch.context() as mp:
-        mp.setattr(jmnv2, "INVERTED_RESIDUAL_SETTING", TINY)
+        mp.setattr(jmnv2, "INVERTED_RESIDUAL_SETTING", settings)
         params, stats = convert_mobilenet_v2(sd)
     jvars = j_calibrate(jmodel, merge_variables(jvars, params, stats),
                         [jnp.asarray(x)])
@@ -126,9 +128,13 @@ def _logit_maxval(jvars):
     return float(jvars["quant"]["classifier"]["act_q"]["q"]["maxval"])
 
 
-# per bn mode and engine: the launches of one tiny forward
-ROUTES = {("fp32_after", "fused"): {"fused_inverted_residual": 4,
-                                    "fused_quant_matmul": 2},
+# per bn mode and engine: the launches of one tiny forward; under
+# fp32_after only block0_0 (32 -> 32 -> 8) runs qblock, whose rows are 16
+# bytes (qblock.channels_ok): the blocks with 12 channels run layer by
+# layer, 3 depthwise and 6 1x1 launches, the head and classifier 2 more
+ROUTES = {("fp32_after", "fused"): {"fused_inverted_residual": 1,
+                                    "fused_quant_dwconv3x3": 3,
+                                    "fused_quant_matmul": 8},
           ("folded", "fused"): {"fused_quant_dwconv3x3": 4,
                                 "fused_quant_matmul": 9},
           ("fp32_after", "bf16"): {}, ("folded", "bf16"): {}}
@@ -143,18 +149,41 @@ def test_tiny_mobilenet_matches_jax(bn_mode, engine, tiny_sd, tiny_x,
     the classifier's output range differs in its last bits and moves every
     logit's grid point a little: the bound is one grid step on >= 98% of
     the logits, not equality."""
+    _hold_tiny_against_jax(bn_mode, engine, TINY, tiny_sd, tiny_x,
+                           ROUTES[(bn_mode, engine)], monkeypatch)
+
+
+# a tiny MobileNetV2 whose block widths are all multiples of 8, so that
+# every block under fp32_after takes qblock: 32 -> 32 -> 8 (t = 1, no
+# expand), 8 -> 48 -> 16 (stride 2), 16 -> 96 -> 16 twice (residual)
+TINY8 = ((1, 8, 1, 1), (6, 16, 2, 2), (6, 16, 1, 1))
+
+
+def test_tiny_mobilenet_widths_of_8_match_jax(tiny_x, monkeypatch):
+    """The qblock route of every block type (no expand, stride 2,
+    residual) held against JAX engine='pallas' at the model level, by the
+    bound of test_tiny_mobilenet_matches_jax: four qblock launches and
+    the head and classifier on qmatmul."""
+    _hold_tiny_against_jax(
+        "fp32_after", "fused", TINY8,
+        convert.random_mobilenet_v2_state_dict(SEED, TINY8, CLASSES), tiny_x,
+        {"fused_inverted_residual": 4, "fused_quant_matmul": 2}, monkeypatch)
+
+
+def _hold_tiny_against_jax(bn_mode, engine, settings, sd, x, routes,
+                           monkeypatch):
     jvars, _, jlogits = _jax_run("pallas" if engine == "fused" else engine,
-                                 bn_mode, tiny_sd, tiny_x)
-    model = _port_model(engine, bn_mode, tiny_sd)
-    calibrate(model, [tiny_x], device="cpu")
+                                 bn_mode, sd, x, settings)
+    model = _port_model(engine, bn_mode, sd, settings)
+    calibrate(model, [x], device="cpu")
     np.testing.assert_allclose(model.classifier.act_q.state()["maxval"].numpy(),
                                _logit_maxval(jvars), rtol=1e-4)
     bake_weights(model)
     calls = {}
     _spy(monkeypatch, calls)
     with torch.no_grad():
-        logits = model(_t(tiny_x), mode="fixed", quant_w=False).numpy()
-    assert calls == ROUTES[(bn_mode, engine)]
+        logits = model(_t(x), mode="fixed", quant_w=False).numpy()
+    assert calls == routes
     assert logits.shape == (2, CLASSES) and np.isfinite(logits).all()
     _one_grid_step(logits, jlogits, _logit_maxval(jvars), min_exact=0.0,
                    min_near=0.98)
@@ -217,8 +246,13 @@ def test_presets():
     assert not cfgs["expand_config"].quant_a and not cfgs["dw_config"].quant_a
     assert tmnv2.mobilenet_v2_configs(base, "fc4_dw8")[
         "dw_config"].weight_quant.n_bits == 8
-    with pytest.raises(NotImplementedError, match="LSQ_paper"):
-        tmnv2.mobilenet_v2_configs(base, "LSQ_paper")
+    # LSQ_paper (JAX mobilenet_v2.py:334-341; held against JAX in
+    # tests/test_torch_layer_options.py)
+    lsq = tmnv2.mobilenet_v2_configs(base, "LSQ_paper")
+    assert lsq["config"].quantize_input and not lsq["tie_avgpool"]
+    assert not lsq["stem_config"].quant_a and not lsq["block_act_config"].quant_a
+    assert lsq["stem_config"].weight_quant.n_bits == 8
+    assert lsq["fc_config"].act_quant.n_bits == 8
     with pytest.raises(ValueError):
         tmnv2.mobilenet_v2_configs(base, "nope")
     model = tmnv2.mobilenetv2_quantized(base, "dw_bf16_acts", device="cpu")

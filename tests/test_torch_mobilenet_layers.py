@@ -337,13 +337,25 @@ def test_folded_rejects_train_bn_and_int8_rejects_depthwise():
     conv = _port_layer("dw3x3_s1", "parity", "folded")
     with pytest.raises(ValueError, match="inference-time"):
         conv(torch.zeros(1, 4, 4, 32), mode="calibrate", train_bn=True)
+    # the int8 datapath now takes a depthwise conv (through the grouped
+    # ops/int8.int8_conv), and a grouped conv builds and runs on the
+    # composed path (tests/test_torch_int8_mobilenet.py and
+    # tests/test_torch_layer_options.py hold them against JAX)
     int8 = make_layer_config(qmethod="symmetric_uniform",
                              act_qmethod="asymmetric_uniform",
                              quantize_input=True, int8_mxu=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        layers.QuantConv(32, 32, 3, 1, 1, groups=32, config=int8)
-    with pytest.raises(NotImplementedError, match="depthwise"):
-        layers.QuantConv(32, 64, 3, 1, 1, groups=2)
+    x = torch.randn(2, 4, 4, 32)
+    for conv in (layers.QuantConv(32, 32, 3, 1, 1, groups=32, config=int8),
+                 layers.QuantConv(32, 64, 3, 1, 1, groups=2)):
+        calibrate(conv, [x], device="cpu")
+        with torch.no_grad():
+            y = conv(x, mode="fixed")
+        assert y.shape == (2, 4, 4, conv.features) and torch.isfinite(y).all()
+    assert layers.QuantConv(32, 32, 3, 1, 1, groups=32, config=int8).int8_capable
+    assert not layers.QuantConv(32, 64, 3, 1, 1, groups=2,
+                                config=int8).int8_capable
+    with pytest.raises(ValueError, match="must divide"):
+        layers.QuantConv(32, 64, 3, 1, 1, groups=3)
 
 
 @pytest.mark.parametrize("bn_mode", ["fp32_after", "folded"])

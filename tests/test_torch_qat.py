@@ -427,5 +427,8 @@ def test_learned_mantissa_bits_deploy_at_the_composed_paths_format():
         with torch.no_grad():
             a = fused(x, mode="fixed", quant_w=False)
     b = bf16(x, mode="fixed", quant_w=False)
-    assert calls.get("fused_inverted_residual") == 4
+    # block0_0 on qblock; the blocks with 12 channels layer by layer
+    # (qblock.channels_ok): 3 depthwise and 8 1x1 / fc kernel calls
+    assert calls == {"fused_inverted_residual": 1, "fused_quant_dwconv3x3": 3,
+                     "fused_quant_matmul": 8}
     assert torch.equal(a, b)

@@ -282,11 +282,18 @@ def test_presets_int8_and_token_count_raise():
     for setup in ("fc4", "LSQ", "dw_bf16_acts"):
         with pytest.raises(ValueError, match="not supported for the ViT"):
             tvit.vit_small_quantized(base, setup, device="cpu")
+    # the int8 datapath builds and runs (tests/test_torch_int8_vit.py
+    # holds it against JAX)
     int8 = make_layer_config(qmethod="symmetric_uniform",
                              act_qmethod="asymmetric_uniform",
-                             quantize_input=True, int8_mxu=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        tvit.vit_small_quantized(int8, device="cpu")
+                             quantize_input=True, int8_mxu=True,
+                             engine="fused")
+    tiny = tvit.vit_small_quantized(int8, device="cpu", num_classes=CLASSES,
+                                    dim=32, depth=1, num_heads=2, mlp_ratio=2,
+                                    patch_size=4, image_size=16)
+    calibrate(tiny, [_x("d32_17tok")], device="cpu")
+    logits = _forward(tiny, _x("d32_17tok"))
+    assert logits.shape == (2, CLASSES) and np.isfinite(logits).all()
     model = _port_model("d32_17tok", "bf16")
     with pytest.raises(ValueError, match="position embedding"):
         model(torch.zeros(1, 32, 32, 3), mode="fixed")
