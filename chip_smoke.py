@@ -15,7 +15,8 @@ FP8 PTQ, with ResNet-18's space-to-depth stem beside, QAT of MobileNetV2 FP8
 (BASELINE.json config 5), the analytical SQNR study (config 1),
 bench.py's five rows with their deployment flags on 'bf16' and 'fused', and
 the checkpoints and serving export of deployed models, and their
-data- and tensor-parallel runs over two ranks on the one card.  Every
+data- and tensor-parallel runs over two ranks on the one card, then
+preflight with the dress rehearsal and the W4A8 MobileNetV2 QAT demo.  Every
 slice deploys
 through the CLI's prepare pass (nn/bake.prepare_inference), and every phase
 that runs a slice's models after it (fused against bf16, throughput,
@@ -307,8 +308,14 @@ the script exits 1 without the final result line):
                 one calibrated state: each layer's gradients on pinned
                 inputs at cosine >= 0.99, the chaotic end-to-end logits held
                 to twice their one-ulp floor, the one-step loss and update
-                cosines printed beside the ulp-moved CPU run's; a repeated
-                batch's loss falls over 8 steps.
+                cosines printed beside the ulp-moved CPU run's; one step
+                from one state with and without remat (make_train_step
+                (remat=True): the forward under torch.utils.checkpoint):
+                the loss within rtol 1e-6, the parameters within rtol 1e-5
+                / atol 1e-7 (JAX's bounds), BN buffers and the quantizers'
+                state equal, each step's peak memory printed (a record: a
+                checkpoint of the whole forward recomputes every
+                activation); a repeated batch's loss falls over 8 steps.
 17. sqnr_study - the study at its reference size (5M samples, 1,000
                 candidates, seed 10) on the card: the table, its seconds,
                 the reference's qualitative results (see the phase), and
@@ -376,9 +383,9 @@ the script exits 1 without the final result line):
                 ResNet-18 INT8 input quant, MobileNetV2 FP8 in both bn
                 modes, ViT-S/16 FP8) and ResNet-18 FP8 on 'bf16' with
                 deploy_cast_quant, conv_out_bf16 and deploy_act_f8 (E3M4)
-                exported (the eight kernels as fp8tpu::* ops), then loaded
-                and run in one serving process that imports neither
-                ...models nor ...nn.layers.  Per artifact (one line each:
+                exported (the eight kernels as fp8tpu::* ops), each
+                loaded and run, as soon as it is written, in one serving
+                process that imports neither ...models nor ...nn.layers.  Per artifact (one line each:
                 export seconds, artifact MB, launches, largest difference):
                 logits bit-equal to the live model's (the symbolic one at
                 batches 1, 7 and 64, the others at 64), kernel launches per
@@ -415,16 +422,43 @@ the script exits 1 without the final result line):
                 process whose BN sums as the ranks do, deployed on 'fused'
                 (17 qblock + 2 qmatmul a forward); (e) a one-rank NCCL
                 group: an all_reduce on the card and (a)'s calibration bit-
-                equal to (a)'s single process.  Launches of the ranks'
+                equal to (a)'s single process; (f) tensor-parallel QAT
+                checkpoints (MobileNetV2 FP8, batch 16): the ranks train
+                TPCK_STEPS steps at --model-parallel 2 and save, whole; a
+                single-process state restored from the file within JAX's
+                bound (rtol 1e-6 / atol 1e-7) of one process's run of the
+                same steps (bit-equality printed), and two fresh ranks
+                restored from it take one more step bit-equal to the ranks
+                that were not interrupted.  Launches of the ranks'
                 deployed forwards are added to the kernels line; each
                 sub-run's seconds and the collectives (count, host
                 seconds) of a calibration forward are a record (the ranks
                 share the card with the references; one card shows no
                 scaling).
+24. rehearsal  - preflight and the dress rehearsal (tools/dress_rehearsal.py):
+                `image_net preflight --scan-only --report-out` in a
+                subprocess (exit 0, the report's five keys, its command
+                running the port's rehearsal); the rehearsal's random
+                torchvision, tonylins and timm checkpoints at full width and
+                1000 classes (make_checkpoints); then for ResNet-18,
+                MobileNetV2 and ViT-S/16 validate-quantized in this process
+                through the CLI's main with --model-dir, the rehearsal's
+                BASELINE_FLAGS, 'fused', batch 64, one calibration and one
+                evaluation batch, on synthetic batches (the JPEG leg needs
+                PIL): the weights the CLI converted equal to the .pth
+                tensors, the metrics line finite, the launches of its two
+                baked forwards exactly the slice's per forward, each
+                distinct kernel call of the evaluation replayed against its
+                plain version (deploy_replay).
+25. qat_w4a8   - the W4A8 MobileNetV2 QAT demo (tools/qat_mnv2_w4a8.py) at
+                full depth and width (96 px, batch 64, 16 classes, 4
+                batches, 2 fp32 and 2 QAT epochs): losses finite, 2
+                trajectory entries, the frozen fraction reported; ms per
+                step of both training phases.
 
 Then a {"kernels": [...]} line (launches: the sum over the main-path runs
 of phases 4, 5, 8, 9 (vit_int8_slice and mnv2_int8_qi_slice included), 10,
-12, 13, 15, 19, 20 (outside the races) and 21,
+12, 13, 15, 19, 20 (outside the races), 21 and 24,
 the artifact forwards of phase 22 and the ranks' runs of phase 23; times: the FP8 forwards of
 phases 6, 8 and 9; max_abs_err over every check, phase 19's replays
 included; after qmatmul_int8 its s8 input branch, qmatmul_int8_s8: the
@@ -3410,6 +3444,46 @@ def _layer_grads(layer, x, seed):
     return grads
 
 
+def remat_pair(model, x, y):
+    """One learn step from ``model``'s state (two copies) without and with
+    remat (make_train_step(remat=True)): the loss within rtol 1e-6 and
+    every parameter within rtol 1e-5 / atol 1e-7 (JAX's bounds,
+    tests/test_training.py), every buffer (BN statistics, the quantizers'
+    and estimators' state) equal, and each step's peak memory (the peak,
+    and over what was allocated when the step began)."""
+    import copy
+
+    import torch
+    from fp8_quantization_tpu_torch.training import qat
+    runs = {}
+    for remat in (False, True):
+        m = copy.deepcopy(model)
+        state = qat.init_qat_state(m, m.config,
+                                   qat.make_optimizer("SGD", 0.001, momentum=0.9),
+                                   qat.make_optimizer("Adam", 1e-5))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        start = torch.cuda.memory_allocated()
+        _, metrics = qat.make_train_step(state, remat=remat)(state, x, y)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        runs[remat] = (m, metrics["loss"], peak, peak - start)
+    (plain, loss, peak, over), (rm, loss_r, peak_r, over_r) = runs[False], runs[True]
+    params, bufs = dict(rm.named_parameters()), dict(rm.named_buffers())
+    close = [n for n, p in plain.named_parameters()
+             if torch.allclose(params[n], p, rtol=1e-5, atol=1e-7)]
+    exact = [n for n, p in plain.named_parameters() if torch.equal(params[n], p)]
+    differ = [n for n, b in plain.named_buffers() if not torch.equal(bufs[n], b)]
+    n_params = len(params)
+    ok = (abs(loss_r - loss) <= 1e-6 * abs(loss) and len(close) == n_params
+          and not differ)
+    return {"ok": ok, "loss": [loss, loss_r], "params": n_params,
+            "params_within_bound": len(close), "params_bit_equal": len(exact),
+            "buffers_differing": differ[:8],
+            "peak_memory_bytes": {"plain": peak, "remat": peak_r},
+            "peak_over_start_bytes": {"plain": over, "remat": over_r}}
+
+
 def phase_qat_check():
     """QAT's step on the card against the CPU, from one calibrated state of
     full-width MobileNetV2 (QAT_CLI_ARGS' config: the bf16 route in learn
@@ -3426,9 +3500,10 @@ def phase_qat_check():
     the CPU (rms over their spread) is held to at most twice the gap that
     moving every input by one float32 ulp gives on the CPU; the loss's
     relative gap after one step and the updates' cosines against the CPU
-    are printed beside the same numbers for the ulp-moved CPU run.  Then the
-    loss on one repeated batch must fall over 8 steps on the card (SGD, lr
-    0.05, momentum 0.9)."""
+    are printed beside the same numbers for the ulp-moved CPU run.  On the
+    card one step with and without remat from one state (remat_pair).
+    Then the loss on one repeated batch must fall over 8 steps on the card
+    (SGD, lr 0.05, momentum 0.9)."""
     import copy
     import statistics
 
@@ -3482,6 +3557,8 @@ def phase_qat_check():
                           for n, u in updates["cpu"].items() if float(u.norm()) > 0]
                     for tag in ("card", "cpu_ulp")}
 
+        remat = remat_pair(card, xt.cuda(), y)
+
         state = qat.init_qat_state(card, card.config,
                                    qat.make_optimizer("SGD", 0.05, momentum=0.9),
                                    qat.make_optimizer("Adam", 1e-5))
@@ -3493,7 +3570,7 @@ def phase_qat_check():
     finally:
         torch.backends.cudnn.deterministic = prev
     ok = (not low and gap <= 2 * floor and repeated[-1] < repeated[0]
-          and all(math.isfinite(v) for v in repeated))
+          and all(math.isfinite(v) for v in repeated) and remat["ok"])
     emit({"phase": "qat_check", "ok": ok, "layers": len(inputs),
           "layer_gradients_compared": len(layer_cos),
           "min_layer_gradient_cosine": min(layer_cos.values()), "below_0.99": low,
@@ -3502,7 +3579,7 @@ def phase_qat_check():
           "loss_rel_gap_one_ulp": abs(losses["cpu_ulp"] - losses["cpu"]) / losses["cpu"],
           "update_cosine_median": {k: statistics.median(v) for k, v in step_cos.items()},
           "update_cosine_min": {k: min(v) for k, v in step_cos.items()},
-          "repeated_batch_losses": repeated})
+          "repeated_batch_losses": repeated, "remat": remat})
     return ok
 
 
@@ -3642,7 +3719,7 @@ DEPLOY_ROWS = [
      dict(deploy_cast_quant=True), None, "input", {"qconv3x3": 16, "qmatmul": 4}),
 ]
 DEPLOY_CAL = 128                   # calibration images, as bench.py
-DEPLOY_ITERS = 3                   # timed forwards per engine, after a warm one
+DEPLOY_ITERS = 2                   # timed forwards per engine, after a warm one
 CAST_MAXVALS = (1.0, 3.7, 57.0, 0.013)
 
 
@@ -3810,7 +3887,7 @@ def deploy_replay(results, calls, batch):
 # the layers that layer_hold runs again, by class name
 HELD_LAYERS = ("QuantConv", "QuantLinear", "QuantLayerNorm", "QuantizedActivation",
                "QuantSelfAttention")
-LAYER_HOLD_IMAGES = 16
+LAYER_HOLD_IMAGES = 8
 
 
 def to_device(obj, device):
@@ -4103,8 +4180,8 @@ GATE_KERNELS = {"pallas_wins": "qmatmul", "int8_matmul_wins": "qmatmul_int8",
                 "dw_group": "qdwconv3x3", "stem_group": "qstem", "attn_wins": "flash_mha",
                 "ir_group": "qblock"}
 GATE_MODES = ("auto", "always", "bf16")        # the throughput turns' order
-GATE_TURNS = 4                     # pairs of turns (THROUGHPUT_TURNS' 2 spread too wide)
-GATE_ITERS = 10                    # forwards per timed turn
+GATE_TURNS = 2                     # pairs of turns (a record; the held ratio is gate_pair_ratio's)
+GATE_ITERS = 5                     # forwards per timed turn
 # auto's images/s on the INT8 row may fall below always's by at most this
 # share (gate_pair_ratio): a route the gate wrongly kept off the card, as
 # JAX's unraced int8 1x1 rule did, cost 17%.  The median ratio of the
@@ -4619,20 +4696,42 @@ def export_input(shape, seed):
                        generator=torch.Generator(device="cuda").manual_seed(seed))
 
 
+def exported_cases(spec_path):
+    """The cases of the export phase's spec (one JSON line each, the
+    artifact's name, path, input shapes and seed), each as soon as the
+    exporting process has written it, until its line {"done": true}."""
+    with open(spec_path) as f:
+        pending = ""
+        while True:
+            line = f.readline()
+            if not line:
+                time.sleep(0.1)
+                continue
+            pending += line
+            if not pending.endswith("\n"):
+                continue
+            case, pending = json.loads(pending), ""
+            if case.get("done"):
+                return
+            yield case
+
+
 def serve_artifacts(spec_path):
-    """The serving side of the export phase, in a process of its own: each
-    artifact of the spec loaded with serving.load_exported (the op library,
-    no model code), run on each of its inputs with the launch counts zeroed
-    just before and read just after, its logits saved, and one forward at
-    its last batch profiled; prints one JSON line, with the port modules
-    this process imported."""
+    """The serving side of the export phase, in a process of its own,
+    started with the phase: each artifact of the spec (exported_cases), as
+    soon as the exporting process has written it, loaded with
+    serving.load_exported (the op library, no model code), run on each of
+    its inputs with the launch counts zeroed just before and read just
+    after, its logits saved beside the spec, and one forward at its last
+    batch profiled once (a record: the held launch comparison is the
+    exporting process's, five profiles a side); prints one JSON line, with
+    the port modules this process imported."""
     import torch
     from fp8_quantization_tpu_torch.ops import kernels
     from fp8_quantization_tpu_torch.serving import load_exported
-    with open(spec_path) as f:
-        spec = json.load(f)
+    out_dir = os.path.dirname(spec_path)
     out = {}
-    for case in spec["cases"]:
+    for case in exported_cases(spec_path):
         t0 = time.perf_counter()
         fn = load_exported(case["path"], device="cuda")
         load_s = time.perf_counter() - t0
@@ -4644,10 +4743,12 @@ def serve_artifacts(spec_path):
                 y = fn(x)
             torch.cuda.synchronize()
             runs.append(kernels.launch_counts())
-            torch.save(y.cpu(), os.path.join(spec["dir"], f"{case['name']}_{shape[0]}.pt"))
+            torch.save(y.cpu(), os.path.join(out_dir, f"{case['name']}_{shape[0]}.pt"))
         x = export_input(case["shapes"][-1], case["seed"])
+        # a record beside the profiles held in the exporting process: one
         out[case["name"]] = {"load_s": load_s, "launches": runs,
-                             "profile": profile_calls({"artifact": lambda: fn(x)})["artifact"]}
+                             "profile": profile_calls({"artifact": lambda: fn(x)},
+                                                      n=1)["artifact"]}
     mods = sorted(m for m in sys.modules if m.startswith("fp8_quantization_tpu"))
     print(json.dumps({"cases": out, "modules": mods}), flush=True)
 
@@ -4685,9 +4786,12 @@ def export_cases(slice_out):
 
 def phase_export(results, slice_out):
     """serving/export.py on the card at full width (export_cases): each
-    deployed model exported (export seconds, artifact MB), then every
+    deployed model exported (export seconds, artifact MB), and every
     artifact loaded and run in one serving process that imports neither
-    fp8_quantization_tpu_torch.models nor ...nn.layers (serve_artifacts).
+    fp8_quantization_tpu_torch.models nor ...nn.layers (serve_artifacts),
+    which takes each artifact as soon as it is written (``serve_s``: its
+    seconds from the phase's start; ``serve_wait_s``: what this process
+    waited for it after its own work).
     Per artifact: its logits bit-equal to the live model's on the same
     input (the symbolic-batch ResNet-18 at batches 1, 7 and 64, the others
     at 64), its kernel launches per forward equal to the live forward's
@@ -4713,6 +4817,19 @@ def phase_export(results, slice_out):
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="fp8tpu_export_")
+    # the serving process starts now and serves each artifact as soon as
+    # its line is in the spec, while this process goes on exporting
+    spec = os.path.join(tmp, "spec.jsonl")
+    open(spec, "w").close()
+    logs = [open(os.path.join(tmp, f"serve.{k}"), "w+") for k in ("out", "err")]
+    server = subprocess.Popen(
+        [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
+         "import chip_smoke; chip_smoke.serve_artifacts(sys.argv[2])", ROOT, spec],
+        cwd=ROOT, stdout=logs[0], stderr=logs[1], text=True)
+
+    def announce(line):
+        with open(spec, "a") as f:
+            f.write(json.dumps(line) + "\n")
     try:
         cases, live = [], {}
         for seed, (name, model, quant_w, batch) in enumerate(export_cases(slice_out)):
@@ -4724,6 +4841,7 @@ def phase_export(results, slice_out):
             shapes = [list(model.input_shape((b, 224, 224, 3)))
                       for b in EXPORT_BATCHES.get(name, (BATCH,))]
             cases.append({"name": name, "path": path, "shapes": shapes, "seed": seed})
+            announce(cases[-1])
             runs = []
             for shp in shapes:
                 x = export_input(shp, seed)
@@ -4750,19 +4868,17 @@ def phase_export(results, slice_out):
                           "mb": os.path.getsize(path) / 2 ** 20,
                           "profile": prof}
             del fn
-        spec = os.path.join(tmp, "spec.json")
-        with open(spec, "w") as f:
-            json.dump({"dir": tmp, "cases": cases}, f)
+        announce({"done": True})
         t0 = time.perf_counter()
-        done = subprocess.run(
-            [sys.executable, "-c", "import sys; sys.path.insert(0, sys.argv[1]); "
-             "import chip_smoke; chip_smoke.serve_artifacts(sys.argv[2])", ROOT, spec],
-            cwd=ROOT, capture_output=True, text=True, timeout=600)
-        serve_s = time.perf_counter() - t0
-        if done.returncode != 0:
-            print(done.stderr[-4000:], file=sys.stderr)
-            raise RuntimeError(f"the serving process exited {done.returncode}")
-        served = json.loads(done.stdout.strip().splitlines()[-1])
+        server.wait(timeout=600)
+        serve_wait_s, serve_s = time.perf_counter() - t0, time.perf_counter() - t_phase
+        for log in logs:
+            log.seek(0)
+        out, err = (log.read() for log in logs)
+        if server.returncode != 0:
+            print(err[-4000:], file=sys.stderr)
+            raise RuntimeError(f"the serving process exited {server.returncode}")
+        served = json.loads(out.strip().splitlines()[-1])
         # model code, or anything of the JAX package
         model_code = [m for m in served["modules"]
                       if m.startswith(("fp8_quantization_tpu_torch.models",
@@ -4815,10 +4931,15 @@ def phase_export(results, slice_out):
         rate = {k: {"ms": v, "images_per_s": BATCH / statistics.median(v) * 1e3}
                 for k, v in turns.items()}
         emit({"phase": "export", "ok": ok, "serving_modules_model_code": model_code,
-              "serve_s": serve_s, "resnet18_fp8_b64_turns": rate,
-              "s": time.perf_counter() - t_phase})
+              "serve_s": serve_s, "serve_wait_s": serve_wait_s,
+              "resnet18_fp8_b64_turns": rate, "s": time.perf_counter() - t_phase})
         return ok
     finally:
+        if server.poll() is None:
+            server.kill()
+            server.wait()
+        for log in logs:
+            log.close()
         shutil.rmtree(tmp, ignore_errors=True)
 
 
@@ -5079,12 +5200,152 @@ def qat_layer_cosines(cli):
     return cos
 
 
+TPCK_STEPS = 2                     # (f)'s steps before its checkpoint
+TPCK_CLI = _cli_with(QAT_CLI_ARGS, batch_size=16)
+
+
+def tp_qat_state(mesh=None):
+    """(f)'s QAT state and its TPCK_STEPS + 1 training batches: TPCK_CLI's
+    MobileNetV2 FP8 from the seed's weights, calibrated on the first
+    synthetic training batch, SGD with Adam on the learned maxvals and
+    oscillation dampening and freezing, as train-quantized builds it;
+    tensor-parallel over ``mesh`` where one is given."""
+    from itertools import islice
+
+    from fp8_quantization_tpu_torch.calibration.calibrate import calibrate
+    from fp8_quantization_tpu_torch.cli import image_net
+    from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
+    from fp8_quantization_tpu_torch.parallel import shard_qat_state
+    from fp8_quantization_tpu_torch.training import qat
+    args = image_net.build_parser().parse_args(TPCK_CLI)
+    image_net.seed_run(args)
+    model = image_net.build_model(args)
+    train, _ = make_dataloaders(None, batch_size=args.batch_size, seed=args.seed)
+    batches = list(islice(iter(train), TPCK_STEPS + 1))
+    calibrate(model, batches[:1], device="cuda", num_batches=1)
+    state = qat.init_qat_state(
+        model, model.config,
+        qat.make_optimizer("SGD", args.learning_rate, momentum=args.momentum),
+        qat.make_optimizer(args.quant_optimizer, args.quant_learning_rate),
+        oscillation=image_net._oscillation_config(args, TPCK_STEPS + 1))
+    if mesh is not None:
+        shard_qat_state(mesh, state, tensor_parallel=True)
+    return state, batches
+
+
+def tp_checkpoint_rank(out_dir):
+    """(f) in one rank, cuDNN deterministic: TPCK_STEPS steps of
+    tensor-parallel QAT over the two ranks, saved whole (f_ck); one more
+    step, saved (f_uninterrupted); a fresh tensor-parallel state restored
+    from f_ck takes that step too (f_resumed).  Its seconds and the shape
+    of this rank's momentum of the stem's weight go to f_rank<r>.pt."""
+    import torch
+    from fp8_quantization_tpu_torch.parallel import make_mesh
+    from fp8_quantization_tpu_torch.training import qat
+    from fp8_quantization_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+    t0 = time.perf_counter()
+    mesh = make_mesh(1, PAR_RANKS)
+    state, batches = tp_qat_state(mesh)
+    step = qat.make_train_step(state)
+    for x, y in batches[:TPCK_STEPS]:
+        step(state, x, y)
+    save_checkpoint(os.path.join(out_dir, "f_ck"), state, step=TPCK_STEPS)
+    momentum = tuple(state.optimizer.state[state.model.stem.weight]["momentum_buffer"].shape)
+    step(state, *batches[TPCK_STEPS])
+    save_checkpoint(os.path.join(out_dir, "f_uninterrupted"), state, step=TPCK_STEPS + 1)
+    fresh = restore_checkpoint(os.path.join(out_dir, "f_ck"), tp_qat_state(mesh)[0])
+    qat.make_train_step(fresh)(fresh, *batches[TPCK_STEPS])
+    save_checkpoint(os.path.join(out_dir, "f_resumed"), fresh, step=TPCK_STEPS + 1)
+    torch.save({"s": time.perf_counter() - t0, "momentum_shape": momentum},
+               os.path.join(out_dir, f"f_rank{mesh.rank}.pt"))
+
+
+def _checkpoint_leaves(tree, path=""):
+    """(path, leaf) of a checkpoint's nested dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _checkpoint_leaves(v, f"{path}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from _checkpoint_leaves(v, f"{path}/{i}")
+    else:
+        yield path, tree
+
+
+def _checkpoints_close(a, b, rtol=0.0, atol=0.0):
+    """(same keys and shapes, all within the bound, all bit-equal, the
+    paths beyond the bound) of two checkpoint files' contents."""
+    import torch
+    la, lb = dict(_checkpoint_leaves(a)), dict(_checkpoint_leaves(b))
+    if la.keys() != lb.keys():
+        return False, False, False, sorted(la.keys() ^ lb.keys())[:8]
+    shapes, beyond, exact = True, [], True
+    for k, u in la.items():
+        v = lb[k]
+        if not isinstance(u, torch.Tensor):
+            if u != v:
+                beyond.append(k)
+            continue
+        if u.shape != v.shape or u.dtype != v.dtype:
+            shapes = False
+            beyond.append(k)
+            continue
+        exact &= bool(torch.equal(u, v))
+        if not (torch.equal(u, v) or u.is_floating_point()
+                and torch.allclose(u, v, rtol=rtol, atol=atol)):
+            beyond.append(k)
+    return shapes, not beyond, exact and not beyond, beyond[:8]
+
+
+def tp_checkpoint_check(tmp, single_file):
+    """(f) in this process, after the ranks: the tensor-parallel save
+    against one process's save of the same steps (``single_file``): the
+    same keys, shapes and dtypes, and, restored into a fresh
+    single-process state and saved again, within JAX's bound (rtol 1e-6 /
+    atol 1e-7) of it (bit-equality printed); the restored state's save
+    equal to the file it came from; the resumed ranks' save bit-equal to
+    the uninterrupted ranks'."""
+    import torch
+    from fp8_quantization_tpu_torch.utils.checkpoint import (
+        restore_checkpoint, save_checkpoint)
+
+    def load(name, step):
+        return torch.load(os.path.join(tmp, name, f"step_{step}", "state.pt"),
+                          weights_only=True)
+    tp, single = load("f_ck", TPCK_STEPS), torch.load(single_file, weights_only=True)
+    restored = restore_checkpoint(os.path.join(tmp, "f_ck"), tp_qat_state()[0])
+    save_checkpoint(os.path.join(tmp, "f_restored"), restored, step=TPCK_STEPS)
+    again = load("f_restored", TPCK_STEPS)
+    fmt = _checkpoints_close(tp, single)
+    vs_single = _checkpoints_close(again, single, rtol=1e-6, atol=1e-7)
+    round_trip = _checkpoints_close(again, tp)
+    resumed = _checkpoints_close(load("f_resumed", TPCK_STEPS + 1),
+                                 load("f_uninterrupted", TPCK_STEPS + 1))
+    ranks = [torch.load(os.path.join(tmp, f"f_rank{r}.pt"), weights_only=False)
+             for r in range(PAR_RANKS)]
+    whole = tuple(single["optimizer"]["state"][0]["momentum_buffer"].shape)
+    sliced = (whole[0] // PAR_RANKS,) + whole[1:]
+    line = {"s": [r["s"] for r in ranks], "tensors": len(dict(_checkpoint_leaves(tp))),
+            "format_as_unsharded": fmt[0],
+            "momentum_shape_whole_and_per_rank": [whole, [r["momentum_shape"] for r in ranks]],
+            "restored_single_within_jax_bound": vs_single[1],
+            "restored_single_bit_equal": vs_single[2],
+            "restored_single_beyond": vs_single[3],
+            "restore_round_trip_bit_equal": round_trip[2],
+            "resumed_ranks_bit_equal_uninterrupted": resumed[2],
+            "resumed_differing": resumed[3]}
+    line["ok"] = (line["format_as_unsharded"] and vs_single[1] and round_trip[2]
+                  and resumed[2] and all(r["momentum_shape"] == sliced for r in ranks))
+    return line
+
+
 def parallel_rank(out_dir, names):
     """One rank of the parallel phase (its rank in torchrun's environment
     variables): each sub-run of ``names`` through the CLI with its mesh
     flags, its results saved to ``out_dir/<name>_rank<r>.pt``; after (d),
-    its step layer by layer (qat_layer_cosines); then it leaves the
-    group."""
+    its step layer by layer (qat_layer_cosines); then (f)
+    (tp_checkpoint_rank); then it leaves the group."""
     import torch
     from fp8_quantization_tpu_torch.ops.kernels.common import no_tf32
     from fp8_quantization_tpu_torch.parallel import multihost
@@ -5097,7 +5358,23 @@ def parallel_rank(out_dir, names):
                 res["layer_cosines"] = qat_layer_cosines(cli)
         torch.save(res, os.path.join(out_dir, f"{name}_rank{rank}.pt"))
         print(f"rank {rank}: {name} done in {res['s']:.1f} s", flush=True)
+    with no_tf32(), deterministic_cudnn():
+        tp_checkpoint_rank(out_dir)
+    print(f"rank {rank}: f done", flush=True)
     multihost.shutdown()
+
+
+class deterministic_cudnn:
+    """cuDNN's deterministic algorithms inside the block."""
+
+    def __enter__(self):
+        import torch
+        self.prev = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+
+    def __exit__(self, *exc):
+        import torch
+        torch.backends.cudnn.deterministic = self.prev
 
 
 class OneRankSums:
@@ -5299,6 +5576,17 @@ def phase_parallel(results):
             finally:
                 layers.collectives = saved
             witness = gemm_rows_witness()
+            # (f)'s one-process run of the same steps, saved
+            from fp8_quantization_tpu_torch.training import qat
+            from fp8_quantization_tpu_torch.utils.checkpoint import save_checkpoint
+            with deterministic_cudnn():
+                state, batches = tp_qat_state()
+                step = qat.make_train_step(state)
+                for x, y in batches[:TPCK_STEPS]:
+                    step(state, x, y)
+                single_f = os.path.join(save_checkpoint(
+                    os.path.join(tmp, "f_single"), state, step=TPCK_STEPS), "state.pt")
+                del state, step
         finally:
             ok_ranks, ranks_s, tails = gloo.wait()
             ok_e, _, e_tails = nccl.wait()
@@ -5309,6 +5597,8 @@ def phase_parallel(results):
                                    weights_only=False) for r in range(PAR_RANKS)]
                  for name in PAR_RUNS}
         e = torch.load(os.path.join(tmp, "e_rank0.pt"), weights_only=False)
+        with deterministic_cudnn():
+            f_line = tp_checkpoint_check(tmp, single_f)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -5430,8 +5720,190 @@ def phase_parallel(results):
     line["e"]["ok"] = (e["backend"] == "nccl" and e_eq[0]
                        and e["all_reduce"].tolist() == [0.0, 1.0, 2.0, 3.0])
     ok &= line["e"]["ok"]
+
+    # (f) checkpoints of a tensor-parallel QAT state
+    line["f"] = f_line
+    ok &= f_line["ok"]
     emit({"phase": "parallel", "ok": ok, "ranks": PAR_RANKS, "backend": "gloo",
           "ranks_s": ranks_s, "sub_runs": line, "s": time.perf_counter() - t_phase})
+    return ok
+
+
+# ---- preflight, the dress rehearsal and the W4A8 QAT demo (tools/) ------------
+
+REHEARSAL_ARCHS = (("resnet18", RESNET_FP8_LAUNCHES),
+                   ("mobilenet_v2", MNV2_LAUNCHES["fp32_after"]),
+                   ("vit_small", VIT_LAUNCHES))
+REPORT_KEYS = {"scan", "resolved_images_dir", "resolved_model_dirs", "mode", "command"}
+
+
+class ConvertedWeights:
+    """While active, each model the CLI builds (image_net.build_model) held
+    against the checkpoint it was built from, right after the build: for
+    every key of the checkpoint's layout, the model's tensor equal to the
+    file's ({"compared", "differing"} per build, in ``builds``)."""
+
+    def __enter__(self):
+        import torch
+        from fp8_quantization_tpu_torch.cli import image_net
+        from fp8_quantization_tpu_torch.models import convert
+        self.builds, self.saved = [], image_net.build_model
+        key_maps = {"resnet18_quantized": convert.torchvision_key_map,
+                    "mobilenet_v2_quantized": convert.tonylins_key_map,
+                    "vit_small_quantized": convert.timm_vit_key_map}
+
+        def build(args, _fn=self.saved):
+            model = _fn(args)
+            sd = torch.load(args.model_dir, weights_only=True)
+            own = model.state_dict()
+            pairs = key_maps[args.architecture](model).items()
+            self.builds.append({"compared": len(pairs), "differing": [
+                src for src, dst in pairs
+                if not torch.equal(own[dst].cpu(), sd[src].float())][:8]})
+            return model
+        image_net.build_model = build
+        return self
+
+    def __exit__(self, *exc):
+        from fp8_quantization_tpu_torch.cli import image_net
+        image_net.build_model = self.saved
+
+
+class EvalCapture(Capture):
+    """Capture, active only inside calibrate.evaluate: the kernel calls of
+    a CLI run's evaluation batches, not of its prepare pass."""
+
+    def __init__(self):
+        super().__init__()
+        from fp8_quantization_tpu_torch.calibration import calibrate
+        self.module, self.evaluate = calibrate, calibrate.evaluate
+
+    def __enter__(self):
+        def evaluate(*a, **kw):
+            Capture.__enter__(self)
+            try:
+                return self.evaluate(*a, **kw)
+            finally:
+                Capture.__exit__(self)
+        self.module.evaluate = evaluate
+        return self
+
+    def __exit__(self, *exc):
+        self.module.evaluate = self.evaluate
+
+
+def phase_rehearsal(results):
+    """preflight and the dress rehearsal on the card (see the module
+    docstring, phase 24; preflight's process runs beside the rehearsal's
+    runs).  Prints one line per architecture and the phase's line with the
+    seconds of preflight's process, the checkpoints' writing and each
+    run."""
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+
+    import torch
+    from fp8_quantization_tpu_torch.cli import image_net
+    from fp8_quantization_tpu_torch.ops import kernels
+    from fp8_quantization_tpu_torch.tools import dress_rehearsal as rehearsal
+
+    tmp = tempfile.mkdtemp(prefix="fp8tpu_rehearsal_")
+    report_path = os.path.join(tmp, "report.json")
+    # preflight's scan runs in its own process while this one rehearses
+    t_pre = time.perf_counter()
+    pre = subprocess.Popen(
+        [sys.executable, "-m", "fp8_quantization_tpu_torch.cli.image_net",
+         "preflight", "--scan-only", "--report-out", report_path],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        paths = rehearsal.make_checkpoints(tmp, [a for a, _ in REHEARSAL_ARCHS])
+        ckpt_s = time.perf_counter() - t0
+        ok, runs = True, {}
+        for short, per_forward in REHEARSAL_ARCHS:
+            arch = rehearsal.architecture(short)
+            argv = ["validate-quantized", "--architecture", arch,
+                    "--model-dir", str(paths[arch]), "--engine", "fused",
+                    "--device", "cuda", "--batch-size", str(BATCH),
+                    "--num-est-batches", "1", "--max-eval-batches", "1",
+                    "--seed", str(SEED), *rehearsal.BASELINE_FLAGS[arch]]
+            out, root = io.StringIO(), logging.getLogger()
+            handlers, level = root.handlers[:], root.level
+            t0 = time.perf_counter()
+            kernels.reset_launch_counts()
+            try:
+                with ConvertedWeights() as conv, EvalCapture() as cap, \
+                        contextlib.redirect_stdout(out):
+                    image_net.main(argv)
+                torch.cuda.synchronize()
+            finally:
+                root.handlers, root.level = handlers, level     # main's basicConfig
+            run_s = time.perf_counter() - t0
+            counts = kernels.launch_counts()
+            add_launches(results, counts)
+            metrics = json.loads(out.getvalue().strip().splitlines()[-1])
+            want = expected_launches(per_forward, forwards=2)
+            replay_ok, replay = deploy_replay(results, cap.calls, BATCH)
+            (built,) = conv.builds
+            run_ok = (not built["differing"] and built["compared"] > 0
+                      and math.isfinite(metrics["loss"])
+                      and metrics["num_examples"] == BATCH and counts == want
+                      and replay_ok)
+            emit({"phase": "rehearsal_run", "architecture": arch, "ok": run_ok,
+                  "s": run_s, "metrics": metrics, "weights_compared": built["compared"],
+                  "weights_differing": built["differing"], "launches": counts,
+                  "expected_launches": want, "replay": replay})
+            runs[arch] = run_s
+            ok &= run_ok
+        _, err = pre.communicate(timeout=300)
+        preflight_s = time.perf_counter() - t_pre
+        report = {}
+        if pre.returncode == 0:
+            with open(report_path) as f:
+                report = json.load(f)
+        else:
+            print(err[-3000:], file=sys.stderr)
+        pre_ok = (pre.returncode == 0 and set(report) == REPORT_KEYS
+                  and "-m fp8_quantization_tpu_torch.tools.dress_rehearsal"
+                  in report["command"])
+        ok &= pre_ok
+        emit({"phase": "rehearsal", "ok": ok, "preflight_rc": pre.returncode,
+              "preflight_s": preflight_s, "report_keys": sorted(report),
+              "report_mode": report.get("mode"), "checkpoints_s": ckpt_s,
+              "checkpoint_mb": {a: os.path.getsize(p) / 2 ** 20 for a, p in paths.items()},
+              "runs_s": runs})
+        return ok
+    finally:
+        if pre.poll() is None:
+            pre.kill()
+            pre.communicate()
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+QAT_W4A8_ARGS = ["--device", "cuda", "--fp32-epochs", "2", "--qat-epochs", "2",
+                 "--batches", "4"]
+
+
+def phase_qat_w4a8():
+    """The W4A8 MobileNetV2 QAT demo (tools/qat_mnv2_w4a8.py) at full depth
+    and width, 96 px, batch 64, 16 classes (its defaults), cut to 4 batches
+    and 2 + 2 epochs: the losses finite, 2 trajectory entries, the frozen
+    fraction reported; its result line with ms per step of both phases."""
+    import contextlib
+    import io
+
+    from fp8_quantization_tpu_torch.tools import qat_mnv2_w4a8 as demo
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = demo.main(QAT_W4A8_ARGS)
+    losses = [result["fp32_loss"], *result["qat_losses"]]
+    ok = (all(math.isfinite(v) for v in losses) and len(result["trajectory"]) == 2
+          and "frozen_fraction" in result and result["image_size"] == 96
+          and result["batch"] == BATCH and result["qat_steps"] == 8)
+    emit({"phase": "qat_w4a8", "ok": ok, "s": time.perf_counter() - t0,
+          "result": result, "log": out.getvalue().splitlines()[:-1]})
     return ok
 
 
@@ -5568,7 +6040,9 @@ def main():
                ("gate", lambda: phase_gate(results)),
                ("checkpoint", lambda: phase_checkpoint(results)),
                ("export", lambda: phase_export(results, slice_out)),
-               ("parallel", lambda: phase_parallel(results))]
+               ("parallel", lambda: phase_parallel(results)),
+               ("rehearsal", lambda: phase_rehearsal(results)),
+               ("qat_w4a8", phase_qat_w4a8)]
     for name, fn in phases:
         t0 = time.perf_counter()
         # every phase but gate launches each kernel of its path, as before

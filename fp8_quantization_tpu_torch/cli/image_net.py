@@ -1,4 +1,5 @@
-"""ImageNet PTQ entry point of the port: ``validate-quantized``.
+"""ImageNet entry point of the port: ``validate-quantized``,
+``train-quantized`` and ``preflight``.
 
 Mirrors ``validate-quantized`` of ``cli/image_net.py`` (lines 247-334):
 calibrate -> freeze -> bake -> evaluate, printing the same JSON metrics
@@ -44,6 +45,13 @@ unset, ``torch.use_deterministic_algorithms(True)`` and
 ``torch.backends.cudnn.benchmark = False``, each logged; the kernel gate's
 races are left as they are, as JAX's flag leaves its gate.
 
+``preflight`` (JAX there lines 337-476) scans the standard mount points
+and ``$IMAGENET_DIR`` / ``$MODEL_DIR`` for an ImageNet tree and pretrained
+checkpoints (``_scan_real_assets``), prints the report of what a real run
+would execute (``--report-out`` writes it too) and, unless
+``--scan-only``, runs the port's dress rehearsal (tools/dress_rehearsal.py)
+and exits with its status; ``--device`` takes the place of ``--platform``.
+
 ``--data-parallel D`` and ``--model-parallel M`` (JAX there lines 51-54,
 214-217, 272-281, 323-329, 560-563) run the commands over ``D x M`` ranks
 that ``torchrun`` starts, one process each (parallel/): ``--batch-size``
@@ -53,9 +61,10 @@ calibration goes through ``calibrate_sharded``, the evaluation through
 over the batch is global, and ``--model-parallel`` shards the weights by
 JAX's weight-gather rule.  Every rank reads the whole global batch from
 the loader, as one process does.  Rank 0 alone prints the metrics line
-and writes checkpoints and metrics files.  ``D x M`` other than the
-world, a batch ``D`` does not divide and a checkpoint of tensor-parallel
-QAT are usage errors; with both at 1 nothing changes.
+and writes checkpoints and metrics files (a tensor-parallel state whole,
+as one process saves it: utils/checkpoint.py).  ``D x M`` other than the
+world and a batch ``D`` does not divide are usage errors; with both at 1
+nothing changes.
 
     torchrun --nproc-per-node 2 -m fp8_quantization_tpu_torch.cli.image_net \\
         validate-quantized --engine fused --per-channel --fp8-set-maxval \\
@@ -286,7 +295,29 @@ def build_parser() -> argparse.ArgumentParser:
                    help="metrics JSONL directory")
     t.add_argument("--max-train-batches", type=int, default=None,
                    help="cap the batches of each epoch")
-    parser.commands = {"validate-quantized": p, "train-quantized": t}
+    f = sub.add_parser("preflight",
+                       help="scan for real assets, then run the dress "
+                            "rehearsal (tools/dress_rehearsal.py)")
+    f.add_argument("--workdir", default=None,
+                   help="the rehearsal's directory (its default when omitted)")
+    f.add_argument("--images-dir", default=None,
+                   help="real ImageNet root; omitted: auto-detect, then the "
+                        "synthetic 1000-class tree")
+    f.add_argument("--model-dirs", default=None,
+                   help="comma-separated arch=ckpt.pth; omitted: "
+                        "auto-detect, then synthetic checkpoints")
+    f.add_argument("--archs", default="resnet18,mobilenet_v2,vit_small")
+    f.add_argument("--device", default=None, choices=["cuda", "cpu"])
+    f.add_argument("--batch-size", type=int, default=64)
+    f.add_argument("--images", type=int, default=2000)
+    f.add_argument("--max-eval-batches", type=int, default=None)
+    f.add_argument("--report-out", default=None,
+                   help="write the readiness report JSON here")
+    f.add_argument("--scan-only", action="store_true",
+                   help="print the asset scan and the command a run would "
+                        "execute, without running it")
+    parser.commands = {"validate-quantized": p, "train-quantized": t,
+                       "preflight": f}
     return parser
 
 
@@ -384,9 +415,9 @@ def setup_parallel(args, command: str):
     """The mesh of ``--data-parallel`` x ``--model-parallel`` (JAX
     ``_setup``), None for one process.  Joins the ranks
     (parallel/multihost.initialize, from torchrun's environment); a mesh
-    that is not the world, a batch that ``--data-parallel`` does not
-    divide and a checkpoint of tensor-parallel QAT are usage errors.  On
-    the card rank 0 alone builds the kernels while the others wait."""
+    that is not the world and a batch that ``--data-parallel`` does not
+    divide are usage errors.  On the card rank 0 alone builds the kernels
+    while the others wait."""
     from fp8_quantization_tpu_torch.parallel import initialize, make_mesh
     from fp8_quantization_tpu_torch.parallel.multihost import (
         barrier, process_index)
@@ -401,11 +432,6 @@ def setup_parallel(args, command: str):
     if args.batch_size % data:
         usage_error(command, f"--batch-size {args.batch_size} (the global "
                              f"batch) does not split over --data-parallel {data}")
-    if (command == "train-quantized" and model > 1
-            and args.save_checkpoint_dir):
-        usage_error(command, "checkpoints of a tensor-parallel QAT state "
-                             "(its optimizer state is sharded) are not ported "
-                             "yet; train with --model-parallel 1 to save one")
     if world == 1:
         return None
     initialize(device=args.device)
@@ -469,7 +495,7 @@ def validate_quantized(args) -> dict:
     from fp8_quantization_tpu_torch.data.imagenet import make_dataloaders
     from fp8_quantization_tpu_torch.device import resolve_device
     from fp8_quantization_tpu_torch.parallel import (
-        calibrate_sharded, collectives, gather_weights, multihost)
+        calibrate_sharded, collectives, multihost)
     from fp8_quantization_tpu_torch.utils.checkpoint import (
         restore_checkpoint, save_checkpoint)
 
@@ -503,8 +529,7 @@ def validate_quantized(args) -> dict:
                   quant_w=args.weight_quant, quant_a=args.act_quant)
         log.info("calibration done (%d batches)", args.num_est_batches)
     if args.save_checkpoint_dir:
-        with gather_weights(mesh, model):
-            save_checkpoint(args.save_checkpoint_dir, model)
+        save_checkpoint(args.save_checkpoint_dir, model)
         log.info("calibrated state saved to %s", args.save_checkpoint_dir)
     with collectives.reducing_over(mesh and mesh.data_group):
         if args.reestimate_bn_stats:
@@ -648,10 +673,116 @@ def train_quantized(args) -> dict:
     return val_metrics
 
 
+def _scan_real_assets() -> dict:
+    """Mounted ImageNet trees and pretrained torch checkpoints (JAX
+    ``_scan_real_assets``, the same roots): the standard mount points plus
+    ``$IMAGENET_DIR`` / ``$MODEL_DIR``, scanned shallowly.  Returns
+    ``{"imagenet_root": path or None, "checkpoints": {arch: path},
+    "scanned": [paths]}``, ``arch`` a short name (``resnet18``,
+    ``resnet50``, ``mobilenet_v2``, ``vit_small``)."""
+    from pathlib import Path
+
+    data_roots = [os.environ.get("IMAGENET_DIR"), "/data", "/datasets",
+                  "/mnt/data", "/mnt/imagenet", "/mnt/disks",
+                  "/root/data", "/srv/datasets",
+                  str(Path.home() / "imagenet")]
+    ckpt_roots = [os.environ.get("MODEL_DIR"), "/models", "/checkpoints",
+                  "/root/models", "/root/checkpoints", "/data/models",
+                  str(Path.home() / ".cache/torch/hub/checkpoints")]
+
+    def looks_imagenet(d: Path) -> bool:
+        # ImageFolder layout: val/ (or the root itself) holding many class
+        # dirs, WordNet ids (n01440764) or at least 100 of them
+        for cand in (d / "val", d / "validation", d):
+            try:
+                subs = [p.name for p in list(cand.iterdir())[:1200]
+                        if p.is_dir()]
+            except OSError:
+                continue
+            wn = sum(1 for s in subs if s.startswith(("n0", "n1")))
+            if wn >= 50 or len(subs) >= 100:
+                return True
+        return False
+
+    imagenet_root, scanned = None, []
+    for root in filter(None, data_roots):
+        d = Path(root)
+        scanned.append(str(d))
+        if not d.is_dir():
+            continue
+        for c in [d] + [p for p in d.iterdir() if p.is_dir()][:32]:
+            if looks_imagenet(c):
+                imagenet_root = str(c)
+                break
+        if imagenet_root:
+            break
+
+    checkpoints = {}
+    arch_keys = {"resnet18": "resnet18", "resnet50": "resnet50",
+                 "mobilenet": "mobilenet_v2", "mobilenetv2": "mobilenet_v2",
+                 "vit": "vit_small", "deit": "vit_small"}
+    for root in filter(None, ckpt_roots):
+        d = Path(root)
+        scanned.append(str(d))
+        if not d.is_dir():
+            continue
+        files = [p for p in d.rglob("*")
+                 if p.suffix in (".pth", ".pt", ".tar") and p.is_file()]
+        for f in files[:200]:
+            name = f.name.lower()
+            for key, arch in arch_keys.items():
+                if key in name and arch not in checkpoints:
+                    checkpoints[arch] = str(f)
+    return {"imagenet_root": imagenet_root, "checkpoints": checkpoints,
+            "scanned": scanned}
+
+
+def preflight(args) -> None:
+    """One-command readiness check of the real-data PTQ path (JAX
+    ``preflight``): scan for mounted ImageNet trees and checkpoints, print
+    the report of what a real run would execute (and write it to
+    ``--report-out``), then, unless ``--scan-only``, run the dress
+    rehearsal (``python -m fp8_quantization_tpu_torch.tools.
+    dress_rehearsal``) and exit with its status.  Without real assets it
+    runs on synthetic checkpoints and JPEGs (chance top-1: the path is
+    what passes)."""
+    import subprocess
+    import sys
+
+    from fp8_quantization_tpu_torch.tools.dress_rehearsal import cli_env
+
+    scan = _scan_real_assets()
+    images_dir = args.images_dir or scan["imagenet_root"]
+    model_dirs = args.model_dirs
+    if not model_dirs and scan["checkpoints"]:
+        model_dirs = ",".join(f"{a}={p}" for a, p in scan["checkpoints"].items())
+    cmd = [sys.executable, "-m", "fp8_quantization_tpu_torch.tools.dress_rehearsal",
+           "--archs", args.archs, "--batch-size", str(args.batch_size),
+           "--images", str(args.images)]
+    for flag, value in (("--workdir", args.workdir), ("--images-dir", images_dir),
+                        ("--model-dirs", model_dirs), ("--device", args.device),
+                        ("--max-eval-batches", args.max_eval_batches)):
+        if value:
+            cmd += [flag, str(value)]
+    report = {"scan": scan, "resolved_images_dir": images_dir,
+              "resolved_model_dirs": model_dirs,
+              "mode": ("REAL assets" if images_dir or model_dirs
+                       else "synthetic (no real assets found)"),
+              "command": " ".join(cmd)}
+    print(json.dumps(report, indent=2))
+    if args.report_out:
+        with open(args.report_out, "w") as f:
+            json.dump(report, f, indent=2)
+    if not args.scan_only:
+        raise SystemExit(subprocess.call(cmd, env=cli_env()))
+
+
 def main(argv=None) -> None:
     from fp8_quantization_tpu_torch.parallel import multihost
     logging.basicConfig(level=os.environ.get("LOGLEVEL", "INFO"))
     args = build_parser().parse_args(argv)
+    if args.command == "preflight":
+        return preflight(args)
     if args.command == "validate-quantized":
         metrics = validate_quantized(args)
     else:

@@ -215,6 +215,30 @@ def tp_axis(module: nn.Module, tensor: Optional[torch.Tensor],
     return axis
 
 
+def _gather_along(mesh: Mesh, slices) -> List[torch.Tensor]:
+    """The full tensors of ``slices`` ((this rank's slice, axis) pairs):
+    every rank's slices concatenated along their axes in model-index
+    order, one all-gather per dtype over the model group (bool travels as
+    uint8)."""
+    by_dtype = {}
+    for i, (t, _) in enumerate(slices):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    fulls = [None] * len(slices)
+    for dtype, idx in by_dtype.items():
+        wire = torch.uint8 if dtype == torch.bool else dtype
+        flat = torch.cat([slices[i][0].reshape(-1).to(wire) for i in idx])
+        parts = [torch.empty_like(flat) for _ in range(mesh.model)]
+        dist.all_gather(parts, flat, group=mesh.model_group)
+        offset = 0
+        for i in idx:
+            t, axis = slices[i]
+            n = t.numel()
+            fulls[i] = torch.cat([p[offset:offset + n].view(t.shape)
+                                  for p in parts], dim=axis).to(dtype)
+            offset += n
+    return fulls
+
+
 @dataclasses.dataclass
 class _Shards:
     """A sharded model's record: (module, name, axis) of each sharded
@@ -245,24 +269,11 @@ class _Shards:
             mod._buffers[name] = value
 
     def gather(self) -> None:
-        """Replace every slice by the full tensor, one all-gather per dtype
-        over the model group."""
-        by_dtype = {}
-        for entry in self._tensors():
-            by_dtype.setdefault(entry[4].dtype, []).append(entry)
-        group, size = self.mesh.model_group, self.mesh.model
-        for dtype, entries in by_dtype.items():
-            wire = torch.uint8 if dtype == torch.bool else dtype
-            flat = torch.cat([t.reshape(-1).to(wire) for *_, t in entries])
-            parts = [torch.empty_like(flat) for _ in range(size)]
-            dist.all_gather(parts, flat, group=group)
-            offset = 0
-            for mod, name, axis, kind, t in entries:
-                n = t.numel()
-                full = torch.cat([p[offset:offset + n].view(t.shape)
-                                  for p in parts], dim=axis).to(dtype)
-                self._set(mod, name, kind, full)
-                offset += n
+        """Replace every slice by the full tensor (``_gather_along``)."""
+        entries = list(self._tensors())
+        fulls = _gather_along(self.mesh, [(t, axis) for _, _, axis, _, t in entries])
+        for (mod, name, _, kind, _), full in zip(entries, fulls):
+            self._set(mod, name, kind, full)
 
     def slice(self) -> None:
         """Keep this rank's slice of every recorded tensor."""
@@ -426,16 +437,88 @@ def shard_qat_state(mesh: Mesh, state, tensor_parallel: bool = False):
         tensors += list(state.osc_state[layer].values())
     replicated(mesh)(tensors)
     if tensor_parallel:
-        shapes = {id(p): p.shape for p in state.model.parameters()}
         shard_variables(mesh, state.model)
-        i, size = mesh.model_index, mesh.model
-        for mod, name, axis in state.model._fp8tpu_shards.entries:
-            p = mod._parameters.get(name)
-            for opt in (optimizers if p is not None else ()):
-                st = opt.state.get(p, {})
-                for k, v in st.items():
-                    if isinstance(v, torch.Tensor) and v.shape == shapes[id(p)]:
-                        n = v.shape[axis] // size
-                        st[k] = v.narrow(axis, i * n, n).clone()
+        slice_optimizer_state(state.model, optimizers)
     state.mesh = mesh
     return state
+
+
+def _sharded(model: nn.Module) -> Optional[_Shards]:
+    shards = getattr(model, "_fp8tpu_shards", None)
+    return shards if shards is not None and shards.entries else None
+
+
+def _moments(shards: _Shards, optimizers, full: bool):
+    """(optimizer state dict of a parameter, key, axis) of every moment of
+    a sharded parameter that is whole (``full``) or this rank's slice: the
+    tensors of the parameter's shape, whole or sliced along its axis.
+    Scalars (Adam's ``step``) are neither."""
+    for mod, name, axis in shards.entries:
+        p = mod._parameters.get(name)
+        if p is None:
+            continue
+        shape = list(p.shape)
+        if shards.depth and not full:       # the model holds its full tensors
+            shape[axis] //= shards.mesh.model
+        elif not shards.depth and full:
+            shape[axis] *= shards.mesh.model
+        for opt in optimizers:
+            st = opt.state.get(p, {})
+            for k, v in st.items():
+                if isinstance(v, torch.Tensor) and list(v.shape) == shape:
+                    yield st, k, axis
+
+
+def slice_optimizer_state(model: nn.Module, optimizers) -> None:
+    """Keep this rank's slice of each whole moment of a sharded parameter
+    (in place; what ``shard_qat_state`` does, and a restore of a whole
+    state after it)."""
+    shards = _sharded(model)
+    if shards is None:
+        return
+    i, size = shards.mesh.model_index, shards.mesh.model
+    for st, k, axis in list(_moments(shards, optimizers, full=True)):
+        n = st[k].shape[axis] // size
+        st[k] = st[k].narrow(axis, i * n, n).clone()
+
+
+def full_optimizer_state_dicts(model: nn.Module, optimizers) -> list:
+    """Each optimizer's ``state_dict`` with the moments of every sharded
+    parameter gathered over the model group, as one process holds them
+    (every rank of the group must call it); the optimizers keep their
+    slices."""
+    shards = _sharded(model)
+    if shards is None:
+        return [opt.state_dict() for opt in optimizers]
+    moments = list(_moments(shards, optimizers, full=False))
+    fulls = _gather_along(shards.mesh, [(st[k], axis) for st, k, axis in moments])
+    kept = [st[k] for st, k, _ in moments]
+    for (st, k, _), full in zip(moments, fulls):
+        st[k] = full
+    try:
+        dicts = [opt.state_dict() for opt in optimizers]
+        # state_dict() shares each parameter's state dict with the optimizer
+        for d in dicts:
+            d["state"] = {i: dict(s) for i, s in d["state"].items()}
+    finally:
+        for (st, k, _), t in zip(moments, kept):
+            st[k] = t
+    return dicts
+
+
+def local_state_dict(model: nn.Module, state: dict) -> dict:
+    """``state`` (a whole model's ``state_dict``) as ``model`` holds it:
+    this rank's slice of each sharded tensor where the model holds its
+    slices, the whole state where it is not sharded or holds its full
+    tensors."""
+    shards = _sharded(model)
+    if shards is None or shards.depth:
+        return state
+    names = {id(m): n for n, m in model.named_modules()}
+    i, size = shards.mesh.model_index, shards.mesh.model
+    local = dict(state)
+    for mod, name, axis in shards.entries:
+        key = f"{names[id(mod)]}.{name}" if names[id(mod)] else name
+        n = local[key].shape[axis] // size
+        local[key] = local[key].narrow(axis, i * n, n).clone()
+    return local

@@ -31,6 +31,18 @@ Mirrors ``fp8_quantization_tpu/training/qat.py``:
   Stochastic rounding and dropout draw from generators seeded from the
   step (17 and 23 with the step, as JAX folds the step into those keys),
   never from the global random state.
+* ``remat=True`` (JAX ``make_train_step(remat=True)``, which wraps the
+  forward in ``jax.checkpoint``) runs the forward under
+  ``torch.utils.checkpoint`` (non-reentrant): its activations are
+  recomputed in the backward instead of stored.  JAX recomputes a pure
+  function; here the forward has side effects, so the checkpointed
+  forward seeds the step's generators itself (the recompute draws the
+  first pass's noise: torch's ``preserve_rng_state`` covers only the
+  default generators), and a recompute starts from the buffers the first
+  pass started from (BN's running statistics, ``calibrate_train``'s
+  ranges and estimator state) and leaves them as the first pass did, so
+  each update happens once a step and the step equals the plain one bit
+  for bit.
 * Data-parallel training (parallel/api.shard_qat_state sets the state's
   ``mesh``): each rank steps on its rows of the global batch; BN's
   batch statistics are taken over the data group (nn/layers.py), and the
@@ -64,6 +76,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 from torch import nn
 
 from fp8_quantization_tpu_torch.nn.config import LayerQuantConfig
@@ -260,10 +273,49 @@ def _step_optimizer(opt: torch.optim.Optimizer, tx: OptimizerSpec,
     opt.step()
 
 
+def _buffers(model: nn.Module) -> Dict[str, torch.Tensor]:
+    return {k: b for k, b in model.named_buffers() if b is not None}
+
+
+def checkpointed_forward(model: nn.Module, step: int, x: torch.Tensor,
+                         **kw) -> torch.Tensor:
+    """``model(x, **kw)`` under ``torch.utils.checkpoint``, with the step's
+    generators seeded inside, and a recompute run from the buffers the
+    first pass started from and leaving the buffers the first pass left
+    (see the module docstring)."""
+    before = []
+
+    def forward(x):
+        recompute = bool(before)
+        if recompute:
+            after = {k: b.clone() for k, b in _buffers(model).items()}
+            _load_buffers(model, before[0])
+        else:
+            before.append({k: b.clone() for k, b in _buffers(model).items()})
+        try:
+            set_rng_streams(model, step)
+            return model(x, **kw)
+        finally:
+            # also where the recompute stops early, once it has what the
+            # backward needs
+            if recompute:
+                _load_buffers(model, after)
+
+    return torch.utils.checkpoint.checkpoint(forward, x, use_reentrant=False)
+
+
+@torch.no_grad()
+def _load_buffers(model: nn.Module, values: Dict[str, torch.Tensor]) -> None:
+    for k, b in _buffers(model).items():
+        b.copy_(values[k])
+
+
 def make_train_step(state: QATState, *, mode: str = "learn",
-                    loss_fn: Callable = cross_entropy, train_bn: bool = True):
+                    loss_fn: Callable = cross_entropy, train_bn: bool = True,
+                    remat: bool = False):
     """``step(state, x, y) -> (state, metrics)``: one QAT step in place
-    (see the module docstring for its order)."""
+    (see the module docstring for its order); ``remat`` recomputes the
+    forward's activations in the backward."""
     if mode not in ("learn", "calibrate_train"):
         raise ValueError(f"mode must be 'learn' or 'calibrate_train', not {mode!r}")
 
@@ -294,7 +346,11 @@ def make_train_step(state: QATState, *, mode: str = "learn",
                 lam = _anneal(osc.dampen_weight, osc.dampen_weight_final,
                               state.step, osc.total_steps, osc.dampen_anneal_start)
                 damp = lam.to(dev) * dampening_loss(model, state.weight_spec)
-            logits = model(x, mode=mode, train_bn=train_bn)
+            if remat:
+                logits = checkpointed_forward(model, state.step, x, mode=mode,
+                                              train_bn=train_bn)
+            else:
+                logits = model(x, mode=mode, train_bn=train_bn)
             loss = loss_fn(logits, y)
             if damp is not None:
                 loss = loss + damp

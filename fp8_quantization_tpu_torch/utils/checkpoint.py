@@ -32,7 +32,16 @@ A restored model goes through the bake, the prepare pass and the kernel
 gate again, as a freshly calibrated one does.
 
 Under torch.distributed (parallel/) rank 0 alone writes, the other ranks
-wait at a barrier until the file is there, and every rank restores.
+wait at a barrier until the file is there, and every rank restores.  A
+tensor-parallel model or QAT state (``parallel/api.shard_variables``,
+``shard_qat_state``) is saved whole, as orbax saves JAX's global arrays:
+every rank of a model group takes part in the all-gather of the sharded
+tensors, and of the optimizers' moments of the sharded parameters (along
+the same axis; scalars such as Adam's ``step`` are whole already), so the
+file has the format and keys of an unsharded save.  A restore loads the
+whole file in every rank and keeps each rank's slice, which is the state
+``shard_qat_state`` would have built from the whole one; so one process
+restores what tensor-parallel ranks saved, and the other way round.
 """
 
 from __future__ import annotations
@@ -45,6 +54,9 @@ import torch
 from torch import nn
 
 from fp8_quantization_tpu_torch.parallel import multihost
+from fp8_quantization_tpu_torch.parallel.api import (
+    full_optimizer_state_dicts, gather_weights, local_state_dict,
+    slice_optimizer_state)
 
 STATE_FILE = "state.pt"
 
@@ -70,12 +82,14 @@ def _state(target: Any) -> dict:
             "bake_int8_weights and the prepare pass (their buffers do not "
             "load into a fresh model), as the JAX package saves its "
             "calibrated variables before it bakes")
-    state = {"model": model.state_dict()}
+    with gather_weights(None, model):
+        state = {"model": model.state_dict()}
     if not isinstance(target, nn.Module):
         qopt = target.quant_optimizer
+        opt, *qopt_state = full_optimizer_state_dicts(
+            model, [target.optimizer] + ([qopt] if qopt is not None else []))
         state.update(
-            optimizer=target.optimizer.state_dict(),
-            quant_optimizer=None if qopt is None else qopt.state_dict(),
+            optimizer=opt, quant_optimizer=qopt_state[0] if qopt_state else None,
             step=int(target.step), osc_state=target.osc_state)
     return state
 
@@ -119,7 +133,7 @@ def restore_checkpoint(ckpt_dir: str, target: Any,
         raise FileNotFoundError(f"no checkpoint {path}")
     state = torch.load(path, map_location="cpu", weights_only=True)
     model = _model(target)
-    model.load_state_dict(state["model"])
+    model.load_state_dict(local_state_dict(model, state["model"]))
     if isinstance(target, nn.Module):
         return target
     if "optimizer" not in state:
@@ -130,6 +144,9 @@ def restore_checkpoint(ckpt_dir: str, target: Any,
                          "the target's")
     if target.quant_optimizer is not None:
         target.quant_optimizer.load_state_dict(state["quant_optimizer"])
+    slice_optimizer_state(model, [o for o in (target.optimizer,
+                                              target.quant_optimizer)
+                                  if o is not None])
     target.step = state["step"]
     device = next(model.parameters()).device
     target.osc_state = (None if state["osc_state"] is None else {

@@ -658,8 +658,7 @@ def test_cli_parallel_usage_errors(monkeypatch, capsys):
     for argv, env, msg in (
             (base + ["--data-parallel", "2"], "1", "!= 1 ranks"),
             (base + ["--data-parallel", "4"], "4", "does not split"),
-            (["train-quantized", "--device", "cpu", "--model-parallel", "2",
-              "--save-checkpoint-dir", "ck"], "2", "tensor-parallel QAT")):
+            (base + ["--model-parallel", "0"], "1", "must be >= 1")):
         monkeypatch.setenv("WORLD_SIZE", env)
         args = image_net.build_parser().parse_args(argv)
         with pytest.raises(SystemExit) as e:
