@@ -183,20 +183,28 @@ the script exits 1 without the final result line):
                 line's qmatmul row stays ResNet-18's forward).
    vit_int8_slice - ViT-S/16 on the int8 datapath (VIT_INT8_CLI_ARGS:
                 bench.py's INT8 row's quantizers without its TPU flags)
-                through validate-quantized: exactly 37 qmatmul_int8
-                launches per forward, every one through its s8 input
-                branch (the operand made by its producer, PrequantS8), and
-                12 flash_mha on the unpadded 197-token stream; fused against
-                bf16 from the run's calibrated, int8-baked state, chaotic
-                (unquantized logits, flash's bf16 operands): the rms gap at
-                most twice bf16's one-ulp floor, input share > 0.01; the s8
-                branch against its plain version at its four shapes (qkv,
-                proj, mlp2: 12 uses; the head: 1), as phase 3, timed as
-                phase 6 (library_ms: torch._int_mm on the s8 operands),
-                its sums per forward the kernels line's qmatmul_int8_s8
-                row; the attention call against flash_mha_plain as in
-                vit_check; vit_int8_throughput: fused against bf16 at
-                batch 64 as phase 6.
+                through validate-quantized: exactly 49 qmatmul_int8
+                launches per forward, every one on an s8 input (the
+                operand made by its producer, PrequantS8), 48 of them on
+                the Hopper s8 kernel (qkv, proj, mlp2 and mlp1, whose gelu
+                and s8 emission run in its epilogue) and the head on the
+                older s8 branch, and 12 flash_mha on the unpadded 197-token
+                stream; fused against bf16 from the run's calibrated,
+                int8-baked state, chaotic (unquantized logits, flash's bf16
+                operands): the rms gap at most twice bf16's one-ulp floor,
+                input share > 0.01; each s8 call against its plain version
+                at its five shapes (qkv, proj, mlp1, mlp2: 12 uses; the
+                head: 1) as phase 3 (mlp1's emitted s8 values >= 99% exact,
+                all within one step), timed as phase 6 (library_ms:
+                torch._int_mm on the s8 operands; for mlp1 also the
+                composed ops/int8 route it replaced), their sums per
+                forward the kernels line's qmatmul_int8_sm90 and
+                qmatmul_int8_s8 rows; the Hopper kernel at four edges of
+                its tiling (S8_SM90_EDGES); the attention call against
+                flash_mha_plain as in vit_check; the prepared forward
+                under torch.profiler as phase 7 (one line);
+                vit_int8_throughput: fused against bf16 at batch 64 as
+                phase 6.
    mnv2_int8_qi_slice - MobileNetV2 on the int8 datapath (the CLI's
                 default bn mode, fp32_after): exactly 35 qmatmul_int8
                 launches per forward (float32 x) and no other kernel (no
@@ -461,9 +469,10 @@ of phases 4, 5, 8, 9 (vit_int8_slice and mnv2_int8_qi_slice included), 10,
 12, 13, 15, 19, 20 (outside the races), 21 and 24,
 the artifact forwards of phase 22 and the ranks' runs of phase 23; times: the FP8 forwards of
 phases 6, 8 and 9; max_abs_err over every check, phase 19's replays
-included; after qmatmul_int8 its s8 input branch, qmatmul_int8_s8: the
-launches of vit_int8_slice's main path, its times and bound per ViT-S
-INT8 forward), the nvidia-smi name/power-limit line, and last
+included; after qmatmul_int8 its s8 inputs, qmatmul_int8_sm90 (the
+Hopper s8 kernel, csrc/qmatmul_s8_sm90.cu) and qmatmul_int8_s8 (the older
+s8 branch): the launches of vit_int8_slice's main path, their times and
+bounds per ViT-S INT8 forward), the nvidia-smi name/power-limit line, and last
 {"ok": true, "device": {...}}.  The plain versions run with TF32 off.
 """
 
@@ -1473,7 +1482,7 @@ def run_main_path(cli, per_forward, unbaked=None, info=None):
     the forwards, the seconds of calibrate and the format search, the FP8
     formats' histograms after calibrate and as deployed, the calibrated
     state the CLI baked, the calls of ops/int8.int8_conv and qmatmul_int8's
-    launches on its s8 input branch."""
+    launches on an s8 input and, of these, on its Hopper s8 kernel."""
     import torch
     from fp8_quantization_tpu_torch.cli import image_net
     from fp8_quantization_tpu_torch.ops import kernels
@@ -1490,7 +1499,8 @@ def run_main_path(cli, per_forward, unbaked=None, info=None):
         info.update(forwards={"baked": fw.baked, "unbaked": fw.unbaked},
                     **fw.seconds, mbits_voted=fw.voted,
                     mbits_deployed=mbits_histogram(fw.model), int8_convs=fw.int8_convs,
-                    s8_launches=qmatmul_int8.fused_quant_matmul_int8.s8_launches)
+                    s8_launches=qmatmul_int8.fused_quant_matmul_int8.s8_launches,
+                    sm90_launches=qmatmul_int8.fused_quant_matmul_int8.sm90_launches)
         info["calibrated"] = fw.calibrated
     return (metrics, counts, expected_launches(per_forward, fw.baked, unbaked,
                                                fw.unbaked), ok, mbits_of(fw.model))
@@ -1861,8 +1871,9 @@ MNV2_LAUNCHES = {"fp32_after": {"qblock": 17, "qmatmul": 2},
                  "folded": {"qdwconv3x3": 17, "qmatmul": 35}}
 
 
-# the launch counts a wrapper keeps (qmatmul_int8's s8 input branch its own)
-COUNTS = ("launches", "s8_launches")
+# the launch counts a wrapper keeps (qmatmul_int8's s8 inputs and, of
+# these, its Hopper s8 kernel's their own)
+COUNTS = ("launches", "s8_launches", "sm90_launches")
 
 
 class Capture:
@@ -2403,12 +2414,14 @@ def int8_qi_cli_args(arch):
 
 
 VIT_INT8_CLI_ARGS = int8_qi_cli_args("vit_small_quantized")
-# launches per ViT-S INT8 forward: qkv, proj and mlp2 of the 12 blocks and
-# the head on qmatmul_int8's s8 input branch (every one of them, S8_LAUNCHES;
-# mlp1's gelu and its s8 epilogue stay ops/int8), one flash_mha a block on
-# the unpadded 197-token stream
-VIT_INT8_LAUNCHES = {"flash_mha": 12, "qmatmul_int8": 37}
-VIT_INT8_S8_LAUNCHES = 37
+# launches per ViT-S INT8 forward: qkv, proj, mlp1 and mlp2 of the 12 blocks
+# on qmatmul_int8's Hopper s8 kernel (SM90_LAUNCHES; mlp1 with gelu and its
+# s8 emission in the epilogue), the head (M = batch) on its older s8 branch,
+# all 49 on an s8 input (S8_LAUNCHES); one flash_mha a block on the
+# unpadded 197-token stream
+VIT_INT8_LAUNCHES = {"flash_mha": 12, "qmatmul_int8": 49}
+VIT_INT8_S8_LAUNCHES = 49
+VIT_INT8_SM90_LAUNCHES = 48
 MNV2_INT8_QI_CLI_ARGS = int8_qi_cli_args("mobilenet_v2_quantized")
 # launches per MobileNetV2 INT8 forward (the CLI's default bn mode,
 # fp32_after): 16 expand + 17 project 1x1s, the head and the classifier on
@@ -2418,65 +2431,151 @@ MNV2_INT8_QI_LAUNCHES = {"qmatmul_int8": 35}
 MNV2_INT8_CONVS = 18
 
 
-def s8_branch_check(results, recorded, s8_launches):
-    """qmatmul_int8's s8 input branch against its plain version at the
-    shapes of the first ViT INT8 forward (qkv, proj, mlp2: 12 uses each; the
-    head: 1), timed (kernel, plain, torch._int_mm on the s8 operands) and
-    bounded (int8 peak); their sums per forward are the kernels line's row
-    ``qmatmul_int8_s8``."""
+# (M, K, N, label, signed, input bits, activation, output) of Hopper s8
+# kernel calls (csrc/qmatmul_s8_sm90.cu) at the edges of its tiling that the
+# ViT does not reach: M one row past a 128-row tile, K not a multiple of its
+# 128-byte chunk and K = 16, N ragged against the tile width and not a
+# multiple of 4 (stores one by one), unsigned weights (the row sums), a
+# 4-bit input grid, relu6, bfloat16 out, and gelu with s8 out on a 6-bit grid
+S8_SM90_EDGES = [(129, 400, 257, "edge ragged", True, 8, None, "float32"),
+                 (1000, 80, 200, "edge unsigned relu6", False, 8, "relu6", "float32"),
+                 (700, 16, 1000, "edge K 16 4-bit x", True, 4, None, "bfloat16"),
+                 (1000, 1024, 1000, "edge unsigned gelu", False, 8, "gelu", "s8")]
+S8_EMIT = (0.02, 40.0, 6)          # the edges' emission grid: delta, zero, bits
+
+
+def s8_emit_check(out, ref):
+    """(ok, largest step, exact share) of emitted s8 values: >= 99% exact,
+    all within one grid step (gelu's erfcf against torch's erfc)."""
+    import torch
+    d = (out.to(torch.int32) - ref.to(torch.int32)).abs()
+    exact = float((d == 0).float().mean())
+    return bool(d.max() <= 1) and exact >= 0.99, int(d.max()), exact
+
+
+def s8_edge_check():
+    """The Hopper s8 kernel at S8_SM90_EDGES against its plain version
+    (untimed; not launches of the main path)."""
     import torch
     from fp8_quantization_tpu_torch.ops.kernels import qmatmul_int8 as qm
-    ok_all = sorted(u for _, _, u in recorded) == [1, 12, 12, 12]
-    agg = results.setdefault("qmatmul_int8_s8", dict(
-        max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
-        bytes=0, flops=0, peak=INT8_OPS_PER_S))
-    agg["launches"] = s8_launches
+    inp = Inputs()
+    fn, ok_all = qm.fused_quant_matmul_int8, True
+    for m, k, n, label, signed, a_bits, act, out_kind in S8_SM90_EDGES:
+        x = inp.randn(m, k)
+        args, x_s8, _, _ = int8_operands(inp, x, inp.randn(n, k, scale=0.05), signed,
+                                         True, a_bits)
+        args = (x_s8,) + args[1:]
+        emit_grid = torch.tensor(S8_EMIT[:2], device="cuda") if out_kind == "s8" else None
+        cfg = qm.Int8MatmulConfig(activation=act, act_n_bits=a_bits,
+                                  out_bf16=out_kind == "bfloat16",
+                                  emit_bits=S8_EMIT[2] if out_kind == "s8" else None)
+        before = fn.sm90_launches
+        out = fn(*args, cfg=cfg, e_scalars=emit_grid)
+        torch.cuda.synchronize()
+        ran = fn.sm90_launches - before
+        ref = qm.qmatmul_int8_plain(*args, cfg, emit_grid)
+        if out_kind == "s8":
+            ok, err, exact = s8_emit_check(out, ref)
+        elif out_kind == "bfloat16":     # the same float32 values, rounded once
+            ok, err, exact = int8_check(out.float(), ref.float())
+        else:
+            ok, err, exact = int8_check(out, ref)
+        ok &= ran == 1 and out.dtype == ref.dtype
+        emit({"phase": "vit_int8_slice", "case": f"qmatmul_int8 sm90 {m}x{k}x{n} {label}",
+              "ok": ok, "tile_n": qm.s8_tile(m, n), "out": out_kind, "max_abs_err": err,
+              "exact": exact})
+        ok_all &= ok
+    return ok_all
+
+
+def s8_branch_check(results, recorded, s8_launches, sm90_launches):
+    """qmatmul_int8 on its s8 inputs against its plain version at the
+    shapes of the first ViT INT8 forward: qkv, proj, mlp1 (gelu, s8 out)
+    and mlp2 (12 uses each) on the Hopper s8 kernel, the head (1) on the
+    older s8 branch; timed (kernel, plain, torch._int_mm on the s8
+    operands; for mlp1 also ops/int8's composed route, which it replaces)
+    and bounded (int8 peak); their sums per forward are the kernels line's
+    rows ``qmatmul_int8_sm90`` and ``qmatmul_int8_s8``.  Then the Hopper
+    kernel at the edges of its tiling (s8_edge_check)."""
+    import torch
+    from fp8_quantization_tpu_torch.nn.activations import get_activation
+    from fp8_quantization_tpu_torch.ops import int8 as i8
+    from fp8_quantization_tpu_torch.ops.kernels import qmatmul_int8 as qm
+    fn = qm.fused_quant_matmul_int8
+    ok_all = sorted(u for _, _, u in recorded) == [1, 12, 12, 12, 12]
+    aggs = {}
+    for key, launches in (("qmatmul_int8_sm90", sm90_launches),
+                          ("qmatmul_int8_s8", s8_launches - sm90_launches)):
+        aggs[key] = results.setdefault(key, dict(
+            max_abs_err=0.0, ms=0.0, plain_ms=0.0, bound_ms=0.0, library_ms=0.0,
+            bytes=0, flops=0, peak=INT8_OPS_PER_S))
+        aggs[key]["launches"] = launches
     for args, kw, uses in recorded:
         x, w = args[0], args[1]
         (m, k), n = x.shape, w.shape[0]
-        cfg = kw["cfg"]
-        out = qm.fused_quant_matmul_int8(*args, **kw)
+        cfg, grid = kw["cfg"], kw.get("e_scalars")
+        sm90 = qm.sm90_takes(m, k)
+        before = fn.sm90_launches
+        out = fn(*args, **kw)
         torch.cuda.synchronize()
-        ref = qm.qmatmul_int8_plain(*args, cfg)
-        ok, err, exact = int8_check(out, ref)
-        ok &= x.dtype == torch.int8 and w.dtype == torch.int8
-        ms = kernel_ms(lambda: qm.fused_quant_matmul_int8(*args, **kw))
-        pms = kernel_ms(lambda: qm.qmatmul_int8_plain(*args, cfg), iters=3)
+        ran_sm90 = fn.sm90_launches - before == 1
+        ref = qm.qmatmul_int8_plain(*args, cfg, grid)
+        ok, err, exact = (s8_emit_check if grid is not None else int8_check)(out, ref)
+        ok &= x.dtype == torch.int8 and w.dtype == torch.int8 and ran_sm90 == sm90
+        ms = kernel_ms(lambda: fn(*args, **kw))
+        pms = kernel_ms(lambda: qm.qmatmul_int8_plain(*args, cfg, grid), iters=3)
         w_t = w.t()
         lms = kernel_ms(lambda: torch._int_mm(x, w_t))
-        nbytes = m * k + n * k + m * n * 4 + 12 * n
+        nbytes = m * k + n * k + m * n * out.element_size() + 12 * n
         ops = 2 * m * n * k
         bms = bound_ms(nbytes, ops, INT8_OPS_PER_S)
-        emit({"phase": "vit_int8_slice", "case": f"qmatmul_int8 s8 {m}x{k}x{n}", "ok": ok,
-              "max_abs_err": err, "exact": exact, "ms": ms, "plain_ms": pms,
-              "library_ms": lms, "bound_ms": bms,
-              "bound_by": bound_by(nbytes, ops, INT8_OPS_PER_S), "uses_per_forward": uses})
+        line = {"phase": "vit_int8_slice", "case": f"qmatmul_int8 s8 {m}x{k}x{n}", "ok": ok,
+                "kernel": "sm90" if ran_sm90 else "s8 branch", "out": str(out.dtype),
+                "max_abs_err": err, "exact": exact, "ms": ms, "plain_ms": pms,
+                "library_ms": lms, "bound_ms": bms,
+                "bound_by": bound_by(nbytes, ops, INT8_OPS_PER_S), "uses_per_forward": uses}
+        if grid is not None:      # the composed route this call replaces
+            w_delta, w_scalars, a_scalars, scale, shift = args[2:7]
+            line["composed_ms"] = kernel_ms(lambda: i8.int8_matmul(
+                x, w, w_delta, w_scalars[1], a_scalars[0], a_scalars[1], cfg.act_n_bits,
+                scale=scale, shift=shift, act_fn=get_activation(cfg.activation),
+                x_prequant=True, emit_s8=(grid[0], grid[1], cfg.emit_bits)), iters=5)
+            line["tile_n"] = qm.s8_tile(m, n)
+        elif sm90:
+            line["tile_n"] = qm.s8_tile(m, n)
+        emit(line)
         ok_all &= ok
+        agg = aggs["qmatmul_int8_sm90" if sm90 else "qmatmul_int8_s8"]
         agg["max_abs_err"] = max(agg["max_abs_err"], err)
         for key, v in (("ms", ms), ("plain_ms", pms), ("library_ms", lms), ("bound_ms", bms),
                        ("bytes", nbytes), ("flops", ops)):
             agg[key] += uses * v
-    return ok_all
+    return s8_edge_check() and ok_all
 
 
 def phase_vit_int8_slice(results):
-    """ViT-S/16 on the int8 datapath through the CLI's entry point: 37
-    qmatmul_int8 launches a forward, every one through the s8 input branch,
-    and 12 flash_mha.  Then fused against bf16 on one calibrated, int8-baked
+    """ViT-S/16 on the int8 datapath through the CLI's entry point: 49
+    qmatmul_int8 launches a forward, every one on an s8 input, 48 of them
+    on the Hopper s8 kernel (mlp1 with gelu and s8 out among them), and 12
+    flash_mha.  Then fused against bf16 on one calibrated, int8-baked
     state: the logits are not quantized and chaotic (each layer quantizes
     its input, and flash's bf16 operands differ from bf16's float32
     attention), so, as vit_slice does, fused's gap to bf16 (rms over the
     logits' spread) is held to at most twice the gap that moving every
-    input value by one float32 ulp gives bf16.  The s8 branch against its
-    plain version at each of its shapes (s8_branch_check) and the
-    attention call against flash_mha_plain.  Returns (ok, fused, bf16)."""
+    input value by one float32 ulp gives bf16.  The s8 calls against their
+    plain version at each of their shapes and the Hopper kernel at the
+    edges of its tiling (s8_branch_check), the attention call against
+    flash_mha_plain, and the prepared forward under torch.profiler as
+    phase_profile does (one line).  Returns (ok, fused, bf16)."""
     import torch
     from fp8_quantization_tpu_torch.nn.bake import bake_int8_weights
     from fp8_quantization_tpu_torch.ops.kernels import attention
     info = {}
     metrics, counts, want, metrics_ok, _ = run_main_path(VIT_INT8_CLI_ARGS,
                                                          VIT_INT8_LAUNCHES, info=info)
-    s8, s8_want = info["s8_launches"], VIT_INT8_S8_LAUNCHES * info["forwards"]["baked"]
+    baked = info["forwards"]["baked"]
+    s8, s8_want = info["s8_launches"], VIT_INT8_S8_LAUNCHES * baked
+    sm90, sm90_want = info["sm90_launches"], VIT_INT8_SM90_LAUNCHES * baked
     batches, fused, bf16 = engine_pair(VIT_INT8_CLI_ARGS, info["calibrated"])
     bake_int8_weights(fused)
     bake_int8_weights(bf16)
@@ -2499,7 +2598,8 @@ def phase_vit_int8_slice(results):
     gaps = {"int8": logit_gap(a, b), "int8_floor": logit_gap(t["b_ulp"], b)}
     finite = bool(torch.isfinite(a).all())
     share = [input_share(x) for x in out["a"]]
-    branch_ok = s8_branch_check(results, list(cap.calls.get("qmatmul_int8", {}).values()), s8)
+    branch_ok = s8_branch_check(results, list(cap.calls.get("qmatmul_int8", {}).values()),
+                                s8, sm90)
     flash = list(cap.calls.get("flash_mha", {}).values())
     flash_ok, flash_err = len(flash) == 1 and flash[0][2] == 12, None
     for args, kw, _ in flash:
@@ -2507,11 +2607,14 @@ def phase_vit_int8_slice(results):
         r = attention.flash_mha_plain(*args, **kw)
         ok_f, flash_err, _ = flash_check(o, r, *args, kw["sm_scale"])
         flash_ok &= ok_f and args[0].shape[2] == 197
-    ok = (counts == want and s8 == s8_want and finite and metrics_ok and prep_ok
-          and branch_ok and flash_ok and min(share) > 0.01
+    ok = (counts == want and s8 == s8_want and sm90 == sm90_want and finite and metrics_ok
+          and prep_ok and branch_ok and flash_ok and min(share) > 0.01
           and gaps["int8"] <= 2 * gaps["int8_floor"])
+    phase_profile(fused, "vit_int8_slice", quant_w=True,
+                  kernel_names=("qmatmul_s8_sm90", "qmatmul_int8", "flash_mha"))
     emit({"phase": "vit_int8_slice", "ok": ok, "metrics": metrics, "launches": counts,
           "expected_launches": want, "s8_launches": s8, "expected_s8_launches": s8_want,
+          "sm90_launches": sm90, "expected_sm90_launches": sm90_want,
           **prep_line, "logits_finite": finite, "logit_gaps": gaps,
           "top1_agree_vs_bf16": float((a.argmax(-1) == b.argmax(-1)).float().mean()),
           "top1_agree_bf16_one_ulp": float((t["b_ulp"].argmax(-1) == b.argmax(-1))
@@ -3827,6 +3930,8 @@ def replay_plain(kname, args, kw):
     if kname == "qconv3x3":
         return qconv.qconv3x3_plain(*args[:5], args[5] if len(args) > 5 else None,
                                     kw["cfg"])
+    if kname == "qmatmul_int8":
+        return kernel_table()[kname][1](*args, kw["cfg"], kw.get("e_scalars"))
     return kernel_table()[kname][1](*args, kw["cfg"])
 
 
@@ -3836,6 +3941,8 @@ def replay_check(kname, args, kw, out, ref):
     cfg = kw.get("cfg")
     if kname == "flash_mha":
         return flash_check(out, ref, *args[:3], kw["sm_scale"])
+    if kname == "qmatmul_int8" and kw.get("e_scalars") is not None:
+        return s8_emit_check(out, ref)
     if kname in ("qconv3x3_int8", "qmatmul_int8"):
         return int8_check(out, ref)
     if kname == "qblock":
@@ -6072,16 +6179,18 @@ def main():
                      "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
                      "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
                      "bound_by": by, "library_ms": r.get("library_ms")})
-        if name == "qmatmul_int8":      # row 2p: its s8 input branch
-            r = results.get("qmatmul_int8_s8", {})
-            rows.append({"name": "qmatmul_int8_s8", "route": "cuda",
-                         "source": f"fp8_quantization_tpu_torch/csrc/{source}.cu",
-                         "replaces": mod.REPLACES, "launches": r.get("launches"),
-                         "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
-                         "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
-                         "bound_by": bound_by(r.get("bytes", 0), r.get("flops", 0),
-                                              INT8_OPS_PER_S),
-                         "library_ms": r.get("library_ms")})
+        if name == "qmatmul_int8":      # its s8 inputs: the Hopper kernel, the old branch
+            for row, src in (("qmatmul_int8_sm90", "qmatmul_s8_sm90"),
+                             ("qmatmul_int8_s8", source)):
+                r = results.get(row, {})
+                rows.append({"name": row, "route": "cuda",
+                             "source": f"fp8_quantization_tpu_torch/csrc/{src}.cu",
+                             "replaces": mod.REPLACES, "launches": r.get("launches"),
+                             "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
+                             "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
+                             "bound_by": bound_by(r.get("bytes", 0), r.get("flops", 0),
+                                                  INT8_OPS_PER_S),
+                             "library_ms": r.get("library_ms")})
     emit({"kernels": rows})
     print(smi, flush=True)
     if not ok_all:

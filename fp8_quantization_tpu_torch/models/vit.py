@@ -30,7 +30,9 @@ root, JAX there lines 31-54, 264-266) the token stream is 2-D,
 (B*S_pad, D), and every int8 matmul edge exchanges its operand as a
 ``PrequantS8`` made by its producer (JAX there lines 130-137, 177-192,
 295-301): ln1 -> qkv, the attention output -> proj, ln2 -> mlp1, mlp1
-(ops/int8's epilogue) -> mlp2, the cls rows -> head; each producer reads
+(the epilogue of its int8 matmul: under ``fused`` the Hopper s8 kernel's
+with gelu, ops/kernels/qmatmul_int8.sm90_takes, else ops/int8's) -> mlp2,
+the cls rows -> head; each producer reads
 its consumer's grid with ``QuantLinear.int8_input_grid``.  S is padded to
 a multiple of 16 on ``parity`` and ``bf16`` and not on ``fused`` (JAX
 there lines 267-278), whose attention then never needs the mask; a

@@ -66,12 +66,15 @@ The s8 interchange (``nn/factored.PrequantS8``, JAX there lines 65-80,
 1146-1220, 1275-1281): a ``QuantLinear`` on the int8 datapath takes a
 ``PrequantS8`` input, its operand already on the layer's input grid
 (``int8_input_grid``), through ``ops/int8.int8_matmul(x_prequant=True)``,
-or under ``fused`` the s8 input branch of ``ops/kernels/qmatmul_int8``
-(gate ``int8_matmul_wins`` with ``prequant_x``; a K the branch does not
-take goes composed before the gate); with ``emit_s8`` (the next
-consumer's grid) it returns a ``PrequantS8`` from ops/int8's epilogue, as
-no kernel emits s8; ``QuantLayerNorm(emit_s8=...)`` returns one before
-its own output quant.  The ViT wires them (models/vit.py).
+or under ``fused`` ``ops/kernels/qmatmul_int8`` on an s8 input (gate
+``int8_matmul_wins`` with ``prequant_x``: at M >= 128 and K % 16 == 0,
+``sm90_takes``, its Hopper kernel, else its older s8 branch; a K neither
+takes goes composed before the gate); with ``emit_s8`` (the next
+consumer's grid) it returns a ``PrequantS8``, emitted by the Hopper
+kernel's epilogue after gelu (the ViT's mlp1; gate key ``imse``) where it
+takes the shape and the weights are baked, else by ops/int8's;
+``QuantLayerNorm(emit_s8=...)`` returns one before its own output quant.
+The ViT wires them (models/vit.py).
 
 Folded BN (``config.bn_mode == 'folded'``, JAX ``_bn_folded_kernel``,
 there lines 315-334): the BN scale multiplies the weights per output
@@ -130,9 +133,10 @@ and the ops/int8 route returns bfloat16 with ``int8_assume_signed``
 passed on (there lines 969-970, 1213-1214).  The kernels ignore these
 flags, as the Pallas kernels do: they quantize on the exact grid, read
 bfloat16 and store a bfloat16 norm (the int8 kernels float32), except
-that the int8 matmul's route rounds the kernel's float32 output to
-bfloat16 under ``conv_out_bf16``, as the ops/int8 route it races stores
-it (JAX's pallas engine takes that route there).
+that the int8 matmul's route returns bfloat16 under ``conv_out_bf16``, as
+the ops/int8 route it races stores it (JAX's pallas engine takes that
+route there): the Hopper s8 kernel stores it so, the others' float32
+output is rounded after.
 
 ``QuantConv1d`` and ``QuantConvTranspose`` (JAX there lines 1032-1130)
 take the composed path on every engine, as in JAX, which has no kernel
@@ -162,6 +166,7 @@ from fp8_quantization_tpu_torch.ops import s2d as s2d_ops
 from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
 from fp8_quantization_tpu_torch.ops.kernels import (
     autotune, qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8, qstem)
+from fp8_quantization_tpu_torch.ops.kernels.common import S8_ACTIVATION_CODES
 from fp8_quantization_tpu_torch.ops.quantizer import QMethod
 from fp8_quantization_tpu_torch.ops.uniform import (
     _scale_from_delta, int_sym_consts)
@@ -616,16 +621,22 @@ class QuantizedLayerBase(nn.Module):
                      emit_s8=None):
         """An (M, K) input through the int8 matmul: float32, or with
         ``pre`` (the ``PrequantS8`` it came in, JAX there lines 1182-1216)
-        its int8 operand, whose grid then drives the epilogue.  The kernel
-        under ``fused`` where ``autotune.int8_matmul_wins`` says so (an
-        int8 operand through its s8 input branch where the branch takes
-        its K), ``ops/int8.int8_matmul`` otherwise and under ``emit_s8``
-        (JAX nn/layers.py:857, 1187 takes the s8 composed route unraced
-        outside ``always``; on the H100 the kernel wins there, so the port
-        races it)."""
+        its int8 operand, whose grid then drives the epilogue; with
+        ``emit_s8`` (the next consumer's grid) the result after the
+        activation on that grid, int8.  Under ``fused`` the kernel where
+        ``autotune.int8_matmul_wins`` says so, ``ops/int8.int8_matmul``
+        otherwise (JAX nn/layers.py:857, 1187 takes the s8 composed route
+        unraced outside ``always``; on the H100 the kernel wins there, so
+        the port races it).  The kernel route takes a float32 input (no
+        emission, no gelu), an s8 input with K % 4 == 0 and the same
+        restrictions, or, with baked weights, an s8 input that the Hopper
+        kernel takes (``qmatmul_int8.sm90_takes``: M >= 128, K % 16 == 0),
+        which also computes gelu, the emission and the bfloat16 store of
+        ``conv_out_bf16``; any other call goes composed before the gate."""
         a = self._int8_args()
         a_delta, a_zero = ((a["a_delta"], a["a_zero"]) if pre is None
                            else (pre.delta, pre.zero))
+        m, k = x2d.shape
 
         def composed():
             return int8_ops.int8_matmul(
@@ -636,29 +647,37 @@ class QuantizedLayerBase(nn.Module):
                 x_prequant=pre is not None, emit_s8=emit_s8,
                 **self._int8_flags())
 
-        if (emit_s8 is not None or not self._int8_fused()
-                or (pre is not None
-                    and not qmatmul_int8.s8_input_ok(x2d.shape[1]))):
+        sm90 = (pre is not None and a["w"].dtype == torch.int8
+                and qmatmul_int8.sm90_takes(m, k))
+        kernel_takes = (self.activation in S8_ACTIVATION_CODES if sm90 else
+                        emit_s8 is None and self.activation in FUSED_ACTIVATIONS
+                        and (pre is None or qmatmul_int8.s8_input_ok(k)))
+        if self.config.engine != "fused" or not kernel_takes:
             return composed()
         if pre is None:
             x_op, a_scalars = x2d.to(torch.float32).contiguous(), a["a_scalars"]
         else:
             x_op = x2d.contiguous()
             a_scalars = torch.stack([a_delta, a_zero, torch.zeros_like(a_zero)])
+        e_scalars = (None if emit_s8 is None
+                     else torch.stack([emit_s8[0], emit_s8[1]]).to(torch.float32))
+        bf16 = self.config.conv_out_bf16 and emit_s8 is None
+        cfg = qmatmul_int8.Int8MatmulConfig(
+            **a["kernel_cfg"], out_bf16=bf16 and sm90,
+            emit_bits=None if emit_s8 is None else int(emit_s8[2]))
 
         def kernel():
             y = qmatmul_int8.fused_quant_matmul_int8(
                 x_op, a["w"], a["w_delta"], a["w_scalars"], a_scalars,
-                a["scale"], a["shift"],
-                cfg=qmatmul_int8.Int8MatmulConfig(**a["kernel_cfg"]))
-            # stored as the composed route stores it (JAX's pallas engine
-            # takes that route here)
-            return y.to(torch.bfloat16) if self.config.conv_out_bf16 else y
+                a["scale"], a["shift"], cfg=cfg, e_scalars=e_scalars)
+            # stored as the composed route stores it (the Hopper kernel
+            # stores bfloat16 itself; JAX's pallas engine takes that route)
+            return y.to(torch.bfloat16) if bf16 else y
 
         return gated_route(
-            self, partial(autotune.int8_matmul_wins, x2d.shape[0],
-                          x2d.shape[1], self.features, pre is not None,
-                          like=x2d), kernel, composed)
+            self, partial(autotune.int8_matmul_wins, m, k, self.features,
+                          pre is not None, emit_s8 is not None, like=x2d),
+            kernel, composed)
 
     def _int8_flags(self) -> dict:
         """The ops/int8 route's deployment flags (JAX there lines 969-970)."""

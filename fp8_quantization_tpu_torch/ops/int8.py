@@ -7,7 +7,9 @@ depthwise), ``int8_matmul`` with ``x_prequant`` and ``emit_s8``, lines
 ``int8_shifted_grid`` of ``ops/pallas/qmatmul.py`` (lines 123-134).  The
 JAX package runs these through XLA on its 'parity' and 'bf16' engines; here
 they are the CPU reference and, under 'fused', the route of the stems, the
-depthwise convs and the matmuls that emit s8 (the ViT's gelu mlp1).
+depthwise convs and of the s8-emitting matmuls (the ViT's gelu mlp1) that
+the Hopper s8 kernel does not take (ops/kernels/qmatmul_int8.sm90_takes:
+fewer than 128 rows, or weights not baked).
 
 ``prequant_s8`` is the producer side of the s8 interchange
 (nn/factored.PrequantS8): the consumer's quant prologue, run where the

@@ -4,8 +4,9 @@ Each wrapper calls its torch op ``fp8tpu::<name>`` (ops/kernels/library.py,
 ``<name>`` its key in ``WRAPPERS``), which takes the plain version for CPU
 tensors and launches the CUDA kernel for CUDA tensors (no fallback between
 the two); each wrapper counts its launches in its ``launches`` attribute
-(``fused_quant_matmul_int8`` those of its s8 input branch also in
-``s8_launches``).
+(``fused_quant_matmul_int8`` those with an s8 input also in
+``s8_launches``, and of these the Hopper kernel's, csrc/qmatmul_s8_sm90.cu,
+in ``sm90_launches``).
 """
 
 from fp8_quantization_tpu_torch.ops.kernels.attention import flash_mha
@@ -34,6 +35,7 @@ def reset_launch_counts() -> None:
     for fn in WRAPPERS.values():
         fn.launches = 0
     fused_quant_matmul_int8.s8_launches = 0
+    fused_quant_matmul_int8.sm90_launches = 0
 
 
 def launch_counts() -> dict:

@@ -23,8 +23,8 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 BUILD_ROOT = Path(__file__).resolve().parents[3] / "build" / "kernels"
-KERNELS = ("qmatmul", "qconv", "qstem", "qmatmul_int8", "qconv_int8",
-           "qdwconv", "qblock", "flash_mha")
+KERNELS = ("qmatmul", "qconv", "qstem", "qmatmul_int8", "qmatmul_s8_sm90",
+           "qconv_int8", "qdwconv", "qblock", "flash_mha")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
 
@@ -42,6 +42,7 @@ SIGNATURES = {
     "qmatmul_int8": ("qmatmul_int8_launch",
                      [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _P]),
+    "qmatmul_s8_sm90": ("qmatmul_s8_sm90_launch", [_P] * 9 + [_I] * 8 + [_P]),
     "qconv_int8": ("qconv3x3_int8_launch",
                    [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _I, _I, _I, _I, _I, _I, _P]),

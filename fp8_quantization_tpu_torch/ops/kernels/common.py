@@ -12,6 +12,8 @@ from fp8_quantization_tpu_torch.ops.uniform import (
     _scale_from_delta, int_asym_consts, int_quantize_prepared)
 
 ACTIVATION_CODES = {None: 0, "relu": 1, "relu6": 2}   # csrc/fq_epilogue.cuh
+# the s8-input Hopper int8 kernel (csrc/qmatmul_s8_sm90.cu) also takes gelu
+S8_ACTIVATION_CODES = {**ACTIVATION_CODES, "gelu": 3}
 SMEM_LIMIT = 232448      # shared memory a block can have on the H100
 SMS = 132                # its streaming multiprocessors
 # quantizer codes of the kernels (csrc/fq_epilogue.cuh, enum QuantMethod)

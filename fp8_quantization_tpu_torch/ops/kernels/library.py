@@ -154,25 +154,38 @@ def _(x, w, a_consts, scale, shift, act_method, emit_norm):
 
 
 # ---- qmatmul_int8 -------------------------------------------------------------
-# ``x`` is float32 or, for the s8 input branch, int8 (the schema's Tensor
-# takes either; the implementations read its dtype, the fake needs none)
+# ``x`` is float32 or, for an s8 input, int8 (the schema's Tensor takes
+# either; the implementations read its dtype).  ``e_scalars`` ([delta,
+# zero] at ``e_bits``) asks for s8 out, ``out_bf16`` for bfloat16 out:
+# both, and gelu, only on the Hopper s8 kernel (qmatmul_int8.sm90_takes)
+
+def _qmatmul_int8_cfg(activation, n_bits, act_n_bits, e_scalars, e_bits,
+                      out_bf16):
+    return qmatmul_int8.Int8MatmulConfig(
+        activation, n_bits, act_n_bits, out_bf16=out_bf16,
+        emit_bits=None if e_scalars is None else e_bits)
+
 
 def _qmatmul_int8_cpu(x: torch.Tensor, w: torch.Tensor,
                       w_delta: torch.Tensor, w_scalars: torch.Tensor,
                       a_scalars: torch.Tensor, scale: torch.Tensor,
                       shift: torch.Tensor, activation: Optional[str],
-                      n_bits: int, act_n_bits: int) -> torch.Tensor:
+                      n_bits: int, act_n_bits: int,
+                      e_scalars: Optional[torch.Tensor] = None, e_bits: int = 8,
+                      out_bf16: bool = False) -> torch.Tensor:
     return qmatmul_int8.qmatmul_int8_plain(
         x, w, w_delta, w_scalars, a_scalars, scale, shift,
-        qmatmul_int8.Int8MatmulConfig(activation, n_bits,
-                                      act_n_bits)).contiguous()
+        _qmatmul_int8_cfg(activation, n_bits, act_n_bits, e_scalars, e_bits,
+                          out_bf16), e_scalars).contiguous()
 
 
 def _qmatmul_int8_cuda(x, w, w_delta, w_scalars, a_scalars, scale, shift,
-                       activation, n_bits, act_n_bits):
+                       activation, n_bits, act_n_bits, e_scalars=None,
+                       e_bits=8, out_bf16=False):
     return qmatmul_int8.qmatmul_int8_cuda(
         x, w, w_delta, w_scalars, a_scalars, scale, shift,
-        qmatmul_int8.Int8MatmulConfig(activation, n_bits, act_n_bits))
+        _qmatmul_int8_cfg(activation, n_bits, act_n_bits, e_scalars, e_bits,
+                          out_bf16), e_scalars)
 
 
 qmatmul_int8_op = _op("qmatmul_int8", _qmatmul_int8_cpu, _qmatmul_int8_cuda)
@@ -180,8 +193,10 @@ qmatmul_int8_op = _op("qmatmul_int8", _qmatmul_int8_cpu, _qmatmul_int8_cuda)
 
 @qmatmul_int8_op.register_fake
 def _(x, w, w_delta, w_scalars, a_scalars, scale, shift, activation, n_bits,
-      act_n_bits):
-    return x.new_empty((x.shape[0], w.shape[0]), dtype=torch.float32)
+      act_n_bits, e_scalars=None, e_bits=8, out_bf16=False):
+    dtype = (torch.int8 if e_scalars is not None
+             else _out_dtype(out_bf16))
+    return x.new_empty((x.shape[0], w.shape[0]), dtype=dtype)
 
 
 # ---- qconv3x3_int8 ------------------------------------------------------------

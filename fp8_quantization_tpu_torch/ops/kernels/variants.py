@@ -1,8 +1,8 @@
 """Timing of source variants of the redesigned kernels (no JAX
 counterpart): which phase of ``csrc/qmatmul.cu``, ``csrc/qconv_int8.cu``,
 ``csrc/flash_mha.cu``, ``csrc/qblock.cu``, ``csrc/qconv.cu``,
-``csrc/qmatmul_int8.cu``, ``csrc/qdwconv.cu`` and ``csrc/qstem.cu`` holds
-each back on the card.
+``csrc/qmatmul_int8.cu``, ``csrc/qmatmul_s8_sm90.cu``, ``csrc/qdwconv.cu``
+and ``csrc/qstem.cu`` holds each back on the card.
 
     python -m fp8_quantization_tpu_torch.ops.kernels.variants [--dry] [kernel ...]
 
@@ -14,8 +14,8 @@ no host time counts).  A variant that removes a phase computes wrong
 outputs by design: it only shows what that phase costs.  The kernels as
 committed are checked against their plain versions by ``chip_smoke.py``.
 ``--dry`` applies the patches and exits (no card, no nvcc); kernel names
-(qmatmul, qconv_int8, flash_mha, qblock, qconv, qmatmul_int8, qdwconv,
-qstem) restrict the run to those.
+(qmatmul, qconv_int8, flash_mha, qblock, qconv, qmatmul_int8,
+qmatmul_s8_sm90, qdwconv, qstem) restrict the run to those.
 
 Shapes: the main path's qmatmul calls (bf16 x on the grid, baked bf16 w,
 FP8 output quant, bf16 normalized output) at the ViT's qkv, proj and mlp2,
@@ -29,7 +29,13 @@ qblock (FP8 stages, bf16 output) at five MobileNetV2 blocks at batch 64
 at its ``block_tile``; qconv3x3 (FP8 output quant, bf16 norms in and out)
 at ResNet-18's seven 3x3 shapes at batch 64, each at its ``conv_tile``
 width; qmatmul_int8 (baked int8 weights) at ResNet-18's three downsamples
-and the fc at batch 64, each at its ``int8_tile``; qdwconv3x3 (relu6, FP8
+and the fc at batch 64, each at its ``int8_tile``; qmatmul_s8_sm90 at the
+ViT-S/16 INT8 block's qkv, proj and mlp2 (float32 out) and mlp1 (gelu, s8
+out) at batch 64 and one 128 x 128 x 128 tile (the launch's floor), each
+at its ``s8_tile`` and the other widths (the variants remove the TMA
+loads, the products, the row and column sums, the epilogue, the output
+stores, gelu and the s8 emission one at a time);
+qdwconv3x3 (relu6, FP8
 output quant, bf16 norms in and out) at MobileNetV2's ten depthwise shapes
 at batch 64, each at its ``dw_tile``; qstem (FP8, bf16 norms out) at
 ResNet-18's (64, 224, 224, 3) float32 images, at ``stem_tile``.
@@ -54,7 +60,7 @@ from fp8_quantization_tpu_torch.ops.kernels.qconv import conv_tile as qconv_tile
 from fp8_quantization_tpu_torch.ops.kernels.qconv_int8 import conv_tile
 from fp8_quantization_tpu_torch.ops.kernels.qdwconv import dw_tile
 from fp8_quantization_tpu_torch.ops.kernels.qmatmul import tile_n
-from fp8_quantization_tpu_torch.ops.kernels.qmatmul_int8 import int8_tile
+from fp8_quantization_tpu_torch.ops.kernels.qmatmul_int8 import int8_tile, s8_tile
 
 VARIANTS_ROOT = build.BUILD_ROOT.parent / "variants"
 
@@ -198,6 +204,49 @@ QMATMUL_INT8 = [
     ("division-free x quantizer", [("  const float q = x == 0.0f ? 0.0f : __fdiv_rn(x, p.dx);",
                                       "  const float r = __frcp_rn(p.dx), q0 = __fmul_rn(x, r);\n  const float q = __fmaf_rn(__fmaf_rn(-q0, p.dx, x), r, q0);")]),
 ]
+QMATMUL_S8 = [
+    ("as committed", []),
+    ("no TMA loads (full barriers arrive at once, stale smem)", [(
+        """          mbar_arrive_tx(full + 8 * s, P::STAGE_BYTES);
+          tma_load(st, &tm_x, full + 8 * s, kt * BK, m0);
+          tma_load(st + P::A_BYTES, &tm_w, full + 8 * s, kt * BK, n0);""",
+        """          mbar_arrive(full + 8 * s);
+          (void)st; (void)m0; (void)n0;""")]),
+    ("no products", [("        wgmma_s8<BN>(acc, da + 2 * kk, db + 2 * kk);",
+                      "        acc[kk] += static_cast<int>(da >> 4) ^ static_cast<int>(db);")]),
+    ("no row and column sums", [
+        ("      if (col_sums && tw < BN / 2)\n        cs = bytes_sum",
+         "      if (false)\n        cs = bytes_sum"),
+        ("      if (rows)\n        rs = bytes_sum", "      if (false)\n        rs = bytes_sum")]),
+    ("no epilogue (staging and float epilogue skipped)", [(
+        "    for (int sl = 0; sl < BN / SLICE; ++sl) {",
+        "    for (int sl = 0; sl < (M < 0 ? BN / SLICE : 0); ++sl) {")]),
+    ("no output stores", [(
+        "    store4<OUT>(a.out, static_cast<long long>(m) * a.N + n, min(4, a.N - n), vec, y, emit,",
+        "    if (y[0] == 1234.5f)\n"
+        "      store4<OUT>(a.out, static_cast<long long>(m) * a.N + n, min(4, a.N - n), vec, y,"
+        " emit,")]),
+    ("no gelu", [(
+        "    return __fmul_rn(__fmul_rn(0.5f, y), erfcf(__fmul_rn(-y, kSqrtHalf)));",
+        "    return y;")]),
+    ("no s8 emission (a cast)", [(
+        "    for (int e = 0; e < 4; ++e) q[e] = emit_s8(y[e], emit, inv);",
+        "    for (int e = 0; e < 4; ++e) q[e] = static_cast<int>(y[e]);")]),
+    ("epilogue pieces one at a time", [(
+        "  constexpr int UNROLL = GELU ? 1 : 64 * PIECES / 128;",
+        "  constexpr int UNROLL = 1;")]),
+    ("epilogue pieces four at a time under gelu too", [(
+        "  constexpr int UNROLL = GELU ? 1 : 64 * PIECES / 128;",
+        "  constexpr int UNROLL = 64 * PIECES / 128;")]),
+    ("emission by the IEEE division", [(
+        """  const float q = fabsf(y) < 0.25f * e.dx ? 0.0f
+                  : fabsf(q0) >= 16777216.0f ? q0
+                  : __fmaf_rn(__fmaf_rn(-q0, e.dx, y), inv, q0);""",
+        """  const float q = fabsf(y) < 0.25f * e.dx ? 0.0f : __fdiv_rn(y, e.dx);
+  (void)q0;""")]),
+    ("3 stages", [("constexpr int CONSUMERS = 2, THREADS = 128 * (CONSUMERS + 1), STAGES = 4;",
+                   "constexpr int CONSUMERS = 2, THREADS = 128 * (CONSUMERS + 1), STAGES = 3;")]),
+]
 DW_QUANT = """        y[v] = fq::quantize_inv_m<METHOD>(
             fq::apply_act(__fadd_rn(__fmul_rn(acc[v], scv[v]), shv[v]), ACT), q, NORM);"""
 DW_TILE = "  a.th = th; a.tw = tw; a.cg = cg;"
@@ -263,11 +312,16 @@ QSTEM = [
 ]
 KERNEL_VARIANTS = {"qmatmul": QMATMUL, "qconv_int8": QCONV, "flash_mha": FLASH,
                    "qblock": QBLOCK, "qconv": QCONV3X3, "qmatmul_int8": QMATMUL_INT8,
-                   "qdwconv": QDWCONV, "qstem": QSTEM}
+                   "qmatmul_s8_sm90": QMATMUL_S8, "qdwconv": QDWCONV, "qstem": QSTEM}
 MATMUL_SHAPES = [(64 * 197, 384, 1152), (64 * 197, 384, 384), (64 * 197, 1536, 384),
                  (64 * 28 * 28, 64, 128), (64 * 112 * 112, 16, 96)]
 INT8_MATMUL_SHAPES = [(64 * 28 * 28, 64, 128), (64 * 14 * 14, 128, 256),
                       (64 * 7 * 7, 256, 512), (64, 512, 1000)]
+# (label, M, K, N, activation code, output kind 0 float32 / 2 s8); one
+# 128 x 128 x 128 tile times the launch's floor
+S8_MATMUL_SHAPES = [("qkv", 64 * 197, 384, 1152, 0, 0), ("proj", 64 * 197, 384, 384, 0, 0),
+                    ("mlp2", 64 * 197, 1536, 384, 0, 0), ("mlp1", 64 * 197, 384, 1536, 3, 2),
+                    ("one tile", 128, 128, 128, 0, 0)]
 CONV_SHAPES = [(56, 64, 64, 1), (56, 64, 128, 2), (28, 128, 128, 1), (28, 128, 256, 2),
                (14, 256, 256, 1), (14, 256, 512, 2), (7, 512, 512, 1)]
 # (H, C, stride) of MobileNetV2's ten depthwise shapes (224x224 input)
@@ -413,6 +467,31 @@ def int8_matmul_calls(g):
         yield [m, k, n, t.bm, t.bn, t.splits], (lambda fn, a=args, kp=keep: fn(*a))
 
 
+def s8_matmul_calls(g):
+    """(shape, call(fn)) of the ViT-S/16 INT8 block's four products at batch
+    64 on the Hopper s8 kernel, baked signed weights: qkv, proj and mlp2
+    with float32 outputs, mlp1 with gelu and s8 out, each at its
+    ``s8_tile`` and at the other widths."""
+    stream = torch.cuda.current_stream().cuda_stream
+    w_scalars = torch.tensor([0.0, 1.0], device="cuda")
+    a_scalars = torch.tensor([0.02, 130.0, 0.0], device="cuda")
+    e_scalars = torch.tensor([0.05, 3.6], device="cuda")
+    for label, m, k, n, act, kind in S8_MATMUL_SHAPES:
+        x = torch.randint(-128, 128, (m, k), generator=g, device="cuda", dtype=torch.int8)
+        w = torch.randint(-127, 128, (n, k), generator=g, device="cuda", dtype=torch.int8)
+        w_delta = torch.full((n,), 0.01, device="cuda")
+        scale, shift = torch.ones(n, device="cuda"), torch.zeros(n, device="cuda")
+        out = torch.empty(m, n, device="cuda", dtype=torch.int8 if kind else torch.float32)
+        keep = (x, w, w_delta, scale, shift, out)
+        rule = s8_tile(m, n)
+        for bn in (rule,) + tuple(b for b in (128, 192, 256) if b != rule):
+            args = (x.data_ptr(), w.data_ptr(), w_delta.data_ptr(), w_scalars.data_ptr(),
+                    a_scalars.data_ptr(), scale.data_ptr(), shift.data_ptr(),
+                    e_scalars.data_ptr(), out.data_ptr(), m, n, k, 8, act, kind, 8, bn,
+                    stream)
+            yield [label, m, k, n, bn], (lambda fn, a=args, kp=keep: fn(*a))
+
+
 def flash_calls(g):
     """(shape, call(fn)) of the ViT's attention call."""
     stream = torch.cuda.current_stream().cuda_stream
@@ -503,6 +582,7 @@ def main(argv) -> int:
                         ("flash_mha", flash_calls(g)), ("qblock", block_calls(g)),
                         ("qconv", qconv_calls(g)),
                         ("qmatmul_int8", int8_matmul_calls(g)),
+                        ("qmatmul_s8_sm90", s8_matmul_calls(g)),
                         ("qdwconv", dw_calls(g)), ("qstem", stem_calls(g))):
         if name not in only:
             continue

@@ -23,10 +23,13 @@ package (CPU).
   differences of the LayerNorm statistics and the softmax below a step on
   these inputs.
 * The routes: all 9 int8 matmuls of depth 2 take an s8 input; on 'fused'
-  the kernel's s8 branch (its plain version here) runs for qkv, proj, mlp2
-  and the head; calibration emits no ``PrequantS8``; the padded stream
-  and the unpadded one give the same logits; the gate keys an s8 input
-  apart from a float32 one; the CLI on the CPU.
+  the kernel's s8 input (its plain version here) runs for qkv, proj, mlp2
+  and the head, and at batch 8 (136 rows, the Hopper kernel's shapes) for
+  mlp1 too, with gelu and the s8 emission, the logits still within 2e-5
+  of JAX's; calibration emits no ``PrequantS8``; the padded stream and
+  the unpadded one give the same logits; the gate keys an s8 input apart
+  from a float32 one and an emitting call apart from a float-output one;
+  the CLI on the CPU.
 """
 
 import functools
@@ -172,8 +175,8 @@ def _sd():
                                          image_size=16, num_classes=CLASSES)
 
 
-def _x(seed=SEED):
-    return np.random.RandomState(seed).normal(0, 1, (2, 16, 16, 3)).astype(
+def _x(seed=SEED, batch=2):
+    return np.random.RandomState(seed).normal(0, 1, (batch, 16, 16, 3)).astype(
         np.float32)
 
 
@@ -205,11 +208,11 @@ def _jax_state(flags):
 
 
 @functools.lru_cache(maxsize=None)
-def _jax_logits(engine, flags, baked):
+def _jax_logits(engine, flags, baked, batch=2):
     jvars = _jax_state(flags)[baked]
     jmodel = _jax_model(ENGINES[engine], flags)
     return np.asarray(jax.jit(lambda v, xx: jmodel.apply(
-        v, xx, mode="fixed", quant_w=not baked))(jvars, jnp.asarray(_x())),
+        v, xx, mode="fixed", quant_w=not baked))(jvars, jnp.asarray(_x(batch=batch))),
         np.float32)
 
 
@@ -296,9 +299,10 @@ def test_block0_interchange_operands_bit_exact(engine, monkeypatch):
 @pytest.mark.parametrize("engine", list(ENGINES))
 def test_every_int8_matmul_takes_an_s8_input(engine, monkeypatch):
     """Depth 2: qkv, proj, mlp1 and mlp2 twice and the head, 9 int8
-    matmuls, each with an int8 operand.  On 'fused' mlp1 (gelu, which no
-    kernel carries) and only mlp1 takes ops/int8; the other 7 take the
-    kernel's s8 branch."""
+    matmuls, each with an int8 operand.  On 'fused' at batch 2 (34 rows)
+    mlp1 (gelu with s8 out, which only the Hopper kernel carries, at M >=
+    128) and only mlp1 takes ops/int8; the other 7 take the kernel's s8
+    input."""
     calls = {"composed": [], "kernel": []}
     for mod, name, key in ((tint8, "int8_matmul", "composed"),
                            (qmatmul_int8, "qmatmul_int8_plain", "kernel")):
@@ -316,6 +320,39 @@ def test_every_int8_matmul_takes_an_s8_input(engine, monkeypatch):
         assert len(calls["composed"]) == DEPTH
     else:
         assert calls["kernel"] == []
+
+
+@pytest.mark.parametrize("flags", list(FLAGS))
+def test_mlp1_takes_the_kernel_route_at_128_rows(flags, monkeypatch):
+    """At batch 8 on 'fused' (136 rows, qmatmul_int8.sm90_takes) every int8
+    matmul takes the kernel route, mlp1's gelu and s8 emission in its
+    epilogue (here the plain version: 2 of the 9 calls return int8, and
+    ops/int8 runs none); the int8-baked state's logits still match JAX's
+    'pallas' engine within 2e-5, top-1 identical, with conv_out_bf16 and
+    int8_assume_signed off and on."""
+    calls = {"composed": 0, "kernel": [], "sm90": 0}
+    fn, composed = qmatmul_int8.qmatmul_int8_plain, tint8.int8_matmul
+
+    def spy(x, *a, **k):
+        y = fn(x, *a, **k)
+        calls["kernel"].append(y.dtype)
+        calls["sm90"] += qmatmul_int8.sm90_takes(*x.shape)
+        return y
+
+    def spy_composed(*a, **k):
+        calls["composed"] += 1
+        return composed(*a, **k)
+    monkeypatch.setattr(qmatmul_int8, "qmatmul_int8_plain", spy)
+    monkeypatch.setattr(tint8, "int8_matmul", spy_composed)
+    x8 = _x(batch=8)
+    logits = _forward(_carried("fused", flags, True), quant_w=False, x=x8)
+    assert calls["composed"] == 0 and len(calls["kernel"]) == 4 * DEPTH + 1
+    assert calls["kernel"].count(torch.int8) == DEPTH
+    assert calls["sm90"] == 4 * DEPTH              # all but the head (8 rows)
+    ref = _jax_logits("fused", flags, True, batch=8)
+    assert logits.shape == (8, CLASSES) and np.isfinite(logits).all()
+    np.testing.assert_allclose(logits, ref, **TOL)
+    np.testing.assert_array_equal(logits.argmax(-1), ref.argmax(-1))
 
 
 def test_flash_runs_unmasked_on_fused_and_never_padded(monkeypatch):
@@ -437,6 +474,30 @@ def test_gate_keys_s8_and_float_inputs_apart(tmp_path, monkeypatch):
     assert got == {False: False, True: True}
     assert autotune.decisions() == {("im", 12608, 384, 1152): False,
                                     ("ims", 12608, 384, 1152): True}
+
+
+def test_gate_keys_emitting_and_float_output_calls_apart(tmp_path, monkeypatch):
+    """int8_matmul_wins races an s8-input call that emits s8 ('imse', the
+    ViT's mlp1) and one with a float output ('ims') at the same (M, K, N)
+    as two keys, each with its own verdict."""
+    cpu = torch.zeros(1)
+    monkeypatch.setattr(autotune, "_CACHE_PATH", str(tmp_path / "cache.json"))
+    monkeypatch.setattr(autotune, "_CACHE", {})
+    monkeypatch.setattr(autotune, "_TIMES", {})
+    monkeypatch.setattr(autotune, "_DISK_LOADED", False)
+    monkeypatch.setattr(autotune, "MODE", "auto")
+    monkeypatch.setattr(autotune, "on_card", lambda *t: True)
+    routes = {False: (lambda: cpu, lambda: cpu), True: (lambda: cpu, lambda: cpu)}
+    times = {routes[False][0]: 1.0, routes[False][1]: 1.1,     # float out: composed
+             routes[True][0]: 1.0, routes[True][1]: 9.0}       # s8 out: the kernel
+    monkeypatch.setattr(autotune, "_time_fn", lambda fn, device: times[fn])
+    got = {emit: autotune.int8_matmul_wins(12608, 384, 1536, True, emit, like=cpu,
+                                           kernel=routes[emit][0],
+                                           composed=routes[emit][1])
+           for emit in (False, True)}
+    assert got == {False: False, True: True}
+    assert autotune.decisions() == {("ims", 12608, 384, 1536): False,
+                                    ("imse", 12608, 384, 1536): True}
 
 
 def test_emit_s8_off_the_int8_route_raises():
