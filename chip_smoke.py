@@ -3058,7 +3058,9 @@ def profile_forwards(model, x, quant_w, n=3):
     rows = []
     for e in prof.key_averages():
         us = getattr(e, "self_device_time_total", 0) or 0
-        if us > 0 and e.device_type == torch.autograd.DeviceType.CUDA:
+        # the port's spans are user annotations, not device work
+        if (us > 0 and e.device_type == torch.autograd.DeviceType.CUDA
+                and not e.is_user_annotation):
             rows.append((e.key, us / 1e3 / n, e.count / n))
     return rows, wall_ms
 
@@ -3491,7 +3493,8 @@ def profile_train_step(state, x, y):
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(((e.key, (getattr(e, "self_device_time_total", 0) or 0) / 1e3, e.count)
                    for e in prof.key_averages()
-                   if e.device_type == torch.autograd.DeviceType.CUDA), key=lambda r: -r[1])
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and not e.is_user_annotation), key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     if busy == 0:
         return {"device_busy_ms": "not measured", "wall_ms": wall_ms}
@@ -4781,7 +4784,8 @@ def profile_calls(fns, n=5):
                     torch.cuda.synchronize()
                 events = prof.key_averages()
                 names = {e.key: e.count for e in events
-                         if e.device_type == torch.autograd.DeviceType.CUDA}
+                         if e.device_type == torch.autograd.DeviceType.CUDA
+                         and not e.is_user_annotation}
                 runs[k].append({"calls": sum(e.count for e in events
                                              if e.key in LAUNCH_CALLS),
                                 "records": sum(names.values()), "names": names})

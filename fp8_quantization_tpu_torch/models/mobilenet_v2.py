@@ -62,6 +62,7 @@ from fp8_quantization_tpu_torch.nn.layers import (
 from fp8_quantization_tpu_torch.nn.quantizers import preparing
 from fp8_quantization_tpu_torch.ops.kernels import autotune, qblock
 from fp8_quantization_tpu_torch.parallel import collectives
+from fp8_quantization_tpu_torch.utils.timing import span, spanned
 
 # (expand ratio t, channels c, repeats n, stride s), the reference's table
 INVERTED_RESIDUAL_SETTING = (
@@ -117,8 +118,9 @@ class QuantInvertedResidual(nn.Module):
                 y = self.expand(y, **kw)
             y = self.project(self.dw(y, **kw), **kw)
             if self.use_res:
-                y = self.block_act(fadd(x, y), mode=mode, quant_a=quant_a,
-                                   out=out)
+                with span("residual"):
+                    y = fadd(x, y)
+                y = self.block_act(y, mode=mode, quant_a=quant_a, out=out)
             return y
 
         if mode == "fixed" and not train_bn and self.config.engine == "fused":
@@ -262,6 +264,7 @@ class QuantizedMobileNetV2(nn.Module):
         y = torch.where(keep, norm / keep_prob, torch.zeros_like(norm))
         return y if factor is None else Factored(y, factor)
 
+    @spanned("forward")
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False):
         kw = dict(mode=mode, quant_w=quant_w, quant_a=quant_a, train_bn=train_bn)

@@ -50,6 +50,7 @@ from fp8_quantization_tpu_torch.nn.layers import (
     QuantConv, QuantizedActivation, QuantLinear, gated_route,
     layer_weight_spec)
 from fp8_quantization_tpu_torch.ops.kernels import autotune, qstem
+from fp8_quantization_tpu_torch.utils.timing import span, spanned
 
 
 class BasicBlockFeatures(nn.Module):
@@ -171,6 +172,7 @@ class QuantizedResNet(nn.Module):
             return Factored(storage_dtype(y), st["factor"]) if emit else y
         return launch
 
+    @spanned("forward")
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False):
         kw = dict(mode=mode, quant_w=quant_w, quant_a=quant_a, train_bn=train_bn)
@@ -181,21 +183,25 @@ class QuantizedResNet(nn.Module):
         def layer_path():
             return fmax_pool(self.stem(x, **kw), 3, 2, 1)
 
-        launch = self._fused_stem(x, mode, quant_w, quant_a, train_bn, out)
-        if launch is None:
-            x = layer_path()
-        else:
-            n, s, _, cin = x.shape
-            x = gated_route(self, lambda **routes: autotune.stem_group(
-                n, s, cin, self.stem.features, 1, like=x, **routes)[0] > 0,
-                launch, layer_path)
+        # the stem layer, on either route: the kernel, or its conv and pool
+        with span("layer"):
+            launch = self._fused_stem(x, mode, quant_w, quant_a, train_bn,
+                                      out)
+            if launch is None:
+                x = layer_path()
+            else:
+                n, s, _, cin = x.shape
+                x = gated_route(self, lambda **routes: autotune.stem_group(
+                    n, s, cin, self.stem.features, 1, like=x, **routes)[0] > 0,
+                    launch, layer_path)
 
         last_q = None
         for name in self.block_names:
             downsample = getattr(self, f"{name}_downsample", None)
             residual = x if downsample is None else downsample(x, **kw)
             y = getattr(self, name)(x, **kw)
-            y = torch.relu(fadd(y, residual))
+            with span("residual"):
+                y = torch.relu(fadd(y, residual))
             last_q = getattr(self, f"{name}_act")
             x = last_q(y, mode=mode, quant_a=quant_a, out=out)
 

@@ -62,6 +62,7 @@ from fp8_quantization_tpu_torch.nn.layers import (
     gated_route, int8_interchange_ok)
 from fp8_quantization_tpu_torch.ops.int8 import prequant_s8
 from fp8_quantization_tpu_torch.ops.kernels import attention, autotune
+from fp8_quantization_tpu_torch.utils.timing import span, spanned
 
 # the int8 stream's token count is padded to a multiple of this off 'fused'
 # (the bf16 tile height in JAX, there lines 250-262)
@@ -170,10 +171,14 @@ class QuantEncoderBlock(nn.Module):
             mlp1kw = dict(emit_s8=self.mlp2.int8_input_grid())
         y = self.attn(self.ln1(x, **kw, **ln1kw), **kw, seq_len=seq_len,
                       n_real=n_real, i8=i8)
-        x = self.res1_act(fadd(x, y), mode=mode, quant_a=quant_a, out=out)
+        with span("residual"):
+            x = fadd(x, y)
+        x = self.res1_act(x, mode=mode, quant_a=quant_a, out=out)
         y = self.mlp2(self.mlp1(self.ln2(x, **kw, **ln2kw), **kw, **mlp1kw),
                       **kw)
-        return self.res2_act(fadd(x, y), mode=mode, quant_a=quant_a, out=out)
+        with span("residual"):
+            x = fadd(x, y)
+        return self.res2_act(x, mode=mode, quant_a=quant_a, out=out)
 
 
 class QuantizedViT(nn.Module):
@@ -204,6 +209,7 @@ class QuantizedViT(nn.Module):
         """The shape of the input this model takes: the NHWC images'."""
         return tuple(image_shape)
 
+    @spanned("forward")
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False):
         kw = dict(mode=mode, quant_w=quant_w, quant_a=quant_a)

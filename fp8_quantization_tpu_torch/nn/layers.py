@@ -138,6 +138,12 @@ the ops/int8 route it races stores it (JAX's pallas engine takes that
 route there): the Hopper s8 kernel stores it so, the others' float32
 output is rounded after.
 
+Tracing (utils/timing.py): each quantized layer's forward runs in the
+span ``layer``, a ``QuantizedActivation`` (its quantizer and the store of
+its norm) in ``quantizer``; each call of a composed product
+(``_composed``, and the int8 datapath's ops/int8 routes) counts one
+``composed_routes`` (ops/kernels ``route_counts``).
+
 ``QuantConv1d`` and ``QuantConvTranspose`` (JAX there lines 1032-1130)
 take the composed path on every engine, as in JAX, which has no kernel
 or int8 route for them.  Their weights are (out, in/groups, *k), the output
@@ -165,12 +171,14 @@ from fp8_quantization_tpu_torch.ops import int8 as int8_ops
 from fp8_quantization_tpu_torch.ops import s2d as s2d_ops
 from fp8_quantization_tpu_torch.ops.fp8 import fp8_consts
 from fp8_quantization_tpu_torch.ops.kernels import (
-    autotune, qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8, qstem)
+    ROUTES, autotune, qconv, qconv_int8, qdwconv, qmatmul, qmatmul_int8,
+    qstem)
 from fp8_quantization_tpu_torch.ops.kernels.common import S8_ACTIVATION_CODES
 from fp8_quantization_tpu_torch.ops.quantizer import QMethod
 from fp8_quantization_tpu_torch.ops.uniform import (
     _scale_from_delta, int_sym_consts)
 from fp8_quantization_tpu_torch.parallel import collectives
+from fp8_quantization_tpu_torch.utils.timing import span, spanned
 
 FUSED_ACTIVATIONS = (None, "relu", "relu6")
 # QuantConv's space-to-depth stem (ops/s2d.py, JAX nn/layers.py:772-782):
@@ -293,8 +301,10 @@ def gated_route(module: nn.Module, gate, kernel, composed):
     run, the composed one first, and the kernel's output goes on, so that
     each route stores its prepared constants whatever verdict a later
     forward meets, and no verdict is raced or recorded at the prepare
-    pass's shapes.  Under ``route_log`` the route taken is recorded, or
-    the recorded one replayed (a site with none raises)."""
+    pass's shapes; each route runs in a totalled span
+    (``prepare.composed``, ``prepare.kernel``: utils/timing.totals).  Under
+    ``route_log`` the route taken is recorded, or the recorded one replayed
+    (a site with none raises)."""
     log = getattr(module, "_route_log", None)
     if log == "replay":
         take = getattr(module, "_export_route", None)
@@ -303,8 +313,10 @@ def gated_route(module: nn.Module, gate, kernel, composed):
                                f"at this gated site")
         return kernel() if take else composed()
     if preparing(module) and not autotune.settled():
-        composed()
-        return kernel()
+        with span("prepare.composed", total=True):
+            composed()
+        with span("prepare.kernel", total=True):
+            return kernel()
     take = bool(gate(kernel=kernel, composed=composed))
     if log == "record":
         module._export_route = take
@@ -639,6 +651,7 @@ class QuantizedLayerBase(nn.Module):
         m, k = x2d.shape
 
         def composed():
+            ROUTES["composed_routes"] += 1
             return int8_ops.int8_matmul(
                 x2d, self._int8_grid(a["w"], a["w_delta"], a["signed"]),
                 a["w_delta"], a["signed"], a_delta, a_zero,
@@ -817,6 +830,7 @@ class QuantConv(QuantizedLayerBase):
                 self.features, -1).t().to(torch.bfloat16).contiguous())
         return None
 
+    @spanned("layer")
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False,
                 out: str = "value"):
@@ -882,6 +896,7 @@ class QuantConv(QuantizedLayerBase):
     def _composed(self, x, x_factor, mode, quant_w, quant_a, train_bn, out):
         """The conv off the kernels: the engine's product, the epilogue and
         the output quant."""
+        ROUTES["composed_routes"] += 1
         s, p = self.stride, self.padding
         if x_factor is None:
             x, x_factor = self._quant_in_engine(x, mode, quant_a)
@@ -952,6 +967,7 @@ class QuantConv(QuantizedLayerBase):
     def _int8_xla(self, x):
         """``ops/int8.int8_conv``, the composed s8 route (JAX's XLA-native
         int8 datapath), dense or depthwise."""
+        ROUTES["composed_routes"] += 1
         k, s, p = self.kernel_size, self.stride, self.padding
         a = self._int8_args()
         wsg = self._int8_grid(a["w"], a["w_delta"], a["signed"])
@@ -1011,6 +1027,7 @@ class QuantLinear(QuantizedLayerBase):
     def _int8_matrix(self, w):
         return w
 
+    @spanned("layer")
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False,
                 out: str = "value", emit_s8=None):
@@ -1059,6 +1076,7 @@ class QuantLinear(QuantizedLayerBase):
     def _composed(self, x, x_factor, mode, quant_w, quant_a, train_bn, out):
         """The layer off the kernels: the engine's product, the epilogue and
         the output quant."""
+        ROUTES["composed_routes"] += 1
         if x_factor is None:
             x, x_factor = self._quant_in_engine(x, mode, quant_a)
         xm, wm, w_factor = self._engine_operands(x, mode, quant_w)
@@ -1107,6 +1125,7 @@ class QuantConv1d(QuantizedLayerBase):
             return 0, 0
         return (p, p) if isinstance(p, int) else tuple(p)
 
+    @spanned("layer")
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False,
                 out: str = "value"):
@@ -1170,6 +1189,7 @@ class QuantConvTranspose(QuantizedLayerBase):
         self.stride = tuple(stride or (1,) * len(kernel_size))
         self.padding = padding
 
+    @spanned("layer")
     def forward(self, x, mode: str = "fixed", quant_w: bool = True,
                 quant_a: bool = True, train_bn: bool = False,
                 out: str = "value"):
@@ -1261,6 +1281,7 @@ class QuantizedActivation(nn.Module):
         ``out='fused_state'``): ``stage_state``."""
         return stage_state(self.config, self.act_q, quant_a)
 
+    @spanned("quantizer")
     def forward(self, x, mode: str = "fixed", quant_a: bool = True,
                 update_range: bool = True, out: str = "value"):
         x = factored.materialize(x)

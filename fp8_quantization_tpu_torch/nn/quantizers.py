@@ -79,6 +79,7 @@ from fp8_quantization_tpu_torch.ops.fp8 import cast_mbits as fp8_cast_mbits
 from fp8_quantization_tpu_torch.ops.kernels.common import pack_act_consts
 from fp8_quantization_tpu_torch.ops.rounding import make_discretizer
 from fp8_quantization_tpu_torch.parallel import collectives
+from fp8_quantization_tpu_torch.utils.timing import spanned
 
 MODES = ("calibrate", "calibrate_train", "fixed", "learn", "fp32")
 TRAINING_MODES = ("learn", "calibrate_train")
@@ -185,6 +186,7 @@ class Quantizer(nn.Module):
             return ("fp8" if self.spec.is_fp8 else "int_asym"), self.kprep
         return pack_act_consts(self.spec, self.state())
 
+    @spanned("quantizer")
     def forward(self, x: torch.Tensor, mode: str = "fixed",
                 update_range: bool = True, out: str = "apply"):
         if mode == "fp32":

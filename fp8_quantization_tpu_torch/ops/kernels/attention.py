@@ -40,6 +40,7 @@ import torch
 
 from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import on_card, stream_ptr
+from fp8_quantization_tpu_torch.utils.timing import span
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/attention.py:43"
 BLOCK_K = 128                   # keys per step, the Pallas kernel's block_k
@@ -107,8 +108,9 @@ def flash_mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.ndim != 4 or k.shape != q.shape or v.shape != q.shape:
         raise ValueError(f"q, k, v must be (B, H, S, D) of one shape, got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
-    return torch.ops.fp8tpu.flash_mha(q, k, v, float(sm_scale)).permute(
-        0, 2, 1, 3)
+    with span("kernel.flash_mha"):
+        return torch.ops.fp8tpu.flash_mha(q, k, v, float(sm_scale)).permute(
+            0, 2, 1, 3)
 
 
 def flash_mha_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

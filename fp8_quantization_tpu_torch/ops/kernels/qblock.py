@@ -54,6 +54,7 @@ from fp8_quantization_tpu_torch.ops.kernels.common import (
     QUANT_CODES, SMEM_LIMIT, check_methods, on_card, quantize_prepared,
     require, stream_ptr)
 from fp8_quantization_tpu_torch.ops.kernels.qdwconv import dw_taps_sum, out_hw
+from fp8_quantization_tpu_torch.utils.timing import span
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qblock.py:82"
 ROW_EXPAND, ROW_DW, ROW_PROJECT, ROW_BLOCK = 0, 1, 2, 3
@@ -294,10 +295,11 @@ def fused_inverted_residual(x: torch.Tensor, w1: Optional[torch.Tensor],
     if x_factor is None:
         x_factor = torch.ones((), device=x.device)
     x_factor = x_factor.reshape(()).to(torch.float32)
-    return torch.ops.fp8tpu.qblock(
-        x, w1, wd, w2, a_consts, scale1, shift1, scale_d, shift_d, scale2,
-        shift2, x_factor, cfg.expand, cfg.stride, cfg.use_res, cfg.emit_norm,
-        ",".join(cfg.methods))
+    with span("kernel.qblock"):
+        return torch.ops.fp8tpu.qblock(
+            x, w1, wd, w2, a_consts, scale1, shift1, scale_d, shift_d,
+            scale2, shift2, x_factor, cfg.expand, cfg.stride, cfg.use_res,
+            cfg.emit_norm, ",".join(cfg.methods))
 
 
 def channels_ok(cin: int, hid: int, cout: int) -> bool:

@@ -35,6 +35,7 @@ from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import (
     ACTIVATION_CODES, QUANT_CODES, SMS, check_methods, consts_or_dummy,
     on_card, quantize_prepared, require, stream_ptr)
+from fp8_quantization_tpu_torch.utils.timing import span
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qconv.py:130"
 TILE_M = 128                        # csrc/gemm_sm90.cuh: BM
@@ -150,9 +151,10 @@ def fused_quant_conv3x3(x: torch.Tensor, w: torch.Tensor,
                              f"{(n, ho, wo, cout)}")
         residual = residual.to(torch.bfloat16 if cfg.emit_norm
                                else torch.float32).contiguous()
-    return torch.ops.fp8tpu.qconv3x3(
-        x, w, a_consts, scale, shift, residual, cfg.act_method,
-        cfg.activation, cfg.emit_norm, cfg.stride)
+    with span("kernel.qconv3x3"):
+        return torch.ops.fp8tpu.qconv3x3(
+            x, w, a_consts, scale, shift, residual, cfg.act_method,
+            cfg.activation, cfg.emit_norm, cfg.stride)
 
 
 def qconv3x3_cuda(x: torch.Tensor, w: torch.Tensor, a_consts,

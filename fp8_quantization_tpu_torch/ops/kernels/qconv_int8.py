@@ -37,6 +37,7 @@ from fp8_quantization_tpu_torch.ops.kernels.common import (
 from fp8_quantization_tpu_torch.ops.kernels.qconv import out_hw
 from fp8_quantization_tpu_torch.ops.kernels.qmatmul_int8 import (
     check_int8_config, check_scalars, epilogue, exact_total, weight_grid)
+from fp8_quantization_tpu_torch.utils.timing import span
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qconv.py:278"
 TILE_MS = (128, 64)      # GEMM rows (output pixels) a CTA; csrc/qconv_int8.cu
@@ -148,9 +149,10 @@ def fused_quant_conv3x3_int8(x: torch.Tensor, w: torch.Tensor,
     if tuple(w.shape) != (cout, 9 * cin):
         raise ValueError(f"w must be (Cout, 9*Cin) = (*, {9 * cin}), "
                          f"got {tuple(w.shape)}")
-    return torch.ops.fp8tpu.qconv3x3_int8(
-        x, w, w_delta, w_scalars, a_scalars, scale, shift, cfg.activation,
-        cfg.n_bits, cfg.act_n_bits, cfg.stride)
+    with span("kernel.qconv3x3_int8"):
+        return torch.ops.fp8tpu.qconv3x3_int8(
+            x, w, w_delta, w_scalars, a_scalars, scale, shift, cfg.activation,
+            cfg.n_bits, cfg.act_n_bits, cfg.stride)
 
 
 def qconv3x3_int8_cuda(x: torch.Tensor, w: torch.Tensor,

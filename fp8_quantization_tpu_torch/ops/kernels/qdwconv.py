@@ -35,6 +35,7 @@ from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import (
     ACTIVATION_CODES, QUANT_CODES, check_methods, consts_or_dummy, on_card,
     quantize_prepared, require, stream_ptr)
+from fp8_quantization_tpu_torch.utils.timing import span
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qconv.py:183"
 SEG = 7             # outputs a thread computes along a row (csrc: kSeg)
@@ -168,9 +169,10 @@ def fused_quant_dwconv3x3(x: torch.Tensor, w: torch.Tensor,
     if w.shape != (3, 3, c):
         raise ValueError(f"w must be (3, 3, C) = (3, 3, {c}), got "
                          f"{tuple(w.shape)}")
-    return torch.ops.fp8tpu.qdwconv3x3(
-        x, w, a_consts, scale, shift, cfg.act_method, cfg.activation,
-        cfg.emit_norm, cfg.stride)
+    with span("kernel.qdwconv3x3"):
+        return torch.ops.fp8tpu.qdwconv3x3(
+            x, w, a_consts, scale, shift, cfg.act_method, cfg.activation,
+            cfg.emit_norm, cfg.stride)
 
 
 def qdwconv3x3_cuda(x: torch.Tensor, w: torch.Tensor, a_consts,

@@ -40,6 +40,7 @@ from fp8_quantization_tpu_torch.ops.kernels.common import (
     ACTIVATION_CODES, QUANT_CODES, check_methods, consts_or_dummy, on_card,
     quantize_prepared, require, stream_ptr)
 from fp8_quantization_tpu_torch.nn.activations import get_activation
+from fp8_quantization_tpu_torch.utils.timing import span
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qmatmul.py:145"
 TILE_M = 128                       # csrc/gemm_sm90.cuh: BM
@@ -131,9 +132,10 @@ def fused_quant_matmul(x: torch.Tensor, w: torch.Tensor,
     N = w.shape[0]
     if w.shape != (N, K):
         raise ValueError(f"w must be (N, K) = (*, {K}), got {tuple(w.shape)}")
-    return torch.ops.fp8tpu.qmatmul(
-        x, w, w_consts, a_consts, scale, shift, cfg.weight_method,
-        cfg.act_method, cfg.quantize_input, cfg.activation, cfg.emit_norm)
+    with span("kernel.qmatmul"):
+        return torch.ops.fp8tpu.qmatmul(
+            x, w, w_consts, a_consts, scale, shift, cfg.weight_method,
+            cfg.act_method, cfg.quantize_input, cfg.activation, cfg.emit_norm)
 
 
 def qmatmul_cuda(x: torch.Tensor, w: torch.Tensor, w_consts, a_consts,

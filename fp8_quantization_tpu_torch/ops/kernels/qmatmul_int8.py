@@ -57,6 +57,7 @@ from fp8_quantization_tpu_torch.ops.int8 import (
 from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import (
     ACTIVATION_CODES, S8_ACTIVATION_CODES, SMS, on_card, require, stream_ptr)
+from fp8_quantization_tpu_torch.utils.timing import span
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qmatmul.py:212"
 CHUNK_K = 32                # csrc/qmatmul_int8.cu: BK
@@ -281,10 +282,11 @@ def fused_quant_matmul_int8(x: torch.Tensor, w: torch.Tensor,
     if tuple(w.shape) != (N, K):
         raise ValueError(f"w must be (N, K) = (*, {K}), got {tuple(w.shape)}")
     check_emission(cfg, e_scalars)
-    return torch.ops.fp8tpu.qmatmul_int8(
-        x, w, w_delta, w_scalars, a_scalars, scale, shift, cfg.activation,
-        cfg.n_bits, cfg.act_n_bits, e_scalars, cfg.emit_bits or 8,
-        cfg.out_bf16)
+    with span("kernel.qmatmul_int8"):
+        return torch.ops.fp8tpu.qmatmul_int8(
+            x, w, w_delta, w_scalars, a_scalars, scale, shift, cfg.activation,
+            cfg.n_bits, cfg.act_n_bits, e_scalars, cfg.emit_bits or 8,
+            cfg.out_bf16)
 
 
 def qmatmul_int8_cuda(x: torch.Tensor, w: torch.Tensor,

@@ -38,6 +38,7 @@ from fp8_quantization_tpu_torch.ops.kernels import build
 from fp8_quantization_tpu_torch.ops.kernels.common import (
     QUANT_CODES, check_methods, consts_or_dummy, on_card, quantize_prepared,
     require, stream_ptr)
+from fp8_quantization_tpu_torch.utils.timing import span
 
 REPLACES = "fp8_quantization_tpu/ops/pallas/qstem.py:88"
 COUT = 64          # the kernel is written for the ResNet stem's width
@@ -171,8 +172,9 @@ def fused_quant_stem(x: torch.Tensor, w: torch.Tensor, a_consts,
     kp = k_pad(cin)
     if tuple(w.shape) != (kp, w.shape[1]):
         raise ValueError(f"w must be ({kp}, Cout), got {tuple(w.shape)}")
-    return torch.ops.fp8tpu.qstem(x, w, a_consts, scale, shift,
-                                  cfg.act_method, cfg.emit_norm)
+    with span("kernel.qstem"):
+        return torch.ops.fp8tpu.qstem(x, w, a_consts, scale, shift,
+                                      cfg.act_method, cfg.emit_norm)
 
 
 def qstem_cuda(x: torch.Tensor, w: torch.Tensor, a_consts,

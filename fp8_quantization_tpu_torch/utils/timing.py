@@ -1,50 +1,90 @@
 """Timing and profiling utilities.
 
-The counterpart of ``fp8_quantization_tpu/utils/timing.py``: ``Stopwatch``
-(a wall-clock timer), ``time_cuda`` (the counterpart of ``time_jitted``:
-mean seconds per call, with the device synchronized, since CUDA launches
-return before the work is done) and ``trace`` (``torch.profiler`` around a
-block, where JAX wraps ``jax.profiler``).
+The counterpart of ``fp8_quantization_tpu/utils/timing.py``: ``time_cuda``
+(the counterpart of ``time_jitted``: mean seconds per call, with the
+device synchronized, since CUDA launches return before the work is done),
+and the program's spans (``span``), where the JAX package wraps
+``jax.profiler``.
 
 On the card ``time_cuda`` times with CUDA events on the current stream.
 For work on the CPU it takes the host clock: nothing there is
 asynchronous.
+
+A span names a stretch of the program on the timeline of whatever
+``torch.profiler`` records it: while one records, ``span(name)`` opens
+``torch.profiler.record_function(name)``, so the device operations the
+host launches inside it sit under it, on the device's clock; while none
+records it costs one read of the profiler's flag and calls no torch
+function (a ``record_function`` alone costs microseconds even with no
+profiler running).  ``spanned(name)`` is its decorator form.
+``span(name, total=True)``, for set-up, also adds its host seconds to a
+process-wide total (``totals()``); where CUDA is in use it synchronizes at
+both edges, so that the device's work is counted in its own span.  Only
+the outermost of nested totalled spans counts, so no second is counted
+twice.  The names the program uses are listed in README.md.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import time
-from typing import Callable, Optional
+from collections import defaultdict
+from typing import Callable, Dict
 
 import torch
+from torch.autograd import profiler as _profiler
+
+_NOOP = contextlib.nullcontext()
+_TOTALS: Dict[str, float] = defaultdict(float)
+_open_totals = 0        # totalled spans open now (nested ones count nothing)
 
 
-class Stopwatch:
-    """Wall-clock timer, usable as a context manager (stopwatch.py:9-83)."""
+def span(name: str, total: bool = False):
+    """A context manager that marks ``name`` on a recording profiler's
+    timeline; with ``total`` it also adds its host seconds to
+    ``totals()[name]`` (see the module docstring)."""
+    if total:
+        return _totalled(name)
+    if not _profiler._is_profiler_enabled:
+        return _NOOP
+    return _profiler.record_function(name)
 
-    def __init__(self):
-        self._start = None
-        self.elapsed = 0.0
 
-    def start(self):
-        self._start = time.perf_counter()
-        return self
+def spanned(name: str):
+    """A decorator: ``span(name)`` around every call of the function."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
-    def stop(self):
-        if self._start is not None:
-            self.elapsed += time.perf_counter() - self._start
-            self._start = None
-        return self.elapsed
 
-    def reset(self):
-        self._start, self.elapsed = None, 0.0
+@contextlib.contextmanager
+def _totalled(name: str):
+    global _open_totals
+    outer = _open_totals == 0
+    sync = outer and torch.cuda.is_initialized()
+    if sync:
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _open_totals += 1
+    try:
+        with span(name):
+            yield
+        if sync:
+            torch.cuda.synchronize()
+    finally:
+        _open_totals -= 1
+        if outer:
+            _TOTALS[name] += time.perf_counter() - t0
 
-    def __enter__(self):
-        return self.start()
 
-    def __exit__(self, *exc):
-        self.stop()
+def totals() -> Dict[str, float]:
+    """{name: host seconds} of every totalled span this process closed."""
+    return dict(_TOTALS)
 
 
 def _device_of(args, device) -> torch.device:
@@ -86,18 +126,3 @@ def time_cuda(fn: Callable, *args, iters: int = 10, warmup: int = 3,
         end.record()
         end.synchronize()
         return start.elapsed_time(end) / 1e3 / iters
-
-
-@contextlib.contextmanager
-def trace(log_dir: Optional[str] = None):
-    """``torch.profiler`` over a block, CPU and (where there is one) CUDA
-    activity; yields the profiler.  With ``log_dir`` the trace is written
-    there for TensorBoard's profiler plugin."""
-    from torch.profiler import ProfilerActivity, profile, tensorboard_trace_handler
-
-    activities = [ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(ProfilerActivity.CUDA)
-    handler = tensorboard_trace_handler(log_dir) if log_dir else None
-    with profile(activities=activities, on_trace_ready=handler) as prof:
-        yield prof
