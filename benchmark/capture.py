@@ -67,3 +67,13 @@ class Capture:
         """The least time of every recorded call of ``kname`` (peaks.py)."""
         return sum(uses * peaks.least_seconds(b, ops, dp)
                    for b, ops, dp, uses in self.calls.get(kname, {}).values())
+
+
+def kernel_roofline(run, kname: str):
+    """A kernel's share of its roofline over a traced run (%): the least
+    time of its recorded calls over its device time; None where it did
+    not run."""
+    t, cap = run.trace, run.capture
+    if t is None or cap is None or t.kernel_s.get(kname, 0.0) <= 0:
+        return None
+    return 100.0 * cap.least_seconds(kname) / t.kernel_s[kname]

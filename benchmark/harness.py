@@ -224,9 +224,11 @@ class Run:
     def window(self) -> None:
         """A closed loop with one client for ``seconds``: batches back to
         back from the pool, each done when its logits are on the host; a
-        batch that raises or gives logits that are not finite fails."""
+        batch that raises or gives logits that are not finite fails.  The
+        logits are judged finite once the window has closed, so that the
+        harness's own test takes no host time between batches."""
         import torch
-        lat, outputs, failed, i = [], [], 0, 0
+        done, failed, i = [], 0, 0
         n_pool = len(self.pool)
         _sync(self.device)
         t0 = time.perf_counter()
@@ -241,17 +243,15 @@ class Run:
                     print(f"batch {i} failed: {err}", file=sys.stderr)
                     failed, i = failed + 1, i + 1
                     continue
-                te = time.perf_counter()
-                if bool(torch.isfinite(y).all()):
-                    lat.append(te - ts)
-                    outputs.append((i, y))
-                else:
-                    failed += 1
+                done.append((i, y, time.perf_counter() - ts))
                 i += 1
-        self.win = {"wall_s": time.perf_counter() - t0, "latencies_s": lat,
+        wall = time.perf_counter() - t0
+        finite = [(j, y, s) for j, y, s in done if bool(torch.isfinite(y).all())]
+        lat = [s for _, _, s in finite]
+        self.win = {"wall_s": wall, "latencies_s": lat,
                     "images": len(lat) * self.batch, "attempted": i,
-                    "failed": failed}
-        self.outputs = outputs
+                    "failed": failed + len(done) - len(finite)}
+        self.outputs = [(j, y) for j, y, _ in finite]
 
     # ---- the traced part ----------------------------------------------------
 

@@ -134,6 +134,6 @@ def test_paths_hold_only_names_of_names():
 
 def test_work_functions():
     work = harness.work_functions()
-    assert {"qmatmul", "qconv3x3", "qstem"} <= set(work)
+    assert {"qmatmul", "qconv3x3", "qstem", "flash_mha"} <= set(work)
     for mod in work.values():
         assert len(mod.WRAPPER) == 2 and mod.KERNELS and callable(mod.work)

@@ -9,6 +9,7 @@ import subprocess
 import sys
 
 import pytest
+import torch
 
 from benchmark import harness, readings
 from benchmark.tests.tiny import tiny_run
@@ -17,9 +18,10 @@ KEYS = ["correct", "attempted", "failed", "metrics", "device"]
 CELLS = [w["name"] for w in harness.load_json(harness.ROOT / "BENCHMARK.json")["workloads"]]
 
 
+@pytest.mark.parametrize("cell", CELLS)
 @pytest.mark.parametrize("traced", [False, True])
-def test_last_line_keys(traced):
-    result = tiny_run("r50_fp8.b256", traced=traced)
+def test_last_line_keys(cell, traced):
+    result = tiny_run(cell, traced=traced)
     want = KEYS + (["breakdown"] if traced else []) + ["checks"]
     assert list(result) == want
     assert set(result["device"]) >= {"platform", "kind", "count", "memory_peak_bytes"}
@@ -46,6 +48,21 @@ def test_fault_turns_correct_false(cell, fault):
         return broken(self.model(x, mode="fixed", quant_w=self.quant_w, quant_a=True))
 
     assert tiny_run(cell, forward=forward)["correct"] is False
+
+
+def test_logits_not_finite_fail():
+    """A batch whose logits are not finite fails, judged once the window
+    has closed: it counts as failed and adds neither images nor a
+    latency."""
+    def forward(self, x):
+        y = self.model(x, mode="fixed", quant_w=self.quant_w, quant_a=True)
+        return torch.full_like(y, float("nan"))
+
+    result = tiny_run(CELLS[0], forward=forward)
+    assert result["correct"] is False
+    assert result["failed"] == result["attempted"] > 0
+    assert "images_per_s" not in result["metrics"]
+    assert "batch_ms_p95" not in result["metrics"]
 
 
 @pytest.mark.parametrize("cell", CELLS)

@@ -1,14 +1,18 @@
 """Cells cut to a size the CPU runs in seconds, for the tests: two-image
-batches, a pool of two, 32x32 images, two calibration images, one batch
-profiled and checked."""
+batches, a pool of two, two calibration images, one batch profiled and
+checked; 32x32 images, but 224x224 for the ViT, which the port's CLI builds
+for that size alone (its position embedding)."""
 
 from benchmark import harness
+
+SIZE = {"resnet": 32, "vit": 224}
 
 
 def tiny_cell(name: str) -> harness.Cell:
     cell = harness.Cell(name, harness.load_json(harness.ROOT / "BENCHMARK.json"))
     cell.traffic = dict(cell.traffic, batch=2, pool=2,
-                        images=dict(cell.traffic["images"], size=32))
+                        images=dict(cell.traffic["images"],
+                                   size=SIZE[cell.config["architecture"]]))
     cell.config = dict(cell.config, calibration_images=2)
     return cell
 
